@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Drives the port (``src/repro_torch``) through its main path and checks it:
+
+1. device and build: the card's name and power limit, then the sm_90a
+   flash-attention kernel built from ``csrc/flash_fwd.cu``;
+2. kernels: the kernel against its plain PyTorch twin on the six
+   ``FLASH_CASES`` x {f32, bf16}, the full-width llama3.2-3b layer shape
+   and a ragged S = 1000; times of the kernel, the twin and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it);
+3. prefill step: llama3.2-3b at full width (28 layers, random weights from
+   a seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
+   with the kernel's launches counted; then the kernel path against the
+   plain (naive) path with the same weights in fp32 at full width;
+4. generate: 4 requests of 512 prompt tokens + 16 greedy tokens through
+   ``repro_torch.launch.serve.generate``, and the batched prefill ==
+   sequential decode fill invariant on a short prompt.
+
+Every phase prints one JSON line.  Any failed check exits non-zero.  The
+line before the last is the kernel table, the last the device line.  It
+needs the card: without one, or without the repo's sources beside it, it
+exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+FLASH_CASES = [
+    # (b, hq, hkv, sq, skv, d, causal, block_q, block_kv), tests/test_kernels.py
+    (1, 2, 2, 128, 128, 64, True, 64, 64),
+    (2, 4, 2, 256, 256, 64, True, 128, 128),
+    (1, 8, 1, 128, 128, 128, True, 64, 64),
+    (1, 2, 2, 200, 200, 64, True, 64, 64),
+    (1, 2, 2, 128, 256, 64, False, 64, 128),
+    (2, 2, 2, 256, 256, 32, True, 256, 256),
+]
+FULL_SHAPE = (2, 24, 8, 4096, 4096, 128, True, 512, 1024)   # llama3.2-3b
+RAGGED_SHAPE = (2, 24, 8, 1000, 1000, 128, True, 512, 1024)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
+# Both sum in fp32 in another order through 28 layers; computing either in
+# bf16 (or TF32) gives errors near 1e-2.
+LOGITS_REL_TOL = 1e-3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, phase: str, what: str) -> None:
+    if not ok:
+        emit({"phase": phase, "ok": False, "failed": what})
+        sys.exit(1)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels.flash_attention import kernel as fa
+    except ImportError as e:
+        print(f"chip_smoke: the port's sources are missing ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    gpu = gpu.splitlines()[0]
+    print(gpu, flush=True)
+
+    # ---- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    fa.build()
+    log = fa.library_path().with_suffix(".log")
+    regs = [ln.split("info    : ")[-1] for ln in
+            (log.read_text().splitlines() if log.exists() else [])
+            if "registers" in ln]
+    emit({"phase": "build", "ok": True, "gpu": gpu,
+          "build_s": time.perf_counter() - t0, "ptxas": regs})
+
+    kernel_row = phase_kernels(torch, fa, gpu)
+    kernel_row["launches"] = phase_prefill(torch, fa, gpu)
+    phase_generate(torch, fa, gpu)
+
+    emit({"phase": "done", "ok": True,
+          "wall_s": time.perf_counter() - t_start})
+    print(json.dumps({"kernels": [kernel_row]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _inputs(torch, case, dtype, seed):
+    b, hq, hkv, sq, skv, d = case[:6]
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    return rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
+
+
+def _compare(got, want, rtol, atol):
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    return ok, err.max().item()
+
+
+def _median_ms(torch, fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def flash_bound(case, dtype_name):
+    """Least time (ms) the card needs for one call: the larger of the
+    operations this call's mask keeps over the dtype's peak and the bytes
+    of q, k, v and o over HBM bandwidth."""
+    b, hq, hkv, sq, skv, d, causal = case[:7]
+    if causal:   # top-left: query row i sees keys 0..i
+        pairs = sum(min(i + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    flops = 4 * d * b * hq * pairs
+    nbytes = (2 if dtype_name == "bfloat16" else 4) * d * (
+        2 * b * hq * sq + 2 * b * hkv * skv)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+# ---------------------------------------------------------------------------
+# 2. kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def phase_kernels(torch, fa, gpu):
+    import torch.nn.functional as F
+
+    results = []
+    for case in FLASH_CASES + [RAGGED_SHAPE, FULL_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v = _inputs(torch, case, dtype, seed=len(results))
+            causal, bq, bkv = case[6:]
+            got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                         block_q=bq, block_kv=bkv)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                block_q=bq, block_kv=bkv)
+            ok, err = _compare(got, want, **TOL[name])
+            results.append({"case": list(case[:7]), "dtype": name,
+                            "max_abs_err": err, "ok": ok})
+            check(ok, "kernels", f"{case} {name}: max_abs_err {err}")
+            del q, k, v, got, want
+    emit({"phase": "kernels", "ok": True, "checked": len(results),
+          "worst": max(r["max_abs_err"] for r in results),
+          "results": results})
+
+    # times at the full-width layer shape, bf16 (what the prefill step runs)
+    q, k, v = _inputs(torch, FULL_SHAPE, torch.bfloat16, seed=123)
+    causal, bq, bkv = FULL_SHAPE[6:]
+    out = fa.flash_attention_fwd(q, k, v, causal=causal)
+    want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                        block_q=bq, block_kv=bkv)
+    _, err = _compare(out, want, **TOL["bfloat16"])
+    ms = _median_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, causal=causal), reps=10)
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=causal, block_q=bq, block_kv=bkv), reps=5)
+    groups = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(groups, dim=1)
+    vv = v.repeat_interleave(groups, dim=1)
+    lib_out = F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+    _, lib_err = _compare(out, lib_out, **TOL["bfloat16"])
+    library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kk, vv, is_causal=True), reps=10)
+    bound_ms, bound_by, flops = flash_bound(FULL_SHAPE, "bfloat16")
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "shape": list(FULL_SHAPE[:7]), "dtype": "bfloat16",
+          "kernel_ms": ms, "plain_ms": plain_ms, "sdpa_ms": library_ms,
+          "sdpa_max_abs_diff": lib_err, "bound_ms": bound_ms,
+          "bound_by": bound_by, "kernel_tflops": flops / ms / 1e9,
+          "roofline_share": bound_ms / ms})
+    del q, k, v, kk, vv, out, want, lib_out
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# 3. full-width prefill step
+# ---------------------------------------------------------------------------
+
+def phase_prefill(torch, fa, gpu):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_prefill_step
+
+    base = ARCHS["llama3.2-3b"]
+    cfg = dataclasses.replace(base, attention_impl="pallas")
+    b, s = 2, 4096
+    g = torch.Generator("cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    batch = {"tokens": tokens}
+
+    model = build_model(cfg)
+    params = model.init(0)
+    step = make_prefill_step(model)
+    step(params, batch)                         # warm-up (cuBLAS, build)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.LAUNCHES = 0                             # counted main-path run
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    check(launches > 0, "prefill", "the kernel was never launched")
+    check(launches == cfg.n_layers, "prefill",
+          f"{launches} kernel launches for {cfg.n_layers} layers")
+    check(logits.shape == (b, s, 128256) and bool(logits.isfinite().all()),
+          "prefill", f"logits {tuple(logits.shape)} not finite")
+    times = [first_s]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    arg_kernel = logits[..., :cfg.vocab].argmax(-1)
+    del logits
+
+    naive = build_model(dataclasses.replace(cfg, attention_impl="naive"))
+    logits_plain = naive.forward(params, batch)
+    agree = (logits_plain[..., :cfg.vocab].argmax(-1) == arg_kernel) \
+        .float().mean().item()
+    del logits_plain, params, arg_kernel
+    torch.cuda.empty_cache()
+    emit({"phase": "prefill", "ok": True, "gpu": gpu, "arch": cfg.name,
+          "batch": b, "seq": s, "dtype": cfg.dtype,
+          "kernel_launches": launches, "step_s": step_s,
+          "step_times_s": times, "tokens_per_s": b * s / step_s,
+          "peak_gb": peak_gb, "bf16_argmax_agreement_vs_plain": agree})
+
+    # fp32 at full width: kernel path against the plain path, same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(0)
+    pos = [0, 511, s - 1]
+    with torch.no_grad():
+        a = model32.forward(params32, batch)[:, pos].float()
+        ref = build_model(dataclasses.replace(cfg32, attention_impl="naive")) \
+            .forward(params32, batch)[:, pos].float()
+    rel = ((a - ref).abs().max() / ref.abs().max()).item()
+    del params32, a, ref
+    torch.cuda.empty_cache()
+    ok = rel <= LOGITS_REL_TOL
+    emit({"phase": "prefill_fp32_parity", "ok": ok, "positions": pos,
+          "max_rel_err": rel, "tol": LOGITS_REL_TOL})
+    check(ok, "prefill_fp32_parity", f"max_rel_err {rel}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 4. generate through the server code
+# ---------------------------------------------------------------------------
+
+def phase_generate(torch, fa, gpu):
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(0)
+    n_req, plen, gen_tokens = 4, 512, 16
+    g = torch.Generator("cuda").manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
+                            device="cuda")
+    generate(model, params, prompts, 2)                   # warm-up
+    fa.LAUNCHES = 0
+    out = generate(model, params, prompts, gen_tokens)
+    launches = fa.LAUNCHES
+    toks = out.tokens
+    check(toks.shape == (n_req, gen_tokens)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "generate", f"tokens {tuple(toks.shape)} out of range")
+    emit({"phase": "generate", "ok": True, "gpu": gpu, "requests": n_req,
+          "prompt": plen, "gen_tokens": gen_tokens, "mode": out.mode,
+          "prefill_ms": out.prefill_s * 1e3,
+          "prefill_tokens_per_s": n_req * plen / out.prefill_s,
+          "decode_ms": out.decode_s * 1e3,
+          "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
+          "kernel_launches": launches,
+          "first_request_tokens": toks[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+
+    # batched prefill == sequential decode fill (tests/test_serve.py:551),
+    # full width in fp32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(0)
+    b, short, max_seq = 2, 8, 16
+    ids = prompts[:b, :short]
+    with torch.no_grad():
+        seq = model32.decode_init(b, max_seq)
+        for t in range(short):
+            l_seq, seq = model32.decode_fn(
+                params32, seq, ids[:, t],
+                torch.full((b,), t, dtype=torch.int32, device="cuda"))
+        pre = model32.decode_init(b, max_seq)
+        l_pre, pre = model32.prefill_fn(params32, pre, ids)
+    rel = ((l_pre - l_seq).abs().max() / l_seq.abs().max()).item()
+    cache_err = max((pre[n] - seq[n]).abs().max().item() for n in ("k", "v"))
+    ok = rel <= LOGITS_REL_TOL and cache_err <= LOGITS_REL_TOL
+    emit({"phase": "prefill_equals_sequential_fill", "ok": ok,
+          "prompt": short, "dtype": "float32", "max_rel_err": rel,
+          "cache_max_abs_err": cache_err, "tol": LOGITS_REL_TOL})
+    check(ok, "prefill_equals_sequential_fill",
+          f"max_rel_err {rel}, cache {cache_err}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of the ``repro`` package for one NVIDIA H100.
+
+The JAX package under ``src/repro`` is the reference; this package imports
+``torch`` and never ``jax`` or anything of ``repro``.  Module names mirror
+the reference.  Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
+twin.
+
+Ported so far (dense-LM serving, llama3.2-3b family):
+
+    configs/                     architecture dataclasses (plain copy)
+    models/layers.py             rmsnorm, dense, embed, rope, swiglu
+    models/attention.py          naive / blockwise / flash dispatch, KV cache
+    models/transformer.py        dense decoder LM: forward, prefill, decode
+    models/model.py              Model / build_model / reduce_config
+    kernels/flash_attention/     hand-written sm_90a CUDA forward kernel
+    convert.py                   reference param tree (numpy) -> port modules
+    train/step.py                prefill / decode step callables
+    launch/serve.py              ``generate``: batched prefill + greedy decode
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

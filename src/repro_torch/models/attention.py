@@ -1,0 +1,215 @@
+"""GQA attention: naive, blockwise and flash-kernel backends, plus the
+KV-cache prefill and decode.
+
+Port of ``repro/models/attention.py`` (dense self-attention; the
+cross-attention arguments come with the multimodal slice).  Tensors are
+(B, S, H, hd) as in the reference.  ``attention_forward`` keeps the
+reference's dispatch: naive when ``s <= cfg.block_q``, else the flash
+kernel for ``attention_impl="pallas"`` and blockwise for "blockwise".
+The kernel takes GQA natively, so it gets the un-repeated K/V (same
+function, less memory).
+
+The KV cache is updated in place: ``prefill_attention`` and
+``decode_attention`` write into the cache slices they are given and
+return them.  The decode write at ``cache_len`` is an indexed store where
+the reference uses a one-hot blend; the values are identical.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
+                   dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
+        "wq": layers.dense_init(gen, d, cfg.n_heads * hd, dtype=dtype),
+        "wk": layers.dense_init(gen, d, cfg.n_kv_heads * hd, dtype=dtype),
+        "wv": layers.dense_init(gen, d, cfg.n_kv_heads * hd, dtype=dtype),
+        "wo": layers.dense_init(gen, cfg.n_heads * hd, d, dtype=dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B,S,KV,hd) -> (B,S,KV*groups,hd) by repeating each kv head."""
+    if groups == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, groups, hd) \
+        .reshape(b, s, kv * groups, hd)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd).  O(Sq*Sk) memory: small seq only."""
+    sq, hd = q.shape[1], q.shape[3]
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(qi < ki, NEG_INF)
+    if kv_len is not None:
+        keep = torch.arange(sk, device=q.device)[None, None, None, :] \
+            < kv_len[:, None, None, None]
+        scores = scores.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, block_q: int = 512,
+                        block_kv: int = 1024, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """Flash-style online-softmax attention in plain PyTorch over KV blocks.
+
+    Memory O(Sq * block_kv) instead of O(Sq * Sk).  Like the reference it
+    visits every kv block (masked ones add exact zeros).
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    block_q = min(block_q, sq)
+    block_kv = min(block_kv, sk)
+    n_q = -(-sq // block_q)
+    n_kv = -(-sk // block_kv)
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        q_blk = q[:, qi * block_q:(qi + 1) * block_q]
+        q_pos = qi * block_q + torch.arange(q_blk.shape[1], device=dev) \
+            + q_offset
+        acc = torch.zeros(b, h, q_blk.shape[1], hd, device=dev)
+        m = torch.full((b, h, q_blk.shape[1]), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        for ki in range(n_kv):
+            k_blk = k[:, ki * block_kv:(ki + 1) * block_kv]
+            v_blk = v[:, ki * block_kv:(ki + 1) * block_kv]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk).float() * scale
+            if causal:
+                k_pos = ki * block_kv + torch.arange(k_blk.shape[1],
+                                                     device=dev)
+                s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), v_blk).float()
+            m = m_new
+        out = acc / l[..., None].clamp_min(1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
+                      positions: torch.Tensor, causal: bool = True
+                      ) -> torch.Tensor:
+    """Self-attention sub-layer: proj -> rope -> attend -> out-proj."""
+    dt = layers.dtype_of(cfg.dtype)
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = layers.dense(params["wq"], x, dt).view(b, s, h, hd)
+    k = layers.dense(params["wk"], x, dt).view(b, s, kv, hd)
+    v = layers.dense(params["wv"], x, dt).view(b, s, kv, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    impl = cfg.attention_impl
+    if impl not in ("naive", "pallas", "blockwise"):
+        # "skip" is the reference's cost-probe mode (launch/probe.py)
+        raise NotImplementedError(f"attention_impl {impl!r} is not ported")
+    if impl == "pallas" and s > cfg.block_q:
+        o = flash_attention(q, k, v, causal=causal, block_q=cfg.block_q,
+                            block_kv=cfg.block_kv)
+    elif impl == "blockwise" and s > cfg.block_q:
+        o = blockwise_attention(q, _repeat_kv(k, h // kv),
+                                _repeat_kv(v, h // kv), causal=causal,
+                                block_q=cfg.block_q, block_kv=cfg.block_kv)
+    else:
+        o = naive_attention(q, _repeat_kv(k, h // kv),
+                            _repeat_kv(v, h // kv), causal=causal)
+    return layers.dense(params["wo"], o.reshape(b, s, h * hd), dt)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
+                  dtype: torch.dtype = torch.bfloat16, *, device
+                  ) -> Dict[str, torch.Tensor]:
+    shape = (n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched prefill: project/rope the whole prompt, write it into
+    ``cache[:, :S]`` (in place), attend causally over the stored K/V.
+
+    x: (B, S, d); cache_k/v: (B, max_seq, KV, hd), empty (the prompt
+    starts at position 0).  Returns (out, cache_k, cache_v).
+    """
+    dt = layers.dtype_of(cfg.dtype)
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = layers.dense(params["wq"], x, dt).view(b, s, h, hd)
+    k = layers.dense(params["wk"], x, dt).view(b, s, kv, hd)
+    v = layers.dense(params["wv"], x, dt).view(b, s, kv, hd)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    cache_k[:, :s] = k.to(cache_k.dtype)
+    cache_v[:, :s] = v.to(cache_v.dtype)
+    # attend over the *stored* K/V so dtype rounding matches decode exactly
+    o = naive_attention(q, _repeat_kv(cache_k[:, :s], h // kv),
+                        _repeat_kv(cache_v[:, :s], h // kv), causal=True)
+    return layers.dense(params["wo"], o.reshape(b, s, h * hd), dt), \
+        cache_k, cache_v
+
+
+def decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, *,
+                     cache_len: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode: write K/V at ``cache_len`` (in place), attend
+    over the prefix.
+
+    x: (B, 1, d); cache_k/v: (B, max_seq, KV, hd); cache_len: (B,) current
+    lengths.  Returns (out, cache_k, cache_v).
+    """
+    dt = layers.dtype_of(cfg.dtype)
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = layers.dense(params["wq"], x, dt).view(b, 1, h, hd)
+    k = layers.dense(params["wk"], x, dt).view(b, 1, kv, hd)
+    v = layers.dense(params["wv"], x, dt).view(b, 1, kv, hd)
+    pos = cache_len[:, None]
+    q = layers.apply_rope(q, pos, cfg.rope_theta)
+    k = layers.apply_rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, cache_len] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, cache_len] = v[:, 0].to(cache_v.dtype)
+    o = naive_attention(q, _repeat_kv(cache_k, h // kv),
+                        _repeat_kv(cache_v, h // kv), causal=False,
+                        kv_len=cache_len + 1)
+    return layers.dense(params["wo"], o.reshape(b, 1, h * hd), dt), \
+        cache_k, cache_v

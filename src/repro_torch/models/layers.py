@@ -1,0 +1,129 @@
+"""Shared neural-net layers as plain functions on tensors.
+
+Port of ``repro/models/layers.py``.  Every matmul casts to the config's
+compute dtype, as the reference does at each use; the port may hold matmul
+weights in that dtype already, which makes the cast a no-op.  Norm scales
+stay float32.  The reference's ``tag``/``constrain`` annotations are the
+identity on one device outside autodiff and are dropped.
+
+Every random draw takes a ``torch.Generator``; the tensor lands on the
+generator's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, *, device) -> torch.Tensor:
+    return torch.ones(d, dtype=torch.float32, device=device)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embedding
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, std: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(d_in, d_out) kernel ~ N(0, 1/d_in), drawn in float32."""
+    return _normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
+
+
+def dense(kernel: torch.Tensor, x: torch.Tensor,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return x.to(compute_dtype) @ kernel.to(compute_dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(vocab, d) table ~ N(0, 0.02^2), drawn in float32."""
+    return _normal(gen, (vocab, d), 0.02, dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return F.embedding(tokens, table).to(compute_dtype)
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Logits projection through a tied (V, d) table."""
+    return x.to(compute_dtype) @ table.to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, *, device=None
+                     ) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions[..., :, None].float() * freqs       # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    return {"gate": dense_init(gen, d, d_ff, dtype=dtype),
+            "up": dense_init(gen, d, d_ff, dtype=dtype),
+            "down": dense_init(gen, d_ff, d, dtype=dtype)}
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s formula, x * (1 / (1 + exp(-x))), rounded to the
+    dtype after each step as the reference is (``F.silu`` rounds once, so
+    its bf16 results differ from the reference's by an ulp in many
+    elements)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu(params, x: torch.Tensor,
+           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    g = dense(params["gate"], x, compute_dtype)
+    u = dense(params["up"], x, compute_dtype)
+    return dense(params["down"], silu(g) * u, compute_dtype)

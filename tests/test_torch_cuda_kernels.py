@@ -1,0 +1,88 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins.
+
+Needs a CUDA card (sm_90a); every case skips without one.  This file
+imports no JAX, so it runs on the card's machine:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
+
+torch.set_num_threads(1)
+
+FLASH_CASES = [
+    # (b, hq, hkv, sq, skv, d, causal), the shapes of tests/test_kernels.py
+    # plus the llama3.2-3b layer shape at a ragged length
+    (1, 2, 2, 128, 128, 64, True),
+    (2, 4, 2, 256, 256, 64, True),
+    (1, 8, 1, 128, 128, 128, True),
+    (1, 2, 2, 200, 200, 64, True),
+    (1, 2, 2, 128, 256, 64, False),
+    (2, 2, 2, 256, 256, 32, True),
+    (1, 2, 2, 128, 256, 64, True),          # top-left causal, Sq != Skv
+    (2, 24, 8, 1000, 1000, 128, True),
+]
+
+
+def _tol(dtype):
+    # tests/test_kernels.py:_tol
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the sm_90a kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype):
+    b, hq, hkv, sq, skv, d, causal = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda_device, dt)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = K.LAUNCHES
+    got = K.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    want = K.flash_attention_fwd_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(dt))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_bshd_strides(cuda_device):
+    """(B, S, H, D) tensors go in as transposed views and come out in the
+    same layout, with no copy."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 300, 8, 64), np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((2, 300, 2, 64), np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    got = K.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                k.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = K.flash_attention_fwd_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                       k.transpose(1, 2))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_unsupported_head_dim(cuda_device):
+    q = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError):
+        K.flash_attention_fwd(q, q, q)

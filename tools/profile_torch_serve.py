@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the PyTorch port's serving path on one CUDA card.
+
+    python3 tools/profile_torch_serve.py
+
+Profiles, with ``torch.profiler``, llama3.2-3b at full width (28 layers,
+random weights from seed 0, bf16, ``attention_impl="pallas"``):
+
+- one prefill step at B = 2, S = 4096 (the flash kernel in every layer);
+- four greedy decode steps after a 4 x 512 batched prefill (the ``generate``
+  server's loop).
+
+For each it prints one JSON line: the wall time, the device time summed
+over kernels, the device's idle share of the wall time, and the kernels
+that took the most device time.  Needs the card; it raises without one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.train.step import (make_decode_step,  # noqa: E402
+                                    make_prefill_step)
+
+TOP = 12
+
+
+def _device_us(evt) -> float:
+    """Device time of a kernel row; 0 for host-side operator rows, whose
+    device time is that of the kernels they launched (counted there)."""
+    if evt.device_type != DeviceType.CUDA or evt.key == "Command Buffer Full":
+        return 0.0      # the latter is a CUPTI launch-queue marker
+    return float(getattr(evt, "self_device_time_total", 0.0)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def profiled(label: str, fn) -> None:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
+    rows = [r for r in rows if r[2] > 0]
+    busy_us = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    print(json.dumps({
+        "profile": label, "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
+        "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3,
+                 "share": us / busy_us} for k, c, us in rows[:TOP]],
+    }), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_serve: needs a CUDA card")
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(0)
+    g = torch.Generator("cuda").manual_seed(7)
+
+    tokens = torch.randint(0, cfg.vocab, (2, 4096), generator=g,
+                           device="cuda")
+    prefill = make_prefill_step(model)
+    prefill(params, {"tokens": tokens})                  # warm-up
+    profiled("prefill_step_b2_s4096",
+             lambda: prefill(params, {"tokens": tokens}))
+
+    b, plen = 4, 512
+    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
+                            device="cuda")
+    decode = make_decode_step(model)
+    state = model.decode_init(b, plen + 16)
+    with torch.no_grad():
+        logits, state = model.prefill_fn(params, state, prompts)
+    cur = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+
+    def steps(n, start):
+        nonlocal cur, state
+        for i in range(n):
+            lens = torch.full((b,), start + i, dtype=torch.int32,
+                              device="cuda")
+            out, state = decode(params, state,
+                                {"tokens": cur, "cache_len": lens})
+            cur = out[:, :cfg.vocab].argmax(-1).to(torch.int32)
+
+    steps(2, plen)                                       # warm-up
+    profiled("decode_4_steps_b4_ctx512", lambda: steps(4, plen + 2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
