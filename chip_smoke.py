@@ -3,22 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port (``src/repro_torch``) through its main path and checks it:
+Drives the port (``src/repro_torch``) through its main paths and checks
+them:
 
-1. device and build: the card's name and power limit, then the sm_90a
-   flash-attention kernel built from ``csrc/flash_fwd.cu``;
-2. kernels: the kernel against its plain PyTorch twin on the six
-   ``FLASH_CASES`` x {f32, bf16}, the full-width llama3.2-3b layer shape
-   and a ragged S = 1000; times of the kernel, the twin and
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it);
-3. prefill step: llama3.2-3b at full width (28 layers, random weights from
-   a seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
-   with the kernel's launches counted; then the kernel path against the
-   plain (naive) path with the same weights in fp32 at full width;
-4. generate: 4 requests of 512 prompt tokens + 16 greedy tokens through
-   ``repro_torch.launch.serve.generate``, and the batched prefill ==
-   sequential decode fill invariant on a short prompt.
+1. device and build: the card's name and power limit, then both sm_90a
+   kernels built at once from the checkout (``csrc/flash_fwd.cu`` and
+   ``csrc/ssd_chunk.cu``, one nvcc each), with ptxas' reports;
+2. kernels: each kernel against its plain PyTorch twin.  Flash: the six
+   ``FLASH_CASES`` x {f32, bf16}, D = 112 cases, and the full-width
+   llama3.2-3b (D = 128) and zamba2-7b (D = 112) layer shapes, ragged and
+   full.  SSD: the four ``SSD_CASES`` of tests/test_kernels.py, zamba2-7b's
+   mamba layer at B = 2, S = 4096 and at a ragged S = 4000, all three
+   outputs.  Then the times of each kernel, its twin and, for flash,
+   ``scaled_dot_product_attention`` (a yardstick only: the port never calls
+   it; no single PyTorch call computes the SSD chunk), beside the bound;
+3. llama3.2-3b prefill step: full width (28 layers, random weights from a
+   seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
+   with the flash kernel's launches counted; then the kernel path against
+   the plain (naive) path with the same weights in fp32 at full width;
+4. llama3.2-3b generate: 4 requests of 512 prompt tokens + 16 greedy
+   tokens through ``repro_torch.launch.serve.generate``, and the batched
+   prefill == sequential decode fill invariant on a short prompt;
+5. zamba2-7b prefill step: full width and depth (81 mamba layers, the
+   shared attention block applied 13 times), B = 2, S = 4096, bf16,
+   ``attention_impl="pallas"``, with 81 SSD and 13 flash launches counted;
+6. zamba2-7b generate: 4 requests of 128 prompt tokens + 16 greedy tokens,
+   the state filled token by token (the family has no batched prefill);
+7. zamba2-7b fp32 parity: at full width and a depth of 7 (one group of 6
+   and one tail layer), the kernel path on the card against the plain path
+   (the same weights on the CPU, where every wrapper runs its twin).
 
 Every phase prints one JSON line.  Any failed check exits non-zero.  The
 line before the last is the kernel table, the last the device line.  It
@@ -28,12 +41,14 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +68,19 @@ FLASH_CASES = [
 ]
 FULL_SHAPE = (2, 24, 8, 4096, 4096, 128, True, 512, 1024)   # llama3.2-3b
 RAGGED_SHAPE = (2, 24, 8, 1000, 1000, 128, True, 512, 1024)
+D112_CASES = [(1, 2, 2, 200, 200, 112, True, 64, 64),
+              (2, 32, 32, 1000, 1000, 112, True, 512, 1024)]
+ZAMBA_SHAPE = (2, 32, 32, 4096, 4096, 112, True, 512, 1024)  # zamba2-7b
+SSD_CASES = [
+    # (b, s, h, p, n, chunk), tests/test_kernels.py:84-90
+    (1, 64, 2, 16, 16, 32),
+    (2, 128, 4, 32, 64, 64),
+    (1, 100, 2, 16, 16, 32),
+    (1, 32, 1, 64, 32, 32),
+]
+SSD_FULL = (2, 4096, 112, 64, 64, 256)      # zamba2-7b mamba layer, B = 2
+SSD_RAGGED = (2, 4000, 112, 64, 64, 256)
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)        # tests/test_kernels.py:105
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
@@ -78,7 +106,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attention import kernel as fa
+        from repro_torch.kernels.ssm_scan import kernel as ssd
     except ImportError as e:
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
@@ -94,23 +124,28 @@ def main() -> int:
     gpu = gpu.splitlines()[0]
     print(gpu, flush=True)
 
-    # ---- 1. build -----------------------------------------------------------
+    # ---- 1. build: one nvcc per source, started together -------------------
     t0 = time.perf_counter()
-    fa.build()
-    log = fa.library_path().with_suffix(".log")
-    regs = [ln.split("info    : ")[-1] for ln in
-            (log.read_text().splitlines() if log.exists() else [])
-            if "registers" in ln]
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(m.build) for m in (fa, ssd)]:
+            fut.result()
     emit({"phase": "build", "ok": True, "gpu": gpu,
-          "build_s": time.perf_counter() - t0, "ptxas": regs})
+          "build_s": time.perf_counter() - t0,
+          "ptxas": {m.SOURCE.name: _build.ptxas_report(m.SOURCE)
+                    for m in (fa, ssd)}})
 
-    kernel_row = phase_kernels(torch, fa, gpu)
-    kernel_row["launches"] = phase_prefill(torch, fa, gpu)
+    llama_row, zamba_flash_row = phase_kernels(torch, fa, gpu)
+    ssd_row = phase_ssd_kernels(torch, ssd, gpu)
+    llama_row["launches"] = phase_prefill(torch, fa, gpu)
     phase_generate(torch, fa, gpu)
+    ssd_row["launches"], zamba_flash_row["launches"] = \
+        phase_zamba(torch, fa, ssd, gpu)
+    phase_zamba_fp32_parity(torch, fa, ssd)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": [kernel_row]}), flush=True)
+    print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -171,14 +206,16 @@ def flash_bound(case, dtype_name):
 
 
 # ---------------------------------------------------------------------------
-# 2. kernel against its plain twin
+# 2. kernels against their plain twins
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch, fa, gpu):
-    import torch.nn.functional as F
-
+    """The flash kernel against its twin, then its times at the llama3.2-3b
+    (D = 128) and zamba2-7b (D = 112) layer shapes: one kernel-table row
+    for each."""
     results = []
-    for case in FLASH_CASES + [RAGGED_SHAPE, FULL_SHAPE]:
+    cases = FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE, ZAMBA_SHAPE]
+    for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q, k, v = _inputs(torch, case, dtype, seed=len(results))
@@ -193,13 +230,21 @@ def phase_kernels(torch, fa, gpu):
                             "max_abs_err": err, "ok": ok})
             check(ok, "kernels", f"{case} {name}: max_abs_err {err}")
             del q, k, v, got, want
-    emit({"phase": "kernels", "ok": True, "checked": len(results),
+    emit({"phase": "kernels", "ok": True, "kernel": "flash_attention_fwd",
+          "checked": len(results),
           "worst": max(r["max_abs_err"] for r in results),
           "results": results})
+    return (_flash_times(torch, fa, gpu, FULL_SHAPE, "llama3.2-3b"),
+            _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"))
 
-    # times at the full-width layer shape, bf16 (what the prefill step runs)
-    q, k, v = _inputs(torch, FULL_SHAPE, torch.bfloat16, seed=123)
-    causal, bq, bkv = FULL_SHAPE[6:]
+
+def _flash_times(torch, fa, gpu, shape, arch):
+    """Times at a full-width layer shape, bf16 (what the prefill step
+    runs)."""
+    import torch.nn.functional as F
+
+    q, k, v = _inputs(torch, shape, torch.bfloat16, seed=123)
+    causal, bq, bkv = shape[6:]
     out = fa.flash_attention_fwd(q, k, v, causal=causal)
     want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                         block_q=bq, block_kv=bkv)
@@ -215,9 +260,10 @@ def phase_kernels(torch, fa, gpu):
     _, lib_err = _compare(out, lib_out, **TOL["bfloat16"])
     library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
         q, kk, vv, is_causal=True), reps=10)
-    bound_ms, bound_by, flops = flash_bound(FULL_SHAPE, "bfloat16")
+    bound_ms, bound_by, flops = flash_bound(shape, "bfloat16")
     emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
-          "shape": list(FULL_SHAPE[:7]), "dtype": "bfloat16",
+          "kernel": "flash_attention_fwd", "arch": arch,
+          "shape": list(shape[:7]), "dtype": "bfloat16",
           "kernel_ms": ms, "plain_ms": plain_ms, "sdpa_ms": library_ms,
           "sdpa_max_abs_diff": lib_err, "bound_ms": bound_ms,
           "bound_by": bound_by, "kernel_tflops": flops / ms / 1e9,
@@ -228,9 +274,102 @@ def phase_kernels(torch, fa, gpu):
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+            "path": f"{arch} prefill step", "shape": list(shape[:7]),
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+def ssd_bound(case):
+    """Least time (ms) the card needs for one SSD chunk call on ``case``'s
+    chunks: the larger of the matrix operations the function needs on the
+    pairs the causal mask keeps over the fp32 peak, and the fp32 bytes of
+    its inputs and outputs over HBM bandwidth.  B and C are one group, so
+    C Bᵀ (2n per kept pair) is counted once per (batch, chunk); the
+    decay-weighted product with X (2p per kept pair) and the state
+    (2 Q n p) once per (batch, chunk, head)."""
+    b, s, h, p, n, chunk = case
+    q = min(chunk, s)
+    nc = -(-s // q)
+    ctas = b * nc * h
+    pairs = q * (q + 1) // 2
+    flops = b * nc * pairs * 2 * n + ctas * (pairs * 2 * p + 2 * q * n * p)
+    floats = (2 * b * nc * q * h * p          # x, y
+              + b * nc * q * h + h            # dt, A_log
+              + 2 * b * nc * q * n            # B, C
+              + ctas * n * p + ctas)          # states, chunk_lf
+    t_ops = flops / PEAK_FLOPS["float32"]
+    t_bytes = 4 * floats / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
+
+
+def _ssd_inputs(torch, case, seed):
+    """Chunked (padded) float32 inputs with tests/test_kernels.py's
+    distributions: x, B, C normal, dt = softplus(normal), A_log 0.5 normal."""
+    from repro_torch.kernels.ssm_scan.ops import chunk_inputs
+
+    b, s, h, p, n, chunk = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x, B, C = rnd(b, s, h, p), rnd(b, s, n), rnd(b, s, n)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A_log = rnd(h) * 0.5
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, chunk)
+    return xc, dtc, A_log, Bc, Cc
+
+
+def phase_ssd_kernels(torch, ssd, gpu):
+    """The SSD kernel against its twin (all three outputs), then its times
+    at zamba2-7b's full-width shape: the kernel-table row."""
+    results = []
+    for case in SSD_CASES + [SSD_RAGGED, SSD_FULL]:
+        ins = _ssd_inputs(torch, case, seed=len(results))
+        got = ssd.ssd_chunk(*ins)
+        torch.cuda.synchronize()
+        want = ssd.ssd_chunk_plain(*ins)
+        errs = []
+        for name, g, w in zip(("y_diag", "states", "chunk_lf"), got, want):
+            ok, err = _compare(g, w, **SSD_TOL)
+            check(ok and bool(g.isfinite().all()), "ssd_kernels",
+                  f"{case} {name}: max_abs_err {err}")
+            errs.append(err)
+        results.append({"case": list(case), "max_abs_err": max(errs),
+                        "per_output": errs, "ok": True})
+        del ins, got, want
+    emit({"phase": "kernels", "ok": True, "kernel": "ssd_chunk",
+          "checked": len(results), "tol": SSD_TOL,
+          "worst": max(r["max_abs_err"] for r in results),
+          "results": results})
+
+    ins = _ssd_inputs(torch, SSD_FULL, seed=321)
+    err = max(_compare(g, w, **SSD_TOL)[1] for g, w in
+              zip(ssd.ssd_chunk(*ins), ssd.ssd_chunk_plain(*ins)))
+    ms = _median_ms(torch, lambda: ssd.ssd_chunk(*ins), reps=20)
+    plain_ms = _median_ms(torch, lambda: ssd.ssd_chunk_plain(*ins), reps=3)
+    bound_ms, bound_by, flops, nbytes = ssd_bound(SSD_FULL)
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "kernel": "ssd_chunk", "arch": "zamba2-7b",
+          "shape": dict(zip("b s h p n chunk".split(), SSD_FULL)),
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "library_note": "no single PyTorch call computes the SSD chunk "
+                          "(a masked decay-weighted product and the chunk "
+                          "state)",
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
+          "roofline_share": bound_ms / ms})
+    del ins
+    torch.cuda.empty_cache()
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:61",
+            "path": "zamba2-7b prefill step", "shape": list(SSD_FULL),
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +506,132 @@ def phase_generate(torch, fa, gpu):
           "cache_max_abs_err": cache_err, "tol": LOGITS_REL_TOL})
     check(ok, "prefill_equals_sequential_fill",
           f"max_rel_err {rel}, cache {cache_err}")
+
+
+
+# ---------------------------------------------------------------------------
+# 5-6. zamba2-7b: full-width prefill step and generate
+# ---------------------------------------------------------------------------
+
+def phase_zamba(torch, fa, ssd, gpu):
+    """Returns the (SSD, flash) launches of one counted prefill step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    from repro_torch.models.zamba import layout
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = dataclasses.replace(ARCHS["zamba2-7b"], attention_impl="pallas")
+    n_groups, _ = layout(cfg)
+    b, s = 2, 4096
+    g = torch.Generator("cuda").manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device="cuda")}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    step = make_prefill_step(model)
+    step(params, batch)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ssd.LAUNCHES = fa.LAUNCHES = 0              # counted main-path run
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    ssd_launches, flash_launches = ssd.LAUNCHES, fa.LAUNCHES
+    check(ssd_launches == cfg.n_layers, "zamba_prefill",
+          f"{ssd_launches} SSD launches for {cfg.n_layers} mamba layers")
+    check(flash_launches == n_groups, "zamba_prefill",
+          f"{flash_launches} flash launches for {n_groups} applications")
+    check(logits.shape == (b, s, 32000) and bool(logits.isfinite().all()),
+          "zamba_prefill", f"logits {tuple(logits.shape)} not finite")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del logits
+    emit({"phase": "zamba_prefill", "ok": True, "gpu": gpu,
+          "arch": cfg.name, "layers": cfg.n_layers, "groups": n_groups,
+          "batch": b, "seq": s, "dtype": cfg.dtype,
+          "logits_shape": [b, s, 32000], "ssd_launches": ssd_launches,
+          "flash_launches": flash_launches, "init_s": init_s,
+          "weights_gb": weights_gb, "step_s": step_s, "step_times_s": times,
+          "tokens_per_s": b * s / step_s, "peak_gb": peak_gb})
+
+    n_req, plen, gen_tokens = 4, 128, 16
+    prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
+                            device="cuda")
+    generate(model, params, prompts[:, :4], 2)           # warm-up
+    ssd.LAUNCHES = fa.LAUNCHES = 0
+    out = generate(model, params, prompts, gen_tokens)
+    toks = out.tokens
+    check(out.mode == "sequential", "zamba_generate", f"mode {out.mode}")
+    check(toks.shape == (n_req, gen_tokens)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "zamba_generate", f"tokens {tuple(toks.shape)} out of range")
+    emit({"phase": "zamba_generate", "ok": True, "gpu": gpu,
+          "requests": n_req, "prompt": plen, "gen_tokens": gen_tokens,
+          "mode": out.mode, "prefill_ms": out.prefill_s * 1e3,
+          "prefill_tokens_per_s": n_req * plen / out.prefill_s,
+          "decode_ms": out.decode_s * 1e3,
+          "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
+          "ssd_launches": ssd.LAUNCHES, "flash_launches": fa.LAUNCHES,
+          "first_request_tokens": toks[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+    return ssd_launches, flash_launches
+
+
+# ---------------------------------------------------------------------------
+# 7. zamba2-7b fp32: kernel path on the card against the plain path
+# ---------------------------------------------------------------------------
+
+def phase_zamba_fp32_parity(torch, fa, ssd):
+    """Full width, depth 7 (one group of 6 mamba layers + the shared block,
+    then one tail layer), S = 640 > block_q so the flash kernel runs and
+    the last of three SSD chunks is ragged.  The plain path is the same
+    weights on the CPU, where every kernel wrapper runs its plain twin."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+    from repro_torch.models.zamba import layout
+
+    cfg = dataclasses.replace(ARCHS["zamba2-7b"], attention_impl="pallas",
+                              dtype="float32", n_layers=7)
+    expected = {"ssd": cfg.n_layers, "flash": layout(cfg)[0]}
+    model = build_model(cfg)
+    params = model.init(0)
+    g = torch.Generator("cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
+                           device="cuda")
+    ssd.LAUNCHES = fa.LAUNCHES = 0
+    with torch.no_grad():
+        got = model.forward(params, {"tokens": tokens}).cpu()
+    launches = {"ssd": ssd.LAUNCHES, "flash": fa.LAUNCHES}
+    check(launches == expected, "zamba_fp32_parity",
+          f"kernel launches {launches}, expected {expected}")
+    params_cpu = copy.deepcopy(params).to("cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model.forward(params_cpu, {"tokens": tokens.cpu()})
+    cpu_s = time.perf_counter() - t0
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ok = rel <= LOGITS_REL_TOL and bool(got.isfinite().all())
+    emit({"phase": "zamba_fp32_parity", "ok": ok, "layers": cfg.n_layers,
+          "batch": 1, "seq": 640, "kernel_launches": launches,
+          "max_rel_err": rel, "tol": LOGITS_REL_TOL,
+          "plain_path_cpu_s": cpu_s})
+    check(ok, "zamba_fp32_parity", f"max_rel_err {rel}")
 
 
 if __name__ == "__main__":

@@ -6,17 +6,22 @@ the reference.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
 twin.
 
-Ported so far (dense-LM serving, llama3.2-3b family):
+Ported so far (serving of the dense LM, llama3.2-3b family, and of the
+hybrid, zamba2-7b):
 
     configs/                     architecture dataclasses (plain copy)
     models/layers.py             rmsnorm, dense, embed, rope, swiglu
     models/attention.py          naive / blockwise / flash dispatch, KV cache
     models/transformer.py        dense decoder LM: forward, prefill, decode
+    models/ssm.py                mamba2 layer: chunked prefill, decode step
+    models/zamba.py              hybrid LM: mamba2 + one shared attention block
     models/model.py              Model / build_model / reduce_config
+    kernels/_build.py            nvcc build into build/torch_ext/, ctypes load
     kernels/flash_attention/     hand-written sm_90a CUDA forward kernel
+    kernels/ssm_scan/            hand-written sm_90a CUDA SSD chunk kernel
     convert.py                   reference param tree (numpy) -> port modules
     train/step.py                prefill / decode step callables
-    launch/serve.py              ``generate``: batched prefill + greedy decode
+    launch/serve.py              ``generate``: prefill + greedy decode
 """
 
 from repro_torch.device import resolve_device

@@ -1,50 +1,76 @@
-"""Carry the reference's dense-LM parameters into the port.
+"""Carry the reference's parameters into the port.
 
-``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` with
-every leaf as a numpy array (``jax.tree_util.tree_map(np.asarray, p)``)
-and builds the port's ``TransformerLM``:
+``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense)
+or ``zamba_init`` (hybrid) with every leaf as a numpy array
+(``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
+``TransformerLM`` or ``ZambaLM``:
 
-- the stacked ``blocks`` leading axis becomes one ``Block`` per layer;
+- a stacked leading axis (``blocks``, ``mblocks``, ``tail``) becomes one
+  module per layer; the hybrid ``shared`` block is one ``Block``;
 - dense ``kernel``s stay (d_in, d_out) and the embedding ``table`` stays
   (V, d), cast to the compute dtype (the reference casts at every use);
-- norm ``scale``s stay float32.
+- norm ``scale``s and the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``
+  stay float32 (the reference casts ``conv`` at use).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zamba import ZambaLM, layout
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("gate", "up", "down")
+_SSM_F32 = ("conv", "A_log", "D", "dt_bias")
 
 
 def params_from_numpy(tree, cfg: ModelConfig,
-                      device: DeviceLike = None) -> TransformerLM:
-    if cfg.family != "dense":
+                      device: DeviceLike = None) -> nn.Module:
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = layers.dtype_of(cfg.dtype)
 
-    def t(a, dtype):
+    def t(a, dtype=torch.float32):
         return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
 
-    blocks = tree["blocks"]
-    port = {
-        "embed": t(tree["embed"]["table"], dt),
-        "blocks": [{
-            "ln1": t(blocks["ln1"]["scale"][i], torch.float32),
-            "attn": {n: t(blocks["attn"][n]["kernel"][i], dt) for n in _ATTN},
-            "ln2": t(blocks["ln2"]["scale"][i], torch.float32),
-            "mlp": {n: t(blocks["mlp"][n]["kernel"][i], dt) for n in _MLP},
-        } for i in range(cfg.n_layers)],
-        "ln_f": t(tree["ln_f"]["scale"], torch.float32),
-    }
+    def block(p, i=None):
+        """One dense block; ``i`` picks a layer of a stacked tree."""
+        def at(a):
+            return a if i is None else a[i]
+        return {
+            "ln1": t(at(p["ln1"]["scale"])),
+            "attn": {n: t(at(p["attn"][n]["kernel"]), dt) for n in _ATTN},
+            "ln2": t(at(p["ln2"]["scale"])),
+            "mlp": {n: t(at(p["mlp"][n]["kernel"]), dt) for n in _MLP},
+        }
+
+    def mamba(p, i):
+        s = p["ssm"]
+        return {"ln": t(p["ln"]["scale"][i]), "ssm": {
+            "in_proj": t(s["in_proj"]["kernel"][i], dt),
+            **{n: t(s[n][i]) for n in _SSM_F32},
+            "norm": t(s["norm"]["scale"][i]),
+            "out_proj": t(s["out_proj"]["kernel"][i], dt),
+        }}
+
+    port = {"embed": t(tree["embed"]["table"], dt),
+            "ln_f": t(tree["ln_f"]["scale"])}
     if "unembed" in tree:
         port["unembed"] = t(tree["unembed"]["kernel"], dt)
-    return TransformerLM(cfg, port)
+    if cfg.family == "dense":
+        port["blocks"] = [block(tree["blocks"], i)
+                          for i in range(cfg.n_layers)]
+        return TransformerLM(cfg, port)
+    n_groups, tail = layout(cfg)
+    port["mblocks"] = [mamba(tree["mblocks"], i)
+                       for i in range(n_groups * cfg.shared_attn_every)]
+    port["tail"] = [mamba(tree["tail"], i) for i in range(tail)]
+    port["shared"] = block(tree["shared"])
+    return ZambaLM(cfg, port)

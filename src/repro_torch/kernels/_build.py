@@ -1,0 +1,69 @@
+"""Build a kernel's CUDA source into a shared library and load it.
+
+Every kernel of the port is a ``csrc/*.cu`` file with a plain C interface.
+At first use it is compiled with ``nvcc`` for ``sm_90a`` into
+``build/torch_ext/`` at the root of the checkout (``.gitignore`` lists
+``build/``), named by the hash of its source so an edited kernel is
+rebuilt, and loaded with ``ctypes``.  nvcc's output, with ptxas' register
+and shared-memory report, is kept beside the library as ``<name>.log``.
+Builds of different sources may run at the same time (in threads or
+processes): each writes a temporary file and renames it into place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
+    ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """Compile ``source`` unless its library exists, then load it."""
+    so = library_path(source)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"({res.returncode}):\n{res.stdout}"
+                               f"{res.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
+def ptxas_report(source: Path) -> list:
+    """The register and shared-memory lines ptxas printed for ``source``."""
+    log = library_path(source).with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    return [ln.split("info    : ")[-1] for ln in lines if "registers" in ln]

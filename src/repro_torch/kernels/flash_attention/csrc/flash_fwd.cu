@@ -29,8 +29,9 @@
 // tiles (bf16 inputs are widened on load); tensor-core wgmma, TMA loads
 // and warp specialisation are later work.  Shared memory: Q tile, one
 // K/V tile and the P tile, padded by one float per row so column reads
-// hit distinct banks: 82,688 bytes at D = 128, which needs the dynamic
-// shared-memory opt-in and leaves room for two CTAs per SM.
+// hit distinct banks: 82,688 bytes at D = 128 (74,496 at D = 112, the
+// zamba2-7b head), which needs the dynamic shared-memory opt-in and leaves
+// room for two CTAs per SM.  Head dims 32, 64, 112 and 128 are built.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -239,6 +240,7 @@ cudaError_t dispatch_d(const Params& p, int batch, int d,
   switch (d) {
     case 32: return launch<T, 32>(p, batch, stream);
     case 64: return launch<T, 64>(p, batch, stream);
+    case 112: return launch<T, 112>(p, batch, stream);
     case 128: return launch<T, 128>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }

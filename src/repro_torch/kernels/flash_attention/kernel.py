@@ -3,10 +3,8 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py:
 flash_attention_fwd``.  The CUDA C++ source is ``csrc/flash_fwd.cu``
 (sm_90a); its header says what bounds it on the H100 and how the design
-answers that.  It is compiled with ``nvcc`` into a shared library with a
-plain C interface at first use, under ``build/torch_ext/`` at the root of
-the checkout, named by the hash of the source so an edited kernel is
-rebuilt, and loaded with ``ctypes``.
+answers that.  It is compiled at first use and loaded with ``ctypes`` by
+``repro_torch.kernels._build``.
 
 :func:`flash_attention_fwd` launches that kernel for CUDA tensors and
 raises on anything it does not take; for CPU tensors it runs
@@ -20,70 +18,31 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
+
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_ext"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = 0          # kernel launches; set to 0 before a counted run
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    candidates = [Path(home) / "bin" / "nvcc"] if home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.exists():
-            return str(c)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_fwd_{digest}.so"
-
-
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/flash_fwd.cu`` (once per source hash) and load it.
-
-    nvcc's output, with ptxas' register and shared-memory report, is kept
-    beside the library as ``<name>.log``.
-    """
+    """Compile ``csrc/flash_fwd.cu`` (once per source hash) and load it."""
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,

@@ -6,12 +6,14 @@ Port of the ``generate`` subcommand of ``repro/launch/serve.py``::
         --requests 4 --prompt-len 512 --gen-tokens 16
 
 Requests are batched, prefilled with one fused full-prompt forward that
-fills the KV cache (``model.prefill_fn``; ``--sequential-prefill`` forces
-the per-token cache fill instead), then decoded token by token with greedy
-sampling.  Weights are random from seed 0.  It runs on the CUDA card;
-``--device cpu`` runs the plain PyTorch path on the host.  ``--test-mesh``
-keeps its reference meaning: the reduced config.  The ``personalize``
-subcommand comes with the next slice.
+fills the KV cache (``model.prefill_fn``), then decoded token by token
+with greedy sampling.  A family with no ``prefill_fn`` (the hybrid, whose
+state is recurrent) fills its state token by token through the decode
+step, as ``--sequential-prefill`` forces for any family.  Weights are
+random from seed 0.  It runs on the CUDA card; ``--device cpu`` runs the
+plain PyTorch path on the host.  ``--test-mesh`` keeps its reference
+meaning: the reduced config.  The ``personalize`` subcommand comes with
+a later slice of the port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -36,31 +39,44 @@ class Generation:
     decode_s: float
 
 
+def _lengths(b: int, n: int, dev: torch.device) -> torch.Tensor:
+    return torch.full((b,), n, dtype=torch.int32, device=dev)
+
+
+@torch.no_grad()
+def fill(model: Model, decode: Callable, params, state,
+         prompts: torch.Tensor, *, sequential: bool = False):
+    """Fill the decode ``state`` with ``prompts`` (B, P): one batched
+    ``model.prefill_fn`` call, or token by token through ``decode`` (a
+    ``make_decode_step`` function) when asked or when the model has no
+    ``prefill_fn``.  Returns (last logits, state, "batched" | "sequential")."""
+    if sequential or model.prefill_fn is None:
+        b, plen = prompts.shape
+        for t in range(plen):
+            logits, state = decode(params, state, {
+                "tokens": prompts[:, t],
+                "cache_len": _lengths(b, t, prompts.device)})
+        return logits, state, "sequential"
+    logits, state = model.prefill_fn(params, state, prompts)
+    return logits, state, "batched"
+
+
 @torch.no_grad()
 def generate(model: Model, params, prompts: torch.Tensor, gen_tokens: int,
              *, sequential_prefill: bool = False) -> Generation:
-    """Prefill ``prompts`` (B, P) into a fresh KV cache, then greedy-decode
-    ``gen_tokens`` tokens.  Times are host clock around work that ends in a
-    device synchronise."""
+    """Prefill ``prompts`` (B, P) into a fresh decode state (``fill``), then
+    greedy-decode ``gen_tokens`` tokens.  Times are host clock around work
+    that ends in a device synchronise."""
     cfg = model.cfg
     dev = prompts.device
     b, plen = prompts.shape
     decode = make_decode_step(model)
     state = model.decode_init(b, plen + gen_tokens + 8, device=dev)
 
-    def lengths(n):
-        return torch.full((b,), n, dtype=torch.int32, device=dev)
-
     synchronize(dev)
     t0 = time.perf_counter()
-    if sequential_prefill:
-        for t in range(plen):
-            logits, state = decode(params, state, {
-                "tokens": prompts[:, t], "cache_len": lengths(t)})
-        mode = "sequential"
-    else:
-        logits, state = model.prefill_fn(params, state, prompts)
-        mode = "batched"
+    logits, state, mode = fill(model, decode, params, state, prompts,
+                               sequential=sequential_prefill)
     synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -70,7 +86,7 @@ def generate(model: Model, params, prompts: torch.Tensor, gen_tokens: int,
     for i in range(gen_tokens):
         out.append(cur)
         logits, state = decode(params, state, {
-            "tokens": cur, "cache_len": lengths(plen + i)})
+            "tokens": cur, "cache_len": _lengths(b, plen + i, dev)})
         cur = logits[:, :cfg.vocab].argmax(dim=-1).to(torch.int32)
     synchronize(dev)
     t_decode = time.perf_counter() - t0
@@ -111,7 +127,8 @@ def main() -> None:
     g.add_argument("--prompt-len", type=int, default=16)
     g.add_argument("--gen-tokens", type=int, default=16)
     g.add_argument("--sequential-prefill", action="store_true",
-                   help="force the per-token fallback prefill")
+                   help="force the per-token prefill (the only one for "
+                        "families without a batched prefill)")
     g.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     g.set_defaults(fn=run_generate)

@@ -1,13 +1,16 @@
 """Unified Model API and reduced configs.
 
-Port of ``repro/models/model.py`` for ``family == "dense"``.  ``Model``
-bundles the functions for one config:
+Port of ``repro/models/model.py`` for ``family`` "dense" and "hybrid".
+``Model`` bundles the functions for one config:
 
-    model.init(seed, device=None)              -> params (TransformerLM)
+    model.init(seed, device=None)              -> params (an nn.Module)
     model.forward(params, batch)               -> logits        (prefill)
-    model.decode_init(batch, max_seq, device=None) -> KV cache
-    model.decode_fn(params, cache, tokens, cache_len) -> (logits, cache)
-    model.prefill_fn(params, cache, tokens)    -> (last_logits, cache)
+    model.decode_init(batch, max_seq, device=None) -> decode state
+    model.decode_fn(params, state, tokens, cache_len) -> (logits, state)
+    model.prefill_fn(params, state, tokens)    -> (last_logits, state)
+
+``prefill_fn`` is None for the hybrid family, whose decode state is
+recurrent: servers fill it token by token through ``decode_fn``.
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).
@@ -17,13 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,31 +37,43 @@ class Model:
     forward: Callable
     decode_init: Callable
     decode_fn: Callable
-    prefill_fn: Callable
+    prefill_fn: Optional[Callable] = None
 
 
-def _init(cfg: ModelConfig, seed: int, *, device: DeviceLike = None
-          ) -> transformer.TransformerLM:
+def _init(init_fn: Callable, cfg: ModelConfig, seed: int, *,
+          device: DeviceLike = None) -> nn.Module:
     gen = torch.Generator(resolve_device(device)).manual_seed(seed)
-    return transformer.lm_init(gen, cfg)
+    return init_fn(gen, cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port covers the "
-            "dense LM; moe, ssm, hybrid, audio and vlm come with slice 3 "
-            "of the port (ROADMAP queue A, item 10)")
-    t = transformer
-    return Model(
-        cfg=cfg,
-        init=functools.partial(_init, cfg),
-        forward=lambda p, b: t.lm_forward(cfg, p, b["tokens"]),
-        decode_init=lambda batch, max_seq, device=None: t.lm_decode_init(
-            cfg, batch, max_seq, device=resolve_device(device)),
-        decode_fn=lambda p, s, tok, ln: t.lm_decode_step(cfg, p, s, tok, ln),
-        prefill_fn=lambda p, s, tok: t.lm_prefill(cfg, p, s, tok),
-    )
+    if cfg.family == "dense":
+        t = transformer
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init, t.lm_init, cfg),
+            forward=lambda p, b: t.lm_forward(cfg, p, b["tokens"]),
+            decode_init=lambda batch, max_seq, device=None: t.lm_decode_init(
+                cfg, batch, max_seq, device=resolve_device(device)),
+            decode_fn=lambda p, s, tok, ln: t.lm_decode_step(
+                cfg, p, s, tok, ln),
+            prefill_fn=lambda p, s, tok: t.lm_prefill(cfg, p, s, tok),
+        )
+    if cfg.family == "hybrid":
+        z = zamba
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init, z.zamba_init, cfg),
+            forward=lambda p, b: z.zamba_forward(cfg, p, b["tokens"]),
+            decode_init=lambda batch, max_seq, device=None:
+                z.zamba_decode_init(cfg, batch, max_seq,
+                                    device=resolve_device(device)),
+            decode_fn=lambda p, s, tok, ln: z.zamba_decode_step(
+                cfg, p, s, tok, ln),
+        )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A names "
+        "the slice of the port that brings it")
 
 
 # ---------------------------------------------------------------------------

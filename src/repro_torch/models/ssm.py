@@ -1,0 +1,137 @@
+"""Mamba2 (SSD) block: chunked prefill scan + O(1) decode state update.
+
+Port of ``repro/models/ssm.py``.  The prefill path calls the port's
+``ssd_scan`` (the sm_90a SSD chunk kernel for CUDA tensors, its plain twin
+on the CPU) where the reference calls the jnp ``ssd_chunked``: the same
+function at the same chunk of 256.  Decode keeps the per-head state
+h: (B, H, N, P) with the classic update
+
+    h <- exp(dt*A) * h + dt * (B x x);   y = (C . h) + D*x
+
+Parameters are a dict per layer (held by ``zamba.MambaLayer``): the dense
+``in_proj``/``out_proj`` in the compute dtype, ``conv``, ``A_log``, ``D``,
+``dt_bias`` and the ``norm`` scale in float32.  The reference's cost-probe
+``mixer_skip`` mode is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssm_scan.ops import ssd_scan
+from repro_torch.models import layers
+
+
+def _widths(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, state n, heads h, head dim p)."""
+    di, h = cfg.d_inner, cfg.n_ssm_heads
+    return di, cfg.ssm_state or 64, h, di // h
+
+
+def ssm_init(gen: torch.Generator, cfg: ModelConfig
+             ) -> Dict[str, torch.Tensor]:
+    dt = layers.dtype_of(cfg.dtype)
+    d = cfg.d_model
+    di, n, h, _ = _widths(cfg)
+    dev = gen.device
+    conv = torch.randn(cfg.ssm_conv, di + 2 * n, generator=gen, device=dev)
+    return {
+        # fused in-proj: [z (di), x (di), B (n), C (n), dt (h)]
+        "in_proj": layers.dense_init(gen, d, 2 * di + 2 * n + h, dtype=dt),
+        "conv": conv * 0.1,
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
+        "D": torch.ones(h, device=dev),
+        "dt_bias": torch.zeros(h, device=dev),
+        "norm": layers.rmsnorm_init(di, device=dev),
+        "out_proj": layers.dense_init(gen, di, d, dtype=dt),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) (``F.softplus`` returns x
+    itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    di, n, h, _ = _widths(cfg)
+    return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
+
+
+def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Prefill path."""
+    if cfg.mixer_skip:
+        # the reference's cost-probe mode (launch/probe.py)
+        raise NotImplementedError("mixer_skip is not ported")
+    dt_ = layers.dtype_of(cfg.dtype)
+    b, s, _ = x.shape
+    di, n, h, p = _widths(cfg)
+
+    z, xin, B, C, dt = _split(layers.dense(params["in_proj"], x, dt_), cfg)
+
+    # depthwise causal conv over (x, B, C), summed tap by tap in the
+    # compute dtype in the reference's order (F.conv1d rounds otherwise)
+    xbc = torch.cat([xin, B, C], dim=-1)
+    w = params["conv"].to(dt_)                          # (K, di+2n)
+    kk = w.shape[0]
+    xbc_pad = torch.nn.functional.pad(xbc, (0, 0, kk - 1, 0))
+    xbc = sum(xbc_pad[:, i:i + s] * w[i] for i in range(kk))
+    xbc = layers.silu(xbc)
+    xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = softplus(dt.float() + params["dt_bias"][None, None])   # (b,s,h)
+    xh = xin.reshape(b, s, h, p)
+    y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
+    y = y + params["D"][None, None, :, None] * xh.float()
+    y = y.reshape(b, s, di).to(dt_)
+    y = layers.rmsnorm(params["norm"], y * layers.silu(z), cfg.norm_eps)
+    return layers.dense(params["out_proj"], y, dt_)
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device
+                   ) -> Dict[str, torch.Tensor]:
+    """float32 state, as the reference's.  The conv window holds values
+    already rounded to the compute dtype, so float32 storage keeps them
+    exactly where the reference's becomes bf16 after the first step."""
+    di, n, h, p = _widths(cfg)
+    return {
+        "h": torch.zeros(n_layers, batch, h, n, p, device=device),
+        "conv": torch.zeros(n_layers, batch, cfg.ssm_conv - 1, di + 2 * n,
+                            device=device),
+    }
+
+
+def ssm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
+                    state_h: torch.Tensor, state_conv: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token state update.  x: (B,1,d); state_h: (B,H,N,P);
+    state_conv: (B, K-1, di+2n).  Returns (y, new_h, new_conv)."""
+    dt_ = layers.dtype_of(cfg.dtype)
+    b = x.shape[0]
+    di, n, h, p = _widths(cfg)
+
+    z, xin, B, C, dt = _split(
+        layers.dense(params["in_proj"], x, dt_)[:, 0], cfg)
+
+    # rolling conv buffer
+    xbc_new = torch.cat([xin, B, C], dim=-1)                   # (B, di+2n)
+    w = params["conv"].to(dt_)
+    window = torch.cat([state_conv.to(dt_), xbc_new[:, None]], dim=1)
+    xbc = layers.silu(torch.einsum("bkc,kc->bc", window, w))
+    new_conv = window[:, 1:]
+    xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = softplus(dt.float() + params["dt_bias"])              # (B,h)
+    dA = torch.exp(dt * (-torch.exp(params["A_log"]))[None])   # (B,h)
+    xh = xin.reshape(b, h, p).float()
+    dBx = torch.einsum("bn,bh,bhp->bhnp", B.float(), dt, xh)
+    new_h = state_h * dA[..., None, None] + dBx
+    y = torch.einsum("bn,bhnp->bhp", C.float(), new_h)
+    y = y + params["D"][None, :, None] * xh
+    y = y.reshape(b, 1, di).to(dt_)
+    y = layers.rmsnorm(params["norm"], y * layers.silu(z[:, None]),
+                       cfg.norm_eps)
+    return layers.dense(params["out_proj"], y, dt_), new_h, new_conv

@@ -12,6 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
+from repro_torch.kernels.ssm_scan import kernel as S  # noqa: E402
+from repro_torch.kernels.ssm_scan.ops import (chunk_inputs,  # noqa: E402
+                                              ssd_scan)
 
 torch.set_num_threads(1)
 
@@ -26,7 +29,21 @@ FLASH_CASES = [
     (2, 2, 2, 256, 256, 32, True),
     (1, 2, 2, 128, 256, 64, True),          # top-left causal, Sq != Skv
     (2, 24, 8, 1000, 1000, 128, True),
+    (1, 2, 2, 200, 200, 112, True),         # zamba2-7b head dim
+    (2, 32, 32, 1000, 1000, 112, True),     # its shared block, ragged
 ]
+
+SSD_CASES = [
+    # (b, s, h, p, n, chunk): tests/test_kernels.py, then zamba2-7b's mamba
+    # layer at a ragged S and at B = 2, S = 4096
+    (1, 64, 2, 16, 16, 32),
+    (2, 128, 4, 32, 64, 64),
+    (1, 100, 2, 16, 16, 32),
+    (1, 32, 1, 64, 32, 32),
+    (1, 300, 112, 64, 64, 256),
+    (2, 4096, 112, 64, 64, 256),
+]
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)      # tests/test_kernels.py:105
 
 
 def _tol(dtype):
@@ -86,3 +103,58 @@ def test_flash_kernel_rejects_unsupported_head_dim(cuda_device):
     q = torch.zeros(1, 2, 8, 48, device=cuda_device)
     with pytest.raises(ValueError):
         K.flash_attention_fwd(q, q, q)
+
+
+def _ssd_inputs(case, device, seed=6):
+    b, s, h, p, n, _ = case
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((b, s, h, p), np.float32),
+              np.logaddexp(rng.standard_normal((b, s, h)), 0)
+              .astype(np.float32),
+              (rng.standard_normal(h) * 0.5).astype(np.float32),
+              rng.standard_normal((b, s, n), np.float32),
+              rng.standard_normal((b, s, n), np.float32))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_twin(cuda_device, case):
+    """All three outputs: y_diag, states, chunk_lf."""
+    x, dt, A_log, B, C = _ssd_inputs(case, cuda_device)
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, case[-1])
+    before = S.LAUNCHES
+    got = S.ssd_chunk(xc, dtc, A_log, Bc, Cc)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == before + 1
+    want = S.ssd_chunk_plain(xc, dtc, A_log, Bc, Cc)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(g.isfinite().all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_on_the_card_matches_the_cpu_path(cuda_device):
+    """The whole chunked scan: kernel + recurrence on the card against the
+    plain twin + recurrence on the CPU."""
+    case = (2, 700, 8, 64, 64, 256)
+    ins = _ssd_inputs(case, cuda_device, seed=7)
+    got = ssd_scan(*ins)
+    want = ssd_scan(*(t.cpu() for t in ins))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, dt, A_log, B, C = _ssd_inputs((1, 64, 2, 16, 16, 32), cuda_device)
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, 32)
+    with pytest.raises(ValueError):                    # n = 48
+        S.ssd_chunk(xc, dtc, A_log, torch.zeros(1, 2, 32, 48,
+                                                 device=cuda_device),
+                    torch.zeros(1, 2, 32, 48, device=cuda_device))
+    with pytest.raises(ValueError):                    # not contiguous
+        S.ssd_chunk(xc.transpose(3, 4).contiguous().transpose(3, 4), dtc,
+                    A_log, Bc, Cc)
+    with pytest.raises(ValueError):                    # not float32
+        S.ssd_chunk(xc.double(), dtc, A_log, Bc, Cc)

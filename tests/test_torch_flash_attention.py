@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention.ref import \
 
 torch.set_num_threads(1)
 
-# same cases as tests/test_kernels.py
+# the cases of tests/test_kernels.py, plus the zamba2-7b head dim
 FLASH_CASES = [
     # (b, hq, hkv, sq, skv, d, causal, block_q, block_kv)
     (1, 2, 2, 128, 128, 64, True, 64, 64),
@@ -36,6 +36,7 @@ FLASH_CASES = [
     (1, 2, 2, 200, 200, 64, True, 64, 64),       # ragged seq (padding)
     (1, 2, 2, 128, 256, 64, False, 64, 128),     # cross attention
     (2, 2, 2, 256, 256, 32, True, 256, 256),     # single block
+    (1, 2, 2, 200, 200, 112, True, 64, 64),      # zamba2-7b head dim
 ]
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 

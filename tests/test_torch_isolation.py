@@ -90,6 +90,14 @@ def test_entry_points_refuse_to_run_without_a_card(no_card):
     assert model.init(0, device="cpu").embed.device == torch.device("cpu")
 
 
+def test_zamba_entry_points_refuse_to_run_without_a_card(no_card):
+    model = build_model(ARCHS["zamba2-7b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.decode_init(2, 8)
+
+
 def test_serve_cli_refuses_to_run_without_a_card(no_card, monkeypatch):
     monkeypatch.setattr("sys.argv", ["serve", "generate", "--arch",
                                      "llama3.2-3b", "--test-mesh"])

@@ -186,7 +186,8 @@ def test_generate_cli_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-1.3b",
-                                  "whisper-tiny", "zamba2-7b"])
+                                  "whisper-tiny"])
 def test_other_families_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: ROADMAP.md queue A names"):
         build_model(reduce_config(ARCHS[arch]))

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's serving path on one CUDA card.
 
-    python3 tools/profile_torch_serve.py
+    python3 tools/profile_torch_serve.py [--arch zamba2-7b]
 
-Profiles, with ``torch.profiler``, llama3.2-3b at full width (28 layers,
-random weights from seed 0, bf16, ``attention_impl="pallas"``):
+Profiles, with ``torch.profiler``, one model at full width (default
+llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
 
-- one prefill step at B = 2, S = 4096 (the flash kernel in every layer);
-- four greedy decode steps after a 4 x 512 batched prefill (the ``generate``
-  server's loop).
+- one prefill step at B = 2, S = 4096 (the flash kernel in every attention
+  layer; for zamba2-7b also the SSD kernel in every mamba layer);
+- four greedy decode steps after a prefill of 4 prompts (the ``generate``
+  server's loop): 512 tokens each in one batched prefill, or, for a family
+  without one, 128 tokens filled token by token.
 
 For each it prints one JSON line: the wall time, the device time summed
 over kernels, the device's idle share of the wall time, and the kernels
@@ -17,6 +19,7 @@ that took the most device time.  Needs the card; it raises without one.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import sys
@@ -30,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.launch.serve import fill  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train.step import (make_decode_step,  # noqa: E402
                                     make_prefill_step)
@@ -69,9 +73,12 @@ def profiled(label: str, fn) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="llama3.2-3b", choices=sorted(ARCHS))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
-    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas")
+    cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
     model = build_model(cfg)
     params = model.init(0)
     g = torch.Generator("cuda").manual_seed(7)
@@ -80,16 +87,15 @@ def main() -> int:
                            device="cuda")
     prefill = make_prefill_step(model)
     prefill(params, {"tokens": tokens})                  # warm-up
-    profiled("prefill_step_b2_s4096",
+    profiled(f"{cfg.name}_prefill_step_b2_s4096",
              lambda: prefill(params, {"tokens": tokens}))
 
-    b, plen = 4, 512
+    b, plen = 4, 512 if model.prefill_fn is not None else 128
     prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
                             device="cuda")
     decode = make_decode_step(model)
-    state = model.decode_init(b, plen + 16)
-    with torch.no_grad():
-        logits, state = model.prefill_fn(params, state, prompts)
+    logits, state, _ = fill(model, decode, params,
+                            model.decode_init(b, plen + 16), prompts)
     cur = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
 
     def steps(n, start):
@@ -102,7 +108,8 @@ def main() -> int:
             cur = out[:, :cfg.vocab].argmax(-1).to(torch.int32)
 
     steps(2, plen)                                       # warm-up
-    profiled("decode_4_steps_b4_ctx512", lambda: steps(4, plen + 2))
+    profiled(f"{cfg.name}_decode_4_steps_b4_ctx{plen}",
+             lambda: steps(4, plen + 2))
     return 0
 
 
