@@ -6,17 +6,21 @@
 Drives the port (``src/repro_torch``) through its main paths and checks
 them:
 
-1. device and build: the card's name and power limit, then both sm_90a
-   kernels built at once from the checkout (``csrc/flash_fwd.cu`` and
-   ``csrc/ssd_chunk.cu``, one nvcc each), with ptxas' reports;
+1. device and build: the card's name and power limit, then the three
+   sm_90a kernels built at once from the checkout (``csrc/flash_fwd.cu``,
+   ``csrc/ssd_chunk.cu`` and ``csrc/mlstm_chunk.cu``, one nvcc each), with
+   ptxas' reports;
 2. kernels: each kernel against its plain PyTorch twin.  Flash: the six
    ``FLASH_CASES`` x {f32, bf16}, D = 112 cases, and the full-width
    llama3.2-3b (D = 128) and zamba2-7b (D = 112) layer shapes, ragged and
    full.  SSD: the four ``SSD_CASES`` of tests/test_kernels.py, zamba2-7b's
    mamba layer at B = 2, S = 4096 and at a ragged S = 4000, all three
-   outputs.  Then the times of each kernel, its twin and, for flash,
-   ``scaled_dot_product_attention`` (a yardstick only: the port never calls
-   it; no single PyTorch call computes the SSD chunk), beside the bound;
+   outputs.  mLSTM: the four ``MLSTM_CASES`` of tests/test_kernels.py,
+   xlstm-1.3b's mLSTM layer at B = 2, S = 4096 and at a ragged S = 4000,
+   all seven outputs.  Then the times of each kernel, its twin and, for
+   flash, ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it; no single PyTorch call computes the SSD or the mLSTM chunk),
+   beside the bound;
 3. llama3.2-3b prefill step: full width (28 layers, random weights from a
    seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
    with the flash kernel's launches counted; then the kernel path against
@@ -31,7 +35,16 @@ them:
    the state filled token by token (the family has no batched prefill);
 7. zamba2-7b fp32 parity: at full width and a depth of 7 (one group of 6
    and one tail layer), the kernel path on the card against the plain path
-   (the same weights on the CPU, where every wrapper runs its twin).
+   (the same weights on the CPU, where every wrapper runs its twin);
+8. xlstm-1.3b prefill step: full width and depth (6 groups of 7 mLSTM
+   blocks and 1 sLSTM block), B = 2, S = 4096, bf16, with the 42 mLSTM
+   kernel launches counted;
+9. xlstm-1.3b generate: 4 requests of 128 prompt tokens + 16 greedy
+   tokens, the state filled token by token (the family has no batched
+   prefill, so the kernel is not launched);
+10. xlstm-1.3b fp32 parity: at full width and a depth of 8 (7 mLSTM blocks
+   and 1 sLSTM block), S = 640 (three chunks, the last ragged), the kernel
+   path on the card against the plain path on the CPU.
 
 Every phase prints one JSON line.  Any failed check exits non-zero.  The
 line before the last is the kernel table, the last the device line.  It
@@ -44,6 +57,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -81,6 +95,16 @@ SSD_CASES = [
 SSD_FULL = (2, 4096, 112, 64, 64, 256)      # zamba2-7b mamba layer, B = 2
 SSD_RAGGED = (2, 4000, 112, 64, 64, 256)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)        # tests/test_kernels.py:105
+MLSTM_CASES = [
+    # (b, s, h, p, chunk), tests/test_kernels.py:130
+    (1, 64, 2, 16, 32),
+    (2, 128, 4, 32, 64),
+    (1, 100, 2, 16, 32),
+    (1, 32, 1, 64, 32),
+]
+MLSTM_FULL = (2, 4096, 4, 1024, 256)        # xlstm-1.3b mLSTM layer, B = 2
+MLSTM_RAGGED = (2, 4000, 4, 1024, 256)
+MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)      # tests/test_kernels.py:151
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
@@ -109,6 +133,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attention import kernel as fa
         from repro_torch.kernels.ssm_scan import kernel as ssd
+        from repro_torch.kernels.mlstm_scan import kernel as ml
     except ImportError as e:
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
@@ -126,26 +151,30 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together -------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(m.build) for m in (fa, ssd)]:
+    kernels = (fa, ssd, ml)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(m.build) for m in kernels]:
             fut.result()
     emit({"phase": "build", "ok": True, "gpu": gpu,
           "build_s": time.perf_counter() - t0,
           "ptxas": {m.SOURCE.name: _build.ptxas_report(m.SOURCE)
-                    for m in (fa, ssd)}})
+                    for m in kernels}})
 
     llama_row, zamba_flash_row = phase_kernels(torch, fa, gpu)
     ssd_row = phase_ssd_kernels(torch, ssd, gpu)
+    mlstm_row = phase_mlstm_kernels(torch, ml, gpu)
     llama_row["launches"] = phase_prefill(torch, fa, gpu)
     phase_generate(torch, fa, gpu)
     ssd_row["launches"], zamba_flash_row["launches"] = \
         phase_zamba(torch, fa, ssd, gpu)
     phase_zamba_fp32_parity(torch, fa, ssd)
+    mlstm_row["launches"] = phase_xlstm(torch, ml, gpu)
+    phase_xlstm_fp32_parity(torch, ml)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row]}),
-          flush=True)
+    print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
+                                  mlstm_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -367,6 +396,101 @@ def phase_ssd_kernels(torch, ssd, gpu):
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:61",
             "path": "zamba2-7b prefill step", "shape": list(SSD_FULL),
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def mlstm_bound(case):
+    """Least time (ms) the card needs for one mLSTM chunk call on ``case``'s
+    chunks: the larger of the operations the function needs over the fp32
+    peak (per (batch, chunk, head): 2p flops on each pair the causal mask
+    keeps for q kᵀ and again for W v, 2 Q p² for the state and 2 Q p for
+    the norm) and the fp32 bytes of its inputs and outputs over HBM
+    bandwidth."""
+    b, s, h, p, chunk = case
+    q = min(chunk, s)
+    nc = -(-s // q)
+    units = b * nc * h
+    pairs = q * (q + 1) // 2
+    flops = units * (2 * pairs * 2 * p + 2 * q * p * p + 2 * q * p)
+    rows = b * nc * q * h
+    floats = (4 * rows * p                    # q, k, v, y_intra
+              + 4 * rows                      # li, lf, n_intra, m_intra
+              + units * (p * p + p + 2))      # states, norms, 2 scalars
+    t_ops = flops / PEAK_FLOPS["float32"]
+    t_bytes = 4 * floats / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
+
+
+def _mlstm_inputs(torch, case, seed):
+    """Chunked (padded) float32 inputs with tests/test_kernels.py's
+    distributions: q, k, v ~ N(0, 1), ig ~ 2 N, fg ~ 2 N + 2."""
+    from repro_torch.kernels.mlstm_scan.ops import chunk_inputs
+
+    b, s, h, p, chunk = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q, k, v = rnd(b, s, h, p), rnd(b, s, h, p), rnd(b, s, h, p)
+    ig, fg = rnd(b, s, h) * 2, rnd(b, s, h) * 2 + 2
+    return (*chunk_inputs(q, k, v, ig, fg, chunk), 1 / math.sqrt(p))
+
+
+MLSTM_OUTPUTS = ("y_intra", "n_intra", "m_intra", "states", "norms",
+                 "chunk_lf", "m_state")
+
+
+def phase_mlstm_kernels(torch, ml, gpu):
+    """The mLSTM kernel against its twin (all seven outputs), then its
+    times at xlstm-1.3b's full-width shape: the kernel-table row."""
+    results = []
+    for case in MLSTM_CASES + [MLSTM_RAGGED, MLSTM_FULL]:
+        ins = _mlstm_inputs(torch, case, seed=len(results))
+        got = ml.mlstm_chunk(*ins)
+        torch.cuda.synchronize()
+        want = ml.mlstm_chunk_plain(*ins)
+        errs = []
+        for name, g, w in zip(MLSTM_OUTPUTS, got, want):
+            ok, err = _compare(g, w, **MLSTM_TOL)
+            check(ok and bool(g.isfinite().all()), "mlstm_kernels",
+                  f"{case} {name}: max_abs_err {err}")
+            errs.append(err)
+        results.append({"case": list(case), "max_abs_err": max(errs),
+                        "per_output": dict(zip(MLSTM_OUTPUTS, errs)),
+                        "ok": True})
+        del ins, got, want
+    emit({"phase": "kernels", "ok": True, "kernel": "mlstm_chunk",
+          "checked": len(results), "tol": MLSTM_TOL,
+          "worst": max(r["max_abs_err"] for r in results),
+          "results": results})
+
+    ins = _mlstm_inputs(torch, MLSTM_FULL, seed=321)
+    err = max(_compare(g, w, **MLSTM_TOL)[1] for g, w in
+              zip(ml.mlstm_chunk(*ins), ml.mlstm_chunk_plain(*ins)))
+    ms = _median_ms(torch, lambda: ml.mlstm_chunk(*ins), reps=10)
+    plain_ms = _median_ms(torch, lambda: ml.mlstm_chunk_plain(*ins), reps=3)
+    bound_ms, bound_by, flops, nbytes = mlstm_bound(MLSTM_FULL)
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "kernel": "mlstm_chunk", "arch": "xlstm-1.3b",
+          "shape": dict(zip("b s h p chunk".split(), MLSTM_FULL)),
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "library_note": "no single PyTorch call computes the mLSTM chunk "
+                          "(a masked, stabilised decay-weighted product, "
+                          "the chunk state and its norm)",
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
+          "roofline_share": bound_ms / ms})
+    del ins
+    torch.cuda.empty_cache()
+    return {"name": "mlstm_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/mlstm_scan/csrc/"
+                      "mlstm_chunk.cu",
+            "replaces": "src/repro/kernels/mlstm_scan/kernel.py:65",
+            "path": "xlstm-1.3b prefill step", "shape": list(MLSTM_FULL),
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
@@ -632,6 +756,130 @@ def phase_zamba_fp32_parity(torch, fa, ssd):
           "max_rel_err": rel, "tol": LOGITS_REL_TOL,
           "plain_path_cpu_s": cpu_s})
     check(ok, "zamba_fp32_parity", f"max_rel_err {rel}")
+
+
+# ---------------------------------------------------------------------------
+# 8-9. xlstm-1.3b: full-width prefill step and generate
+# ---------------------------------------------------------------------------
+
+def phase_xlstm(torch, ml, gpu):
+    """Returns the mLSTM kernel launches of one counted prefill step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab, xlstm_layout
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = ARCHS["xlstm-1.3b"]
+    n_groups, per = xlstm_layout(cfg)
+    vocab = padded_vocab(cfg)
+    b, s = 2, 4096
+    g = torch.Generator("cuda").manual_seed(19)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device="cuda")}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    step = make_prefill_step(model)
+    step(params, batch)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ml.LAUNCHES = 0                             # counted main-path run
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = ml.LAUNCHES
+    check(launches == n_groups * per, "xlstm_prefill",
+          f"{launches} mLSTM launches for {n_groups * per} mLSTM blocks")
+    check(logits.shape == (b, s, vocab) and bool(logits.isfinite().all()),
+          "xlstm_prefill", f"logits {tuple(logits.shape)} not finite")
+    del logits
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "xlstm_prefill", "ok": True, "gpu": gpu,
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "mlstm_blocks": n_groups * per, "slstm_blocks": n_groups,
+          "batch": b, "seq": s, "dtype": cfg.dtype,
+          "logits_shape": [b, s, vocab], "mlstm_launches": launches,
+          "init_s": init_s, "weights_gb": weights_gb, "step_s": step_s,
+          "step_times_s": times, "tokens_per_s": b * s / step_s,
+          "peak_gb": peak_gb})
+
+    n_req, plen, gen_tokens = 4, 128, 16
+    prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
+                            device="cuda")
+    generate(model, params, prompts[:, :4], 2)           # warm-up
+    ml.LAUNCHES = 0
+    out = generate(model, params, prompts, gen_tokens)
+    toks = out.tokens
+    check(out.mode == "sequential", "xlstm_generate", f"mode {out.mode}")
+    check(toks.shape == (n_req, gen_tokens)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "xlstm_generate", f"tokens {tuple(toks.shape)} out of range")
+    emit({"phase": "xlstm_generate", "ok": True, "gpu": gpu,
+          "requests": n_req, "prompt": plen, "gen_tokens": gen_tokens,
+          "mode": out.mode, "prefill_ms": out.prefill_s * 1e3,
+          "prefill_tokens_per_s": n_req * plen / out.prefill_s,
+          "decode_ms": out.decode_s * 1e3,
+          "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
+          "mlstm_launches": ml.LAUNCHES,
+          "first_request_tokens": toks[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. xlstm-1.3b fp32: kernel path on the card against the plain path
+# ---------------------------------------------------------------------------
+
+def phase_xlstm_fp32_parity(torch, ml):
+    """Full width, depth 8 (one group: 7 mLSTM blocks and the sLSTM block),
+    S = 640: three mLSTM chunks of 256, the last ragged.  The plain path is
+    the same weights on the CPU, where the kernel wrapper runs its twin."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import xlstm_layout
+
+    cfg = dataclasses.replace(ARCHS["xlstm-1.3b"], dtype="float32",
+                              n_layers=8)
+    n_groups, per = xlstm_layout(cfg)
+    model = build_model(cfg)
+    params = model.init(0)
+    g = torch.Generator("cuda").manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
+                           device="cuda")
+    ml.LAUNCHES = 0
+    with torch.no_grad():
+        got = model.forward(params, {"tokens": tokens}).cpu()
+    launches = ml.LAUNCHES
+    check(launches == n_groups * per == 7, "xlstm_fp32_parity",
+          f"{launches} mLSTM launches, expected 7")
+    params_cpu = copy.deepcopy(params).to("cpu")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model.forward(params_cpu, {"tokens": tokens.cpu()})
+    cpu_s = time.perf_counter() - t0
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ok = rel <= LOGITS_REL_TOL and bool(got.isfinite().all())
+    emit({"phase": "xlstm_fp32_parity", "ok": ok, "layers": cfg.n_layers,
+          "batch": 1, "seq": 640, "mlstm_launches": launches,
+          "max_rel_err": rel, "tol": LOGITS_REL_TOL,
+          "plain_path_cpu_s": cpu_s})
+    check(ok, "xlstm_fp32_parity", f"max_rel_err {rel}")
 
 
 if __name__ == "__main__":

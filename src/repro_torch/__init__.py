@@ -6,19 +6,22 @@ the reference.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
 twin.
 
-Ported so far (serving of the dense LM, llama3.2-3b family, and of the
-hybrid, zamba2-7b):
+Ported so far (serving of the dense LM, llama3.2-3b family, of the
+hybrid, zamba2-7b, and of the xLSTM, xlstm-1.3b):
 
     configs/                     architecture dataclasses (plain copy)
-    models/layers.py             rmsnorm, dense, embed, rope, swiglu
+    models/layers.py             rmsnorm, dense, embed, rope, swiglu, log_sigmoid
     models/attention.py          naive / blockwise / flash dispatch, KV cache
-    models/transformer.py        dense decoder LM: forward, prefill, decode
+    models/transformer.py        dense decoder LM: forward, prefill, decode;
+                                 the xLSTM stack (XLSTMLM)
     models/ssm.py                mamba2 layer: chunked prefill, decode step
     models/zamba.py              hybrid LM: mamba2 + one shared attention block
+    models/xlstm.py              mLSTM (chunked prefill) and sLSTM blocks
     models/model.py              Model / build_model / reduce_config
     kernels/_build.py            nvcc build into build/torch_ext/, ctypes load
     kernels/flash_attention/     hand-written sm_90a CUDA forward kernel
     kernels/ssm_scan/            hand-written sm_90a CUDA SSD chunk kernel
+    kernels/mlstm_scan/          hand-written sm_90a CUDA mLSTM chunk kernel
     convert.py                   reference param tree (numpy) -> port modules
     train/step.py                prefill / decode step callables
     launch/serve.py              ``generate``: prefill + greedy decode

@@ -1,16 +1,18 @@
 """Carry the reference's parameters into the port.
 
-``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense)
-or ``zamba_init`` (hybrid) with every leaf as a numpy array
-(``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
-``TransformerLM`` or ``ZambaLM``:
+``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense),
+``zamba_init`` (hybrid) or ``xlstm_init`` (ssm) with every leaf as a numpy
+array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
+``TransformerLM``, ``ZambaLM`` or ``XLSTMLM``:
 
-- a stacked leading axis (``blocks``, ``mblocks``, ``tail``) becomes one
-  module per layer; the hybrid ``shared`` block is one ``Block``;
+- a stacked leading axis (``blocks``, ``mblocks``, ``tail``, ``sblocks``)
+  becomes one module per layer; the hybrid ``shared`` block is one
+  ``Block``;
 - dense ``kernel``s stay (d_in, d_out) and the embedding ``table`` stays
   (V, d), cast to the compute dtype (the reference casts at every use);
-- norm ``scale``s and the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``
-  stay float32 (the reference casts ``conv`` at use).
+- norm ``scale``s, the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``,
+  the mLSTM gate projection ``w_if`` and ``b_if`` and the sLSTM ``bias``
+  stay float32 (the reference casts ``conv`` and ``bias`` at use).
 """
 
 from __future__ import annotations
@@ -22,17 +24,21 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import (TransformerLM, XLSTMLM,
+                                            xlstm_layout)
 from repro_torch.models.zamba import ZambaLM, layout
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("gate", "up", "down")
 _SSM_F32 = ("conv", "A_log", "D", "dt_bias")
+# (dense kernels, float32 leaves) of the xLSTM blocks
+_MLSTM = (("up_l", "up_r", "wq", "wk", "wv", "down"), ("w_if", "b_if"))
+_SLSTM = (("wx", "wh", "proj"), ("bias",))
 
 
 def params_from_numpy(tree, cfg: ModelConfig,
                       device: DeviceLike = None) -> nn.Module:
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = layers.dtype_of(cfg.dtype)
@@ -68,6 +74,22 @@ def params_from_numpy(tree, cfg: ModelConfig,
         port["blocks"] = [block(tree["blocks"], i)
                           for i in range(cfg.n_layers)]
         return TransformerLM(cfg, port)
+    if cfg.family == "ssm":
+        def xblock(p, kind, names, i):
+            """Layer ``i`` of a stacked mLSTM or sLSTM tree."""
+            s, (dense, f32) = p[kind], names
+            return {"ln": t(p["ln"]["scale"][i]), kind: {
+                **{n: t(s[n]["kernel"][i], dt) for n in dense},
+                **{n: t(s[n][i]) for n in f32},
+                "norm": t(s["norm"]["scale"][i]),
+            }}
+
+        n_groups, per = xlstm_layout(cfg)
+        port["mblocks"] = [xblock(tree["mblocks"], "mlstm", _MLSTM, i)
+                           for i in range(n_groups * per)]
+        port["sblocks"] = [xblock(tree["sblocks"], "slstm", _SLSTM, i)
+                           for i in range(n_groups)]
+        return XLSTMLM(cfg, port)
     n_groups, tail = layout(cfg)
     port["mblocks"] = [mamba(tree["mblocks"], i)
                        for i in range(n_groups * cfg.shared_attn_every)]

@@ -7,9 +7,10 @@ Port of the ``generate`` subcommand of ``repro/launch/serve.py``::
 
 Requests are batched, prefilled with one fused full-prompt forward that
 fills the KV cache (``model.prefill_fn``), then decoded token by token
-with greedy sampling.  A family with no ``prefill_fn`` (the hybrid, whose
-state is recurrent) fills its state token by token through the decode
-step, as ``--sequential-prefill`` forces for any family.  Weights are
+with greedy sampling.  A family with no ``prefill_fn`` (the hybrid and
+the xLSTM, whose states are recurrent) fills its state token by token
+through the decode step, as ``--sequential-prefill`` forces for any
+family: ``--arch zamba2-7b`` and ``--arch xlstm-1.3b`` serve so.  Weights are
 random from seed 0.  It runs on the CUDA card; ``--device cpu`` runs the
 plain PyTorch path on the host.  ``--test-mesh`` keeps its reference
 meaning: the reduced config.  The ``personalize`` subcommand comes with

@@ -122,6 +122,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), spelled out as ``lax.logaddexp``
+    computes it, max(x, 0) + log1p(exp(-|x|)), rounded to the dtype after
+    each step (``torch.logaddexp`` rounds once in bf16; ``F.softplus``
+    returns x itself above its threshold of 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``'s formula, -softplus(-x)."""
+    return -softplus(-x)
+
+
 def swiglu(params, x: torch.Tensor,
            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     g = dense(params["gate"], x, compute_dtype)

@@ -1,6 +1,7 @@
 """Unified Model API and reduced configs.
 
-Port of ``repro/models/model.py`` for ``family`` "dense" and "hybrid".
+Port of ``repro/models/model.py`` for ``family`` "dense", "hybrid" and
+"ssm" (xLSTM).
 ``Model`` bundles the functions for one config:
 
     model.init(seed, device=None)              -> params (an nn.Module)
@@ -9,8 +10,8 @@ Port of ``repro/models/model.py`` for ``family`` "dense" and "hybrid".
     model.decode_fn(params, state, tokens, cache_len) -> (logits, state)
     model.prefill_fn(params, state, tokens)    -> (last_logits, state)
 
-``prefill_fn`` is None for the hybrid family, whose decode state is
-recurrent: servers fill it token by token through ``decode_fn``.
+``prefill_fn`` is None for the hybrid and ssm families, whose decode
+state is recurrent: servers fill it token by token through ``decode_fn``.
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).
@@ -69,6 +70,18 @@ def build_model(cfg: ModelConfig) -> Model:
                 z.zamba_decode_init(cfg, batch, max_seq,
                                     device=resolve_device(device)),
             decode_fn=lambda p, s, tok, ln: z.zamba_decode_step(
+                cfg, p, s, tok, ln),
+        )
+    if cfg.family == "ssm":
+        t = transformer
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init, t.xlstm_init, cfg),
+            forward=lambda p, b: t.xlstm_forward(cfg, p, b["tokens"]),
+            decode_init=lambda batch, max_seq, device=None:
+                t.xlstm_decode_init(cfg, batch, max_seq,
+                                    device=resolve_device(device)),
+            decode_fn=lambda p, s, tok, ln: t.xlstm_decode_step(
                 cfg, p, s, tok, ln),
         )
     raise NotImplementedError(

@@ -50,12 +50,6 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig
     }
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(x, 0) (``F.softplus`` returns x
-    itself above its threshold of 20)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
     di, n, h, _ = _widths(cfg)
     return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
@@ -82,7 +76,7 @@ def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     xbc = layers.silu(xbc)
     xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
 
-    dt = softplus(dt.float() + params["dt_bias"][None, None])   # (b,s,h)
+    dt = layers.softplus(dt.float() + params["dt_bias"][None, None])  # b,s,h
     xh = xin.reshape(b, s, h, p)
     y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
     y = y + params["D"][None, None, :, None] * xh.float()
@@ -124,7 +118,7 @@ def ssm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
     new_conv = window[:, 1:]
     xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
 
-    dt = softplus(dt.float() + params["dt_bias"])              # (B,h)
+    dt = layers.softplus(dt.float() + params["dt_bias"])        # (B,h)
     dA = torch.exp(dt * (-torch.exp(params["A_log"]))[None])   # (B,h)
     xh = xin.reshape(b, h, p).float()
     dBx = torch.einsum("bn,bh,bhp->bhnp", B.float(), dt, xh)

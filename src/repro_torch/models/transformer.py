@@ -1,8 +1,9 @@
-"""Dense decoder-only LM (llama3.2 / phi4 / minitron / granite family).
+"""Dense decoder-only LM (llama3.2 / phi4 / minitron / granite family) and
+the xLSTM stack (family "ssm").
 
-Port of the dense part of ``repro/models/transformer.py``.  Parameters
-are built as plain nested dicts (``lm_init``, or ``convert.py`` from the
-reference's tree) and held by the ``TransformerLM`` module: the
+Port of the dense and xLSTM parts of ``repro/models/transformer.py``.
+Parameters are built as plain nested dicts (``lm_init``, or ``convert.py``
+from the reference's tree) and held by the ``TransformerLM`` module: the
 reference's stacked ``blocks`` axis becomes a ``ModuleList`` of ``Block``s.
 Matmul weights and the embedding table are held in the compute dtype;
 norm scales stay float32.  The parameters are frozen: this slice serves,
@@ -10,19 +11,19 @@ and training comes with a later slice (with the reference's planner-driven
 remat policy, which matters only under autodiff).
 
 The functions keep the reference's ``(cfg, params, ...)`` signatures.
-The KV cache is updated in place.
+The KV cache and the xLSTM decode state are updated in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, xlstm
 
 VOCAB_PAD = 256
 
@@ -180,3 +181,131 @@ def lm_prefill(cfg: ModelConfig, params: TransformerLM,
                                           cache["v"][i])
         x = _mlp_residual(cfg, p, x + ao)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM stack (family: ssm)
+# ---------------------------------------------------------------------------
+
+def xlstm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, per): ``n_groups`` groups of ``per`` mLSTM blocks, each
+    followed by one sLSTM block (xlstm-1.3b: 6 groups of 7 + 1).  Every
+    xLSTM config has sLSTM blocks; the reference's stack without them is
+    not ported."""
+    if not cfg.slstm_every:
+        raise NotImplementedError("an xLSTM stack without sLSTM blocks "
+                                  "(slstm_every = 0) is not ported")
+    n_s = cfg.n_layers // cfg.slstm_every
+    n_m = cfg.n_layers - n_s
+    if not n_s or n_m % n_s:
+        raise ValueError(f"{n_m} mLSTM blocks do not split into {n_s} groups")
+    return n_s, n_m // n_s
+
+
+class MLSTMBlock(nn.Module):
+    """Pre-norm mLSTM block: x + mlstm(norm(x))."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self.ln = _frozen(tree["ln"])
+        self.mlstm = _frozen_dict(tree["mlstm"])
+
+
+class SLSTMBlock(nn.Module):
+    """Pre-norm sLSTM block: x + slstm(norm(x))."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self.ln = _frozen(tree["ln"])
+        self.slstm = _frozen_dict(tree["slstm"])
+
+
+def xlstm_init(gen: torch.Generator, cfg: ModelConfig) -> "XLSTMLM":
+    """Random init with the reference's distributions, on ``gen.device``."""
+    dt = layers.dtype_of(cfg.dtype)
+    pv = padded_vocab(cfg)
+    n_groups, per = xlstm_layout(cfg)
+    dev = gen.device
+    tree: Tree = {
+        "embed": layers.embedding_init(gen, pv, cfg.d_model, dtype=dt),
+        "mblocks": [{"ln": layers.rmsnorm_init(cfg.d_model, device=dev),
+                     "mlstm": xlstm.mlstm_init(gen, cfg)}
+                    for _ in range(n_groups * per)],
+        "sblocks": [{"ln": layers.rmsnorm_init(cfg.d_model, device=dev),
+                     "slstm": xlstm.slstm_init(gen, cfg)}
+                    for _ in range(n_groups)],
+        "ln_f": layers.rmsnorm_init(cfg.d_model, device=dev),
+        "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
+    }
+    return XLSTMLM(cfg, tree)
+
+
+class XLSTMLM(nn.Module):
+    """Parameters of the xLSTM LM; ``forward(tokens)`` gives all logits."""
+
+    def __init__(self, cfg: ModelConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _frozen(tree["embed"])
+        self.mblocks = nn.ModuleList(MLSTMBlock(t) for t in tree["mblocks"])
+        self.sblocks = nn.ModuleList(SLSTMBlock(t) for t in tree["sblocks"])
+        self.ln_f = _frozen(tree["ln_f"])
+        self.unembed = _frozen(tree["unembed"])
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return xlstm_forward(self.cfg, self, tokens)
+
+
+def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, padded_vocab)."""
+    n_groups, per = xlstm_layout(cfg)
+    x = layers.embed(params.embed, tokens, layers.dtype_of(cfg.dtype))
+    for g in range(n_groups):
+        for p in params.mblocks[g * per:(g + 1) * per]:
+            x = x + xlstm.mlstm_forward(
+                cfg, p.mlstm, layers.rmsnorm(p.ln, x, cfg.norm_eps))
+        p = params.sblocks[g]
+        x = x + xlstm.slstm_forward(
+            cfg, p.slstm, layers.rmsnorm(p.ln, x, cfg.norm_eps))
+    return lm_logits(cfg, params, x)
+
+
+# ---- decode ----------------------------------------------------------------
+
+def xlstm_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *, device
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's layout: ``m`` holds C, n, m of every mLSTM block
+    (xlstm-1.3b: C is (42, B, 4, 1024, 1024) float32), ``s`` holds h, c, n,
+    m of every sLSTM block.  ``max_seq`` is unused: the state is O(1)."""
+    n_groups, per = xlstm_layout(cfg)
+    return {"m": xlstm.init_mlstm_state(cfg, batch, n_groups * per,
+                                        device=device),
+            "s": xlstm.init_slstm_state(cfg, batch, n_groups, device=device)}
+
+
+def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state,
+                      tokens: torch.Tensor, cache_len: torch.Tensor):
+    """tokens: (B,) new ids; ``cache_len`` is unused (recurrent state).
+
+    Returns ``(logits (B, padded_vocab), state)``; the state is updated in
+    place.
+    """
+    n_groups, per = xlstm_layout(cfg)
+    x = layers.embed(params.embed, tokens[:, None],
+                     layers.dtype_of(cfg.dtype))
+    ms = state["m"]
+    for g in range(n_groups):
+        for i in range(g * per, (g + 1) * per):
+            p = params.mblocks[i]
+            y, ms["C"][i], ms["n"][i], ms["m"][i] = xlstm.mlstm_decode_step(
+                cfg, p.mlstm, layers.rmsnorm(p.ln, x, cfg.norm_eps),
+                ms["C"][i], ms["n"][i], ms["m"][i])
+            x = x + y
+        p, ss = params.sblocks[g], state["s"]
+        y, ss["h"][g], ss["c"][g], ss["n"][g], ss["m"][g] = \
+            xlstm.slstm_decode_step(
+                cfg, p.slstm, layers.rmsnorm(p.ln, x, cfg.norm_eps),
+                ss["h"][g], ss["c"][g], ss["n"][g], ss["m"][g])
+        x = x + y
+    return lm_logits(cfg, params, x)[:, 0], state

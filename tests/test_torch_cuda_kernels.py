@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
+from repro_torch.kernels.mlstm_scan import kernel as M  # noqa: E402
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as S  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import (chunk_inputs,  # noqa: E402
                                               ssd_scan)
@@ -44,6 +46,18 @@ SSD_CASES = [
     (2, 4096, 112, 64, 64, 256),
 ]
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)      # tests/test_kernels.py:105
+
+MLSTM_CASES = [
+    # (b, s, h, p, chunk): tests/test_kernels.py:130, then xlstm-1.3b's
+    # mLSTM layer (p = 1024, chunk 256) at a ragged S and at B = 2, S = 4096
+    (1, 64, 2, 16, 32),
+    (2, 128, 4, 32, 64),
+    (1, 100, 2, 16, 32),
+    (1, 32, 1, 64, 32),
+    (1, 600, 4, 1024, 256),
+    (2, 4096, 4, 1024, 256),
+]
+MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_kernels.py:151
 
 
 def _tol(dtype):
@@ -158,3 +172,74 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
                     A_log, Bc, Cc)
     with pytest.raises(ValueError):                    # not float32
         S.ssd_chunk(xc.double(), dtc, A_log, Bc, Cc)
+
+
+def _mlstm_chunks(case, device, seed=8):
+    """Padded, chunked kernel inputs with the kernel tests' distributions:
+    q, k, v ~ N(0, 1), li = ig ~ 2 N, lf = log_sigmoid(fg), fg ~ 2 N + 2."""
+    b, s, h, p, chunk = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32))
+               .to(device) for _ in range(3))
+    ig, fg = (torch.from_numpy(rng.standard_normal((b, s, h)) * 2 + mean)
+              .float().to(device) for mean in (0.0, 2.0))
+    lf = torch.nn.functional.logsigmoid(fg)
+    qq = min(chunk, s)
+    nc = -(-s // qq)
+    pad = nc * qq - s
+    pad5 = (0, 0, 0, 0, 0, pad)
+    q, k, v = (torch.nn.functional.pad(t, pad5).reshape(b, nc, qq, h, p)
+               for t in (q, k, v))
+    li = torch.nn.functional.pad(ig, (0, 0, 0, pad), value=-1e30)
+    lf = torch.nn.functional.pad(lf, (0, 0, 0, pad))
+    return (q, k, v, li.reshape(b, nc, qq, h).contiguous(),
+            lf.reshape(b, nc, qq, h).contiguous(), 1 / np.sqrt(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_mlstm_kernel_matches_plain_twin(cuda_device, case):
+    """All seven outputs: y_intra, n_intra, m_intra, states, norms,
+    chunk_lf, m_state."""
+    ins = _mlstm_chunks(case, cuda_device)
+    before = M.LAUNCHES
+    got = M.mlstm_chunk(*ins)
+    torch.cuda.synchronize()
+    assert M.LAUNCHES == before + 1
+    want = M.mlstm_chunk_plain(*ins)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(g.isfinite().all())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **MLSTM_TOL)
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_on_the_card_matches_the_cpu_path(cuda_device):
+    """The whole chunked scan: kernel + recurrence on the card against the
+    plain twin + recurrence on the CPU."""
+    b, s, h, p = 1, 700, 2, 256
+    rng = np.random.default_rng(9)
+    arrays = [rng.standard_normal((b, s, h, p), np.float32) for _ in range(3)]
+    arrays += [(rng.standard_normal((b, s, h)) * 0.64 + m).astype(np.float32)
+               for m in (0.0, 3.0)]
+    ins = [torch.from_numpy(a) for a in arrays]
+    got = mlstm_scan(*(t.to(cuda_device) for t in ins))
+    want = mlstm_scan(*ins)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **MLSTM_TOL)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, li, lf, scale = _mlstm_chunks((1, 64, 2, 16, 32), cuda_device)
+    with pytest.raises(ValueError):                    # p = 24
+        M.mlstm_chunk(*(torch.zeros(1, 2, 32, 2, 24, device=cuda_device)
+                        for _ in range(3)), li, lf, scale)
+    with pytest.raises(ValueError):                    # Q = 512
+        big = torch.zeros(1, 1, 512, 2, 16, device=cuda_device)
+        gate = torch.zeros(1, 1, 512, 2, device=cuda_device)
+        M.mlstm_chunk(big, big, big, gate, gate, scale)
+    with pytest.raises(ValueError):                    # not contiguous
+        M.mlstm_chunk(q.transpose(3, 4).contiguous().transpose(3, 4), k, v,
+                      li, lf, scale)
+    with pytest.raises(ValueError):                    # not float32
+        M.mlstm_chunk(q.double(), k, v, li, lf, scale)

@@ -135,3 +135,20 @@ def test_inits_follow_reference_distributions():
     # one generator, one stream: the same seed gives the same weights
     again = tl.dense_init(torch.Generator().manual_seed(0), 256, 512)
     assert torch.equal(w, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softplus_and_log_sigmoid_round_like_jax(dtype):
+    x = np.random.default_rng(7).standard_normal((4096,), np.float32) * 8
+    x = np.concatenate([x, [np.inf, -np.inf, 0.0, 30.0, -30.0]]) \
+        .astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    for jfn, tfn in ((jax.nn.softplus, tl.softplus),
+                     (jax.nn.log_sigmoid, tl.log_sigmoid)):
+        want = np.asarray(jfn(jx), np.float32)
+        got = _np(tfn(tx))
+        assert tfn(tx).dtype == tx.dtype
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(got, want)
+        else:   # exp and log1p in float32 differ between the libraries
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

@@ -185,8 +185,8 @@ def test_generate_cli_on_cpu(monkeypatch, capsys):
     assert "generated token ids (first request):" in out
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-1.3b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_name_their_slice(arch):
     with pytest.raises(NotImplementedError,
                        match="not ported yet: ROADMAP.md queue A names"):

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's serving path on one CUDA card.
 
-    python3 tools/profile_torch_serve.py [--arch zamba2-7b]
+    python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b]
 
 Profiles, with ``torch.profiler``, one model at full width (default
 llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
 
 - one prefill step at B = 2, S = 4096 (the flash kernel in every attention
-  layer; for zamba2-7b also the SSD kernel in every mamba layer);
+  layer; for zamba2-7b also the SSD kernel in every mamba layer; for
+  xlstm-1.3b the mLSTM kernel in every mLSTM block, beside the sLSTM
+  blocks' loop over time);
 - four greedy decode steps after a prefill of 4 prompts (the ``generate``
   server's loop): 512 tokens each in one batched prefill, or, for a family
   without one, 128 tokens filled token by token.
 
 For each it prints one JSON line: the wall time, the device time summed
-over kernels, the device's idle share of the wall time, and the kernels
-that took the most device time.  Needs the card; it raises without one.
+over kernels, the device's idle share of the wall time, the kernels that
+took the most device time, and the host time spent inside each kind of
+sequence mixer (``ssm_forward``, ``mlstm_forward``, ``slstm_forward``;
+each call is wrapped in a profiler range here, not in the model code): for
+a loop the host issues op by op, such as the sLSTM recurrence, that time is
+its share of the wall time.  Needs the card; it raises without one.
 """
 
 from __future__ import annotations
@@ -28,24 +34,41 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch.serve import fill  # noqa: E402
+from repro_torch.models import ssm, xlstm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train.step import (make_decode_step,  # noqa: E402
                                     make_prefill_step)
 
 TOP = 12
+MIXERS = ((ssm, "ssm_forward"), (xlstm, "mlstm_forward"),
+          (xlstm, "slstm_forward"))
+RANGE = "mixer:"
+
+
+def annotate_mixers() -> None:
+    """Wrap each mixer's prefill function in a named profiler range (the
+    model code calls them through their modules)."""
+    for mod, name in MIXERS:
+        def ranged(*args, _fn=getattr(mod, name), _label=RANGE + name):
+            with record_function(_label):
+                return _fn(*args)
+        setattr(mod, name, ranged)
 
 
 def _device_us(evt) -> float:
     """Device time of a kernel row; 0 for host-side operator rows, whose
-    device time is that of the kernels they launched (counted there)."""
-    if evt.device_type != DeviceType.CUDA or evt.key == "Command Buffer Full":
-        return 0.0      # the latter is a CUPTI launch-queue marker
+    device time is that of the kernels they launched (counted there), and
+    for the device-side copies of the mixer ranges, which span kernels
+    rather than run any."""
+    if (evt.device_type != DeviceType.CUDA or evt.key.startswith(RANGE)
+            or evt.key == "Command Buffer Full"):
+        return 0.0      # the last is a CUPTI launch-queue marker
     return float(getattr(evt, "self_device_time_total", 0.0)
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
@@ -59,7 +82,14 @@ def profiled(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
+    events = prof.key_averages()
+    mixers = {e.key[len(RANGE):]: {"calls": e.count,
+                                   "host_ms": e.cpu_time_total / 1e3,
+                                   "share_of_wall": e.cpu_time_total / 1e6
+                                   / wall}
+              for e in events
+              if e.key.startswith(RANGE) and e.device_type == DeviceType.CPU}
+    rows = [(e.key, e.count, _device_us(e)) for e in events]
     rows = [r for r in rows if r[2] > 0]
     busy_us = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[2])
@@ -69,6 +99,7 @@ def profiled(label: str, fn) -> None:
         "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
         "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3,
                  "share": us / busy_us} for k, c, us in rows[:TOP]],
+        "mixers_host": mixers,
     }), flush=True)
 
 
@@ -78,6 +109,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
+    annotate_mixers()
     cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
     model = build_model(cfg)
     params = model.init(0)
