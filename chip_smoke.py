@@ -6,10 +6,10 @@
 Drives the port (``src/repro_torch``) through its main paths and checks
 them:
 
-1. device and build: the card's name and power limit, then the three
+1. device and build: the card's name and power limit, then the four
    sm_90a kernels built at once from the checkout (``csrc/flash_fwd.cu``,
-   ``csrc/ssd_chunk.cu`` and ``csrc/mlstm_chunk.cu``, one nvcc each), with
-   ptxas' reports;
+   ``csrc/ssd_chunk.cu``, ``csrc/mlstm_chunk.cu`` and
+   ``csrc/fused_swiglu.cu``, one nvcc each), with ptxas' reports;
 2. kernels: each kernel against its plain PyTorch twin.  Flash: the six
    ``FLASH_CASES`` x {f32, bf16}, D = 112 cases, and the full-width
    llama3.2-3b (D = 128) and zamba2-7b (D = 112) layer shapes, ragged and
@@ -17,20 +17,26 @@ them:
    mamba layer at B = 2, S = 4096 and at a ragged S = 4000, all three
    outputs.  mLSTM: the four ``MLSTM_CASES`` of tests/test_kernels.py,
    xlstm-1.3b's mLSTM layer at B = 2, S = 4096 and at a ragged S = 4000,
-   all seven outputs.  Then the times of each kernel, its twin and, for
-   flash, ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it; no single PyTorch call computes the SSD or the mLSTM chunk),
-   beside the bound;
+   all seven outputs.  Fused SwiGLU: the four ``SWIGLU_CASES`` of
+   tests/test_kernels.py, llama3.2-3b's and zamba2-7b's MLPs and
+   granite-moe-1b-a400m's experts at their prefill steps' shapes, a ragged
+   batch and a decode step's, in f32 and bf16.  Then the times of each
+   kernel, its twin and a library yardstick where there is one
+   (``scaled_dot_product_attention`` for flash, one cuBLAS product with
+   [Wg | Wu] for SwiGLU; the port never calls either; no single PyTorch call
+   computes the SSD or the mLSTM chunk), beside the bound;
 3. llama3.2-3b prefill step: full width (28 layers, random weights from a
    seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
-   with the flash kernel's launches counted; then the kernel path against
-   the plain (naive) path with the same weights in fp32 at full width;
+   with 28 flash and 28 SwiGLU launches counted; then the kernel path
+   against the plain (naive) attention path with the same weights in fp32
+   at full width;
 4. llama3.2-3b generate: 4 requests of 512 prompt tokens + 16 greedy
    tokens through ``repro_torch.launch.serve.generate``, and the batched
    prefill == sequential decode fill invariant on a short prompt;
 5. zamba2-7b prefill step: full width and depth (81 mamba layers, the
    shared attention block applied 13 times), B = 2, S = 4096, bf16,
-   ``attention_impl="pallas"``, with 81 SSD and 13 flash launches counted;
+   ``attention_impl="pallas"``, with 81 SSD, 13 flash and 13 SwiGLU
+   launches counted;
 6. zamba2-7b generate: 4 requests of 128 prompt tokens + 16 greedy tokens,
    the state filled token by token (the family has no batched prefill);
 7. zamba2-7b fp32 parity: at full width and a depth of 7 (one group of 6
@@ -44,7 +50,16 @@ them:
    prefill, so the kernel is not launched);
 10. xlstm-1.3b fp32 parity: at full width and a depth of 8 (7 mLSTM blocks
    and 1 sLSTM block), S = 640 (three chunks, the last ragged), the kernel
-   path on the card against the plain path on the CPU.
+   path on the card against the plain path on the CPU;
+11. granite-moe-1b-a400m prefill step: full width and depth (24 layers,
+   32 experts top-8), B = 2, S = 4096, bf16, with 24 flash and 24 SwiGLU
+   launches counted (every expert of a layer in one launch);
+12. granite-moe-1b-a400m generate: 4 requests of 512 prompt tokens + 16
+   greedy tokens through the batched prefill, with the SwiGLU launches
+   counted (24 in the prefill and in each decode step);
+13. granite-moe-1b-a400m fp32 parity: at full width and a depth of 4, S =
+   640, the kernel path on the card against the plain path on the CPU,
+   the routing (each layer's top-k mask) compared exactly.
 
 Every phase prints one JSON line.  Any failed check exits non-zero.  The
 line before the last is the kernel table, the last the device line.  It
@@ -105,6 +120,24 @@ MLSTM_CASES = [
 MLSTM_FULL = (2, 4096, 4, 1024, 256)        # xlstm-1.3b mLSTM layer, B = 2
 MLSTM_RAGGED = (2, 4000, 4, 1024, 256)
 MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)      # tests/test_kernels.py:151
+GRANITE_SHAPE = (2, 16, 8, 4096, 4096, 64, True, 512, 1024)  # granite-moe
+# the reference's full granite-moe-1b-a400m tree (tests/test_torch_moe.py):
+# ModelConfig.param_count()'s 1,334,627,328 + the padded vocab rows + ln_f
+GRANITE_PARAMS = 1_334_887_424
+SWIGLU_CASES = [
+    # (e, m, k, f), tests/test_kernels.py:175, a dense MLP each (e = 1)
+    (1, 128, 256, 512),
+    (1, 256, 512, 256),
+    (1, 100, 200, 300),
+    (1, 64, 64, 64),
+]
+# the prefill steps' shapes at B = 2, S = 4096 (M = B S; granite-moe: one
+# launch for all 32 experts, M = G C = 2 x 1280), then a ragged batch with
+# an unaligned K and a decode step's (4 requests)
+SWIGLU_PATHS = {"llama3.2-3b MLP": (1, 8192, 3072, 8192),
+                "zamba2-7b shared MLP": (1, 8192, 3584, 14336),
+                "granite-moe-1b-a400m experts": (32, 2560, 1024, 512)}
+SWIGLU_EXTRA = [(3, 1000, 1003, 700), (32, 4, 1024, 512)]
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
@@ -134,6 +167,7 @@ def main() -> int:
         from repro_torch.kernels.flash_attention import kernel as fa
         from repro_torch.kernels.ssm_scan import kernel as ssd
         from repro_torch.kernels.mlstm_scan import kernel as ml
+        from repro_torch.kernels.fused_swiglu import kernel as sw
     except ImportError as e:
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
@@ -151,7 +185,7 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together -------------------
     t0 = time.perf_counter()
-    kernels = (fa, ssd, ml)
+    kernels = (fa, ssd, ml, sw)
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(m.build) for m in kernels]:
             fut.result()
@@ -160,21 +194,28 @@ def main() -> int:
           "ptxas": {m.SOURCE.name: _build.ptxas_report(m.SOURCE)
                     for m in kernels}})
 
-    llama_row, zamba_flash_row = phase_kernels(torch, fa, gpu)
+    llama_row, zamba_flash_row, granite_flash_row = \
+        phase_kernels(torch, fa, gpu)
     ssd_row = phase_ssd_kernels(torch, ssd, gpu)
     mlstm_row = phase_mlstm_kernels(torch, ml, gpu)
-    llama_row["launches"] = phase_prefill(torch, fa, gpu)
-    phase_generate(torch, fa, gpu)
-    ssd_row["launches"], zamba_flash_row["launches"] = \
-        phase_zamba(torch, fa, ssd, gpu)
-    phase_zamba_fp32_parity(torch, fa, ssd)
+    sw_rows = phase_swiglu_kernels(torch, sw, gpu)
+    llama_row["launches"], sw_rows[0]["launches"] = \
+        phase_prefill(torch, fa, sw, gpu)
+    phase_generate(torch, fa, sw, gpu)
+    ssd_row["launches"], zamba_flash_row["launches"], \
+        sw_rows[1]["launches"] = phase_zamba(torch, fa, ssd, sw, gpu)
+    phase_zamba_fp32_parity(torch, fa, ssd, sw)
     mlstm_row["launches"] = phase_xlstm(torch, ml, gpu)
     phase_xlstm_fp32_parity(torch, ml)
+    granite_flash_row["launches"], sw_rows[2]["launches"] = \
+        phase_granite(torch, fa, sw, gpu)
+    phase_granite_fp32_parity(torch, fa, sw)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
-                                  mlstm_row]}), flush=True)
+                                  mlstm_row, *sw_rows,
+                                  granite_flash_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -240,10 +281,11 @@ def flash_bound(case, dtype_name):
 
 def phase_kernels(torch, fa, gpu):
     """The flash kernel against its twin, then its times at the llama3.2-3b
-    (D = 128) and zamba2-7b (D = 112) layer shapes: one kernel-table row
-    for each."""
+    (D = 128), zamba2-7b (D = 112) and granite-moe-1b-a400m (D = 64) layer
+    shapes: one kernel-table row for each."""
     results = []
-    cases = FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE, ZAMBA_SHAPE]
+    cases = FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE, ZAMBA_SHAPE,
+                                        GRANITE_SHAPE]
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -264,7 +306,9 @@ def phase_kernels(torch, fa, gpu):
           "worst": max(r["max_abs_err"] for r in results),
           "results": results})
     return (_flash_times(torch, fa, gpu, FULL_SHAPE, "llama3.2-3b"),
-            _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"))
+            _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"),
+            _flash_times(torch, fa, gpu, GRANITE_SHAPE,
+                         "granite-moe-1b-a400m"))
 
 
 def _flash_times(torch, fa, gpu, shape, arch):
@@ -496,11 +540,104 @@ def phase_mlstm_kernels(torch, ml, gpu):
             "bound_by": bound_by, "library_ms": None}
 
 
+def swiglu_bound(case, dtype_name):
+    """Least time (ms) the card needs for one fused SwiGLU call: the larger
+    of the two products' 4 E M K F flops over the dtype's peak and the
+    bytes of x, Wg, Wu and h over HBM bandwidth."""
+    e, m, k, f = case
+    flops = 4 * e * m * k * f
+    nbytes = (2 if dtype_name == "bfloat16" else 4) * e * (
+        m * k + 2 * k * f + m * f)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def _swiglu_inputs(torch, case, dtype, seed):
+    """x ~ 0.5 N, wg, wu ~ 0.05 N (tests/test_kernels.py); the dense
+    (M, K) form for e = 1, the expert form (E, M, K) otherwise."""
+    e, m, k, f = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rnd(shape, scale):
+        t = torch.randn(shape, generator=g, device="cuda") * scale
+        return t.to(dtype)
+
+    x, wg, wu = rnd((e, m, k), 0.5), rnd((e, k, f), 0.05), \
+        rnd((e, k, f), 0.05)
+    return (x[0], wg[0], wu[0]) if e == 1 else (x, wg, wu)
+
+
+def phase_swiglu_kernels(torch, sw, gpu):
+    """The fused SwiGLU kernel against its twin in f32 and bf16, then its
+    times at each path's shape in bf16 (what the prefill steps run): one
+    kernel-table row for each."""
+    results = []
+    for case in SWIGLU_CASES + list(SWIGLU_PATHS.values()) + SWIGLU_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            ins = _swiglu_inputs(torch, case, dtype, seed=len(results))
+            got = sw.fused_swiglu(*ins)
+            torch.cuda.synchronize()
+            want = sw.fused_swiglu_plain(*ins)
+            ok, err = _compare(got, want, **TOL[name])
+            check(ok and bool(got.isfinite().all()), "swiglu_kernels",
+                  f"{case} {name}: max_abs_err {err}")
+            results.append({"case": list(case), "dtype": name,
+                            "max_abs_err": err, "ok": ok})
+            del ins, got, want
+    emit({"phase": "kernels", "ok": True, "kernel": "fused_swiglu",
+          "checked": len(results),
+          "worst": max(r["max_abs_err"] for r in results),
+          "results": results})
+    rows = [_swiglu_times(torch, sw, gpu, case, path)
+            for path, case in SWIGLU_PATHS.items()]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _swiglu_times(torch, sw, gpu, case, path):
+    x, wg, wu = _swiglu_inputs(torch, case, torch.bfloat16, seed=321)
+    out = sw.fused_swiglu(x, wg, wu)
+    want = sw.fused_swiglu_plain(x, wg, wu)
+    _, err = _compare(out, want, **TOL["bfloat16"])
+    ms = _median_ms(torch, lambda: sw.fused_swiglu(x, wg, wu), reps=20)
+    plain_ms = _median_ms(torch, lambda: sw.fused_swiglu_plain(x, wg, wu),
+                          reps=5)
+    # yardstick: the two products as one cuBLAS call on [Wg | Wu]; no
+    # single PyTorch call computes the fused function
+    w_cat = torch.cat([wg, wu], dim=-1)
+    library_ms = _median_ms(torch, lambda: torch.matmul(x, w_cat), reps=20)
+    bound_ms, bound_by, flops, nbytes = swiglu_bound(case, "bfloat16")
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "kernel": "fused_swiglu", "path": path,
+          "shape": dict(zip("e m k f".split(), case)), "dtype": "bfloat16",
+          "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms,
+          "library_note": "torch.matmul(x, [Wg | Wu]): the two products "
+                          "only, no epilogue",
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
+          "library_tflops": flops / library_ms / 1e9,
+          "roofline_share": bound_ms / ms})
+    del x, wg, wu, out, want, w_cat
+    return {"name": "fused_swiglu", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_swiglu/csrc/"
+                      "fused_swiglu.cu",
+            "replaces": "src/repro/kernels/fused_swiglu/kernel.py:56",
+            "path": f"{path}, prefill step", "shape": list(case),
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------
 # 3. full-width prefill step
 # ---------------------------------------------------------------------------
 
-def phase_prefill(torch, fa, gpu):
+def phase_prefill(torch, fa, sw, gpu):
+    """Returns the (flash, SwiGLU) launches of one counted prefill step."""
     from repro_torch.configs import ARCHS
     from repro_torch.models.model import build_model
     from repro_torch.train.step import make_prefill_step
@@ -519,15 +656,16 @@ def phase_prefill(torch, fa, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.LAUNCHES = 0                             # counted main-path run
+    fa.LAUNCHES = sw.LAUNCHES = 0               # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES
-    check(launches > 0, "prefill", "the kernel was never launched")
+    launches, sw_launches = fa.LAUNCHES, sw.LAUNCHES
     check(launches == cfg.n_layers, "prefill",
-          f"{launches} kernel launches for {cfg.n_layers} layers")
+          f"{launches} flash launches for {cfg.n_layers} layers")
+    check(sw_launches == cfg.n_layers, "prefill",
+          f"{sw_launches} SwiGLU launches for {cfg.n_layers} layers")
     check(logits.shape == (b, s, 128256) and bool(logits.isfinite().all()),
           "prefill", f"logits {tuple(logits.shape)} not finite")
     times = [first_s]
@@ -549,7 +687,8 @@ def phase_prefill(torch, fa, gpu):
     torch.cuda.empty_cache()
     emit({"phase": "prefill", "ok": True, "gpu": gpu, "arch": cfg.name,
           "batch": b, "seq": s, "dtype": cfg.dtype,
-          "kernel_launches": launches, "step_s": step_s,
+          "kernel_launches": launches, "swiglu_launches": sw_launches,
+          "step_s": step_s,
           "step_times_s": times, "tokens_per_s": b * s / step_s,
           "peak_gb": peak_gb, "bf16_argmax_agreement_vs_plain": agree})
 
@@ -569,14 +708,14 @@ def phase_prefill(torch, fa, gpu):
     emit({"phase": "prefill_fp32_parity", "ok": ok, "positions": pos,
           "max_rel_err": rel, "tol": LOGITS_REL_TOL})
     check(ok, "prefill_fp32_parity", f"max_rel_err {rel}")
-    return launches
+    return launches, sw_launches
 
 
 # ---------------------------------------------------------------------------
 # 4. generate through the server code
 # ---------------------------------------------------------------------------
 
-def phase_generate(torch, fa, gpu):
+def phase_generate(torch, fa, sw, gpu):
     from repro_torch.configs import ARCHS
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
@@ -589,10 +728,13 @@ def phase_generate(torch, fa, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts, 2)                   # warm-up
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = sw.LAUNCHES = 0
     out = generate(model, params, prompts, gen_tokens)
     launches = fa.LAUNCHES
     toks = out.tokens
+    check(sw.LAUNCHES == cfg.n_layers * (gen_tokens + 1), "generate",
+          f"{sw.LAUNCHES} SwiGLU launches in the prefill and "
+          f"{gen_tokens} decode steps")
     check(toks.shape == (n_req, gen_tokens)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           "generate", f"tokens {tuple(toks.shape)} out of range")
@@ -602,7 +744,7 @@ def phase_generate(torch, fa, gpu):
           "prefill_tokens_per_s": n_req * plen / out.prefill_s,
           "decode_ms": out.decode_s * 1e3,
           "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
-          "kernel_launches": launches,
+          "kernel_launches": launches, "swiglu_launches": sw.LAUNCHES,
           "first_request_tokens": toks[0].tolist()})
     del params
     torch.cuda.empty_cache()
@@ -637,8 +779,9 @@ def phase_generate(torch, fa, gpu):
 # 5-6. zamba2-7b: full-width prefill step and generate
 # ---------------------------------------------------------------------------
 
-def phase_zamba(torch, fa, ssd, gpu):
-    """Returns the (SSD, flash) launches of one counted prefill step."""
+def phase_zamba(torch, fa, ssd, sw, gpu):
+    """Returns the (SSD, flash, SwiGLU) launches of one counted prefill
+    step."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
@@ -663,12 +806,15 @@ def phase_zamba(torch, fa, ssd, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ssd.LAUNCHES = fa.LAUNCHES = 0              # counted main-path run
+    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0   # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     ssd_launches, flash_launches = ssd.LAUNCHES, fa.LAUNCHES
+    sw_launches = sw.LAUNCHES
+    check(sw_launches == n_groups, "zamba_prefill",
+          f"{sw_launches} SwiGLU launches for {n_groups} applications")
     check(ssd_launches == cfg.n_layers, "zamba_prefill",
           f"{ssd_launches} SSD launches for {cfg.n_layers} mamba layers")
     check(flash_launches == n_groups, "zamba_prefill",
@@ -687,7 +833,8 @@ def phase_zamba(torch, fa, ssd, gpu):
           "arch": cfg.name, "layers": cfg.n_layers, "groups": n_groups,
           "batch": b, "seq": s, "dtype": cfg.dtype,
           "logits_shape": [b, s, 32000], "ssd_launches": ssd_launches,
-          "flash_launches": flash_launches, "init_s": init_s,
+          "flash_launches": flash_launches, "swiglu_launches": sw_launches,
+          "init_s": init_s,
           "weights_gb": weights_gb, "step_s": step_s, "step_times_s": times,
           "tokens_per_s": b * s / step_s, "peak_gb": peak_gb})
 
@@ -695,7 +842,7 @@ def phase_zamba(torch, fa, ssd, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts[:, :4], 2)           # warm-up
-    ssd.LAUNCHES = fa.LAUNCHES = 0
+    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0
     out = generate(model, params, prompts, gen_tokens)
     toks = out.tokens
     check(out.mode == "sequential", "zamba_generate", f"mode {out.mode}")
@@ -709,17 +856,18 @@ def phase_zamba(torch, fa, ssd, gpu):
           "decode_ms": out.decode_s * 1e3,
           "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
           "ssd_launches": ssd.LAUNCHES, "flash_launches": fa.LAUNCHES,
+          "swiglu_launches": sw.LAUNCHES,
           "first_request_tokens": toks[0].tolist()})
     del params
     torch.cuda.empty_cache()
-    return ssd_launches, flash_launches
+    return ssd_launches, flash_launches, sw_launches
 
 
 # ---------------------------------------------------------------------------
 # 7. zamba2-7b fp32: kernel path on the card against the plain path
 # ---------------------------------------------------------------------------
 
-def phase_zamba_fp32_parity(torch, fa, ssd):
+def phase_zamba_fp32_parity(torch, fa, ssd, sw):
     """Full width, depth 7 (one group of 6 mamba layers + the shared block,
     then one tail layer), S = 640 > block_q so the flash kernel runs and
     the last of three SSD chunks is ragged.  The plain path is the same
@@ -730,16 +878,18 @@ def phase_zamba_fp32_parity(torch, fa, ssd):
 
     cfg = dataclasses.replace(ARCHS["zamba2-7b"], attention_impl="pallas",
                               dtype="float32", n_layers=7)
-    expected = {"ssd": cfg.n_layers, "flash": layout(cfg)[0]}
+    expected = {"ssd": cfg.n_layers, "flash": layout(cfg)[0],
+                "swiglu": layout(cfg)[0]}
     model = build_model(cfg)
     params = model.init(0)
     g = torch.Generator("cuda").manual_seed(17)
     tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
                            device="cuda")
-    ssd.LAUNCHES = fa.LAUNCHES = 0
+    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0
     with torch.no_grad():
         got = model.forward(params, {"tokens": tokens}).cpu()
-    launches = {"ssd": ssd.LAUNCHES, "flash": fa.LAUNCHES}
+    launches = {"ssd": ssd.LAUNCHES, "flash": fa.LAUNCHES,
+                "swiglu": sw.LAUNCHES}
     check(launches == expected, "zamba_fp32_parity",
           f"kernel launches {launches}, expected {expected}")
     params_cpu = copy.deepcopy(params).to("cpu")
@@ -880,6 +1030,160 @@ def phase_xlstm_fp32_parity(torch, ml):
           "max_rel_err": rel, "tol": LOGITS_REL_TOL,
           "plain_path_cpu_s": cpu_s})
     check(ok, "xlstm_fp32_parity", f"max_rel_err {rel}")
+
+
+# ---------------------------------------------------------------------------
+# 11-12. granite-moe-1b-a400m: full-width prefill step and generate
+# ---------------------------------------------------------------------------
+
+def phase_granite(torch, fa, sw, gpu):
+    """Returns the (flash, SwiGLU) launches of one counted prefill step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"],
+                              attention_impl="pallas")
+    vocab = padded_vocab(cfg)
+    b, s = 2, 4096
+    g = torch.Generator("cuda").manual_seed(29)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device="cuda")}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == GRANITE_PARAMS, "granite_prefill",
+          f"{n_params} parameters, not {GRANITE_PARAMS}")
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    step = make_prefill_step(model)
+    step(params, batch)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.LAUNCHES = sw.LAUNCHES = 0               # counted main-path run
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    flash_launches, sw_launches = fa.LAUNCHES, sw.LAUNCHES
+    check(flash_launches == cfg.n_layers, "granite_prefill",
+          f"{flash_launches} flash launches for {cfg.n_layers} layers")
+    check(sw_launches == cfg.n_layers, "granite_prefill",
+          f"{sw_launches} SwiGLU launches for {cfg.n_layers} MoE layers")
+    check(logits.shape == (b, s, vocab) and bool(logits.isfinite().all()),
+          "granite_prefill", f"logits {tuple(logits.shape)} not finite")
+    del logits
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "granite_prefill", "ok": True, "gpu": gpu,
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "experts": cfg.n_experts, "top_k": cfg.top_k, "batch": b,
+          "seq": s, "dtype": cfg.dtype, "logits_shape": [b, s, vocab],
+          "flash_launches": flash_launches, "swiglu_launches": sw_launches,
+          "params": n_params, "init_s": init_s, "weights_gb": weights_gb,
+          "step_s": step_s, "step_times_s": times,
+          "tokens_per_s": b * s / step_s, "peak_gb": peak_gb})
+
+    n_req, plen, gen_tokens = 4, 512, 16
+    prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
+                            device="cuda")
+    generate(model, params, prompts, 2)                   # warm-up
+    fa.LAUNCHES = sw.LAUNCHES = 0
+    out = generate(model, params, prompts, gen_tokens)
+    toks = out.tokens
+    check(out.mode == "batched", "granite_generate", f"mode {out.mode}")
+    check(sw.LAUNCHES == cfg.n_layers * (gen_tokens + 1), "granite_generate",
+          f"{sw.LAUNCHES} SwiGLU launches in the prefill and "
+          f"{gen_tokens} decode steps")
+    check(toks.shape == (n_req, gen_tokens)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "granite_generate", f"tokens {tuple(toks.shape)} out of range")
+    emit({"phase": "granite_generate", "ok": True, "gpu": gpu,
+          "requests": n_req, "prompt": plen, "gen_tokens": gen_tokens,
+          "mode": out.mode, "prefill_ms": out.prefill_s * 1e3,
+          "prefill_tokens_per_s": n_req * plen / out.prefill_s,
+          "decode_ms": out.decode_s * 1e3,
+          "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
+          "flash_launches": fa.LAUNCHES, "swiglu_launches": sw.LAUNCHES,
+          "first_request_tokens": toks[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+    return flash_launches, sw_launches
+
+
+# ---------------------------------------------------------------------------
+# 13. granite-moe-1b-a400m fp32: kernel path on the card against the plain
+# path, the routing compared exactly
+# ---------------------------------------------------------------------------
+
+def phase_granite_fp32_parity(torch, fa, sw):
+    """Full width, depth 4, S = 640 > block_q so the flash kernel runs; one
+    dispatch group of 640 tokens, capacity 200 per expert.  The plain path
+    is the same weights on the CPU, where every wrapper runs its twin.
+    Each layer's top-k mask is recorded on both paths and compared: a
+    flipped expert choice would change a token's output by O(1)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"],
+                              attention_impl="pallas", dtype="float32",
+                              n_layers=4)
+    model = build_model(cfg)
+    params = model.init(0)
+    g = torch.Generator("cuda").manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
+                           device="cuda")
+    masks = []
+    top_k_mask = moe._top_k_mask
+
+    def recorded(probs, k):
+        mask, weights = top_k_mask(probs, k)
+        masks.append(mask.cpu())
+        return mask, weights
+
+    moe._top_k_mask = recorded
+    try:
+        fa.LAUNCHES = sw.LAUNCHES = 0
+        with torch.no_grad():
+            got = model.forward(params, {"tokens": tokens}).cpu()
+        launches = {"flash": fa.LAUNCHES, "swiglu": sw.LAUNCHES}
+        params_cpu = copy.deepcopy(params).to("cpu")
+        del params
+        torch.cuda.empty_cache()
+        card_masks, masks = masks, []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = model.forward(params_cpu, {"tokens": tokens.cpu()})
+        cpu_s = time.perf_counter() - t0
+    finally:
+        moe._top_k_mask = top_k_mask
+    expected = {"flash": cfg.n_layers, "swiglu": cfg.n_layers}
+    check(launches == expected, "granite_fp32_parity",
+          f"kernel launches {launches}, expected {expected}")
+    flipped = [int((a != b).any(-1).sum()) for a, b in zip(card_masks, masks)]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ok = (rel <= LOGITS_REL_TOL and bool(got.isfinite().all())
+          and len(card_masks) == len(masks) == cfg.n_layers
+          and not any(flipped))
+    emit({"phase": "granite_fp32_parity", "ok": ok, "layers": cfg.n_layers,
+          "batch": 1, "seq": 640, "kernel_launches": launches,
+          "tokens_with_flipped_experts_per_layer": flipped,
+          "max_rel_err": rel, "tol": LOGITS_REL_TOL,
+          "plain_path_cpu_s": cpu_s})
+    check(ok, "granite_fp32_parity",
+          f"max_rel_err {rel}, flipped expert choices per layer {flipped}")
 
 
 if __name__ == "__main__":

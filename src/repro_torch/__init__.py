@@ -6,14 +6,17 @@ the reference.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
 twin.
 
-Ported so far (serving of the dense LM, llama3.2-3b family, of the
-hybrid, zamba2-7b, and of the xLSTM, xlstm-1.3b):
+Ported so far (serving of the dense LM, llama3.2-3b family, of the MoE
+LM, granite-moe-1b-a400m, of the hybrid, zamba2-7b, and of the xLSTM,
+xlstm-1.3b):
 
     configs/                     architecture dataclasses (plain copy)
     models/layers.py             rmsnorm, dense, embed, rope, swiglu, log_sigmoid
     models/attention.py          naive / blockwise / flash dispatch, KV cache
-    models/transformer.py        dense decoder LM: forward, prefill, decode;
-                                 the xLSTM stack (XLSTMLM)
+    models/transformer.py        decoder LM (dense or MoE): forward, prefill,
+                                 decode; the xLSTM stack (XLSTMLM)
+    models/moe.py                MoE FFN: top-k routing with capacity,
+                                 einsum and gather dispatch
     models/ssm.py                mamba2 layer: chunked prefill, decode step
     models/zamba.py              hybrid LM: mamba2 + one shared attention block
     models/xlstm.py              mLSTM (chunked prefill) and sLSTM blocks
@@ -22,6 +25,8 @@ hybrid, zamba2-7b, and of the xLSTM, xlstm-1.3b):
     kernels/flash_attention/     hand-written sm_90a CUDA forward kernel
     kernels/ssm_scan/            hand-written sm_90a CUDA SSD chunk kernel
     kernels/mlstm_scan/          hand-written sm_90a CUDA mLSTM chunk kernel
+    kernels/fused_swiglu/        hand-written sm_90a CUDA fused SwiGLU
+                                 gate/up GEMM (dense MLPs and MoE experts)
     convert.py                   reference param tree (numpy) -> port modules
     train/step.py                prefill / decode step callables
     launch/serve.py              ``generate``: prefill + greedy decode

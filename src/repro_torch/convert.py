@@ -1,6 +1,7 @@
 """Carry the reference's parameters into the port.
 
-``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense),
+``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense
+or moe),
 ``zamba_init`` (hybrid) or ``xlstm_init`` (ssm) with every leaf as a numpy
 array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
 ``TransformerLM``, ``ZambaLM`` or ``XLSTMLM``:
@@ -8,8 +9,11 @@ array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
 - a stacked leading axis (``blocks``, ``mblocks``, ``tail``, ``sblocks``)
   becomes one module per layer; the hybrid ``shared`` block is one
   ``Block``;
-- dense ``kernel``s stay (d_in, d_out) and the embedding ``table`` stays
-  (V, d), cast to the compute dtype (the reference casts at every use);
+- dense ``kernel``s stay (d_in, d_out), the experts' stacked ``gate`` and
+  ``up`` (E, d, f) and ``down`` (E, f, d), and the embedding ``table``
+  stays (V, d), cast to the compute dtype (the reference casts at every
+  use); the MoE router's kernel stays float32 (the reference casts it to
+  fp32);
 - norm ``scale``s, the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``,
   the mLSTM gate projection ``w_if`` and ``b_if`` and the sLSTM ``bias``
   stay float32 (the reference casts ``conv`` and ``bias`` at use).
@@ -38,7 +42,7 @@ _SLSTM = (("wx", "wh", "proj"), ("bias",))
 
 def params_from_numpy(tree, cfg: ModelConfig,
                       device: DeviceLike = None) -> nn.Module:
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = layers.dtype_of(cfg.dtype)
@@ -50,12 +54,17 @@ def params_from_numpy(tree, cfg: ModelConfig,
         """One dense block; ``i`` picks a layer of a stacked tree."""
         def at(a):
             return a if i is None else a[i]
-        return {
+        out = {
             "ln1": t(at(p["ln1"]["scale"])),
             "attn": {n: t(at(p["attn"][n]["kernel"]), dt) for n in _ATTN},
             "ln2": t(at(p["ln2"]["scale"])),
-            "mlp": {n: t(at(p["mlp"][n]["kernel"]), dt) for n in _MLP},
         }
+        if "moe" in p:
+            out["moe"] = {"router": t(at(p["moe"]["router"]["kernel"])),
+                          **{n: t(at(p["moe"][n]), dt) for n in _MLP}}
+        else:
+            out["mlp"] = {n: t(at(p["mlp"][n]["kernel"]), dt) for n in _MLP}
+        return out
 
     def mamba(p, i):
         s = p["ssm"]
@@ -70,7 +79,7 @@ def params_from_numpy(tree, cfg: ModelConfig,
             "ln_f": t(tree["ln_f"]["scale"])}
     if "unembed" in tree:
         port["unembed"] = t(tree["unembed"]["kernel"], dt)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         port["blocks"] = [block(tree["blocks"], i)
                           for i in range(cfg.n_layers)]
         return TransformerLM(cfg, port)

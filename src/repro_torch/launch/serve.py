@@ -6,8 +6,9 @@ Port of the ``generate`` subcommand of ``repro/launch/serve.py``::
         --requests 4 --prompt-len 512 --gen-tokens 16
 
 Requests are batched, prefilled with one fused full-prompt forward that
-fills the KV cache (``model.prefill_fn``), then decoded token by token
-with greedy sampling.  A family with no ``prefill_fn`` (the hybrid and
+fills the KV cache (``model.prefill_fn``; the dense and MoE families, e.g.
+``--arch granite-moe-1b-a400m``), then decoded token by token with greedy
+sampling.  A family with no ``prefill_fn`` (the hybrid and
 the xLSTM, whose states are recurrent) fills its state token by token
 through the decode step, as ``--sequential-prefill`` forces for any
 family: ``--arch zamba2-7b`` and ``--arch xlstm-1.3b`` serve so.  Weights are

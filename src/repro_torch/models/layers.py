@@ -18,6 +18,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -45,8 +47,10 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
 # Dense / embedding
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, std: float,
-            dtype: torch.dtype) -> torch.Tensor:
+def normal(gen: torch.Generator, shape, std: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """A ``shape`` tensor ~ N(0, std^2), drawn in float32 on the
+    generator's device, held in ``dtype``."""
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * std).to(dtype)
@@ -55,7 +59,7 @@ def _normal(gen: torch.Generator, shape, std: float,
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(d_in, d_out) kernel ~ N(0, 1/d_in), drawn in float32."""
-    return _normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
+    return normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
 
 
 def dense(kernel: torch.Tensor, x: torch.Tensor,
@@ -66,7 +70,7 @@ def dense(kernel: torch.Tensor, x: torch.Tensor,
 def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(vocab, d) table ~ N(0, 0.02^2), drawn in float32."""
-    return _normal(gen, (vocab, d), 0.02, dtype)
+    return normal(gen, (vocab, d), 0.02, dtype)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
@@ -137,6 +141,12 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(params, x: torch.Tensor,
            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    g = dense(params["gate"], x, compute_dtype)
-    u = dense(params["up"], x, compute_dtype)
-    return dense(params["down"], silu(g) * u, compute_dtype)
+    """down(silu(x gate) * (x up)).  The gate/up half is the fused SwiGLU
+    kernel's function (``kernels/fused_swiglu``: the sm_90a kernel on the
+    card, its plain twin on the CPU): fp32 products and epilogue, rounded
+    once to the compute dtype, where the reference's op-by-op jnp rounds
+    g, u and each step of silu (about an ulp of h apart in bf16).  The
+    down projection stays a matmul, as the reference leaves it to XLA."""
+    dt = compute_dtype
+    h = fused_swiglu(x.to(dt), params["gate"].to(dt), params["up"].to(dt))
+    return dense(params["down"], h, dt)

@@ -1,7 +1,7 @@
 """Unified Model API and reduced configs.
 
-Port of ``repro/models/model.py`` for ``family`` "dense", "hybrid" and
-"ssm" (xLSTM).
+Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
+"hybrid" and "ssm" (xLSTM).
 ``Model`` bundles the functions for one config:
 
     model.init(seed, device=None)              -> params (an nn.Module)
@@ -48,7 +48,7 @@ def _init(init_fn: Callable, cfg: ModelConfig, seed: int, *,
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         t = transformer
         return Model(
             cfg=cfg,

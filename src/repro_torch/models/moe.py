@@ -1,0 +1,146 @@
+"""Mixture-of-Experts FFN (GShard-style top-k token-choice routing with
+capacity).
+
+Port of ``repro/models/moe.py``.  Tokens are grouped (one group per
+sequence, or per ``MAX_GROUP`` tokens of a longer one); each group sends
+at most ``capacity`` tokens to each expert, and a token an expert has no
+room for gets nothing from that expert (its output falls back to the
+residual stream).  The router runs in fp32.
+
+Both of the reference's dispatch implementations are here: ``einsum``
+(one-hot dispatch and combine tensors, the configs' default) and
+``gather`` (index gathers, no dispatch products).  Either way every
+expert's gate/up half, ``silu(x_e gate_e) * (x_e up_e)``, is the fused
+SwiGLU kernel's function, and all experts of a layer go through
+``kernels/fused_swiglu`` as one batched launch (x (E, G·C, d), gate and up
+(E, d, f)); the down projection and the dispatch/combine products stay
+matmuls, as the reference leaves them to XLA.  The reference's
+``tag``/``constrain`` annotations are the identity on one device and are
+dropped; its cost-probe ``moe_ffn_skip`` mode is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
+from repro_torch.models import layers
+
+MAX_GROUP = 4096  # tokens per dispatch group: bounds capacity-buffer size
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The reference's distributions: router (d, E) ~ N(0, 1/d), kept
+    float32 (the router runs in fp32); gate, up (E, d, f) ~ N(0, 1/d) and
+    down (E, f, d) ~ N(0, 1/f), drawn in float32 and held in ``dtype``."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s = 1.0 / math.sqrt(d)
+    return {
+        "router": layers.dense_init(gen, d, e),
+        "gate": layers.normal(gen, (e, d, f), s, dtype),
+        "up": layers.normal(gen, (e, d, f), s, dtype),
+        "down": layers.normal(gen, (e, f, d), 1.0 / math.sqrt(f), dtype),
+    }
+
+
+def _top_k_mask(router_probs: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(G,S,E) probs -> (G,S,E) selection mask and renormalised weights."""
+    _, topi = torch.topk(router_probs, k, dim=-1)               # (G,S,k)
+    mask = torch.zeros_like(router_probs).scatter_(-1, topi, 1.0)
+    weights = router_probs * mask
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    return mask, weights
+
+
+def _expert_ffn(params, expert_in: torch.Tensor, dt: torch.dtype
+                ) -> torch.Tensor:
+    """(E, G, C, d) expert inputs -> (E, G, C, d) expert outputs: the
+    SwiGLU FFN of every expert, its gate/up half in one kernel launch."""
+    e, g, c, d = expert_in.shape
+    hidden = fused_swiglu(expert_in.reshape(e, g * c, d),
+                          params["gate"].to(dt), params["up"].to(dt))
+    return torch.bmm(hidden, params["down"].to(dt)).reshape(e, g, c, d)
+
+
+def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (B, S, d) in the compute dtype, fp32 aux-loss scalar.
+
+    Dispatch groups are sub-sequences of at most MAX_GROUP tokens: the
+    (G, S_g, E, C) one-hot buffers scale with S_g * C ~ S_g^2 * k / E, so
+    long sequences are regrouped before routing (routing is per token, so
+    this is exact; capacity is per group).
+    """
+    if cfg.moe_ffn_skip:
+        # the reference's cost-probe mode (launch/probe.py)
+        raise NotImplementedError("moe_ffn_skip is not ported")
+    if cfg.moe_impl not in ("einsum", "gather"):
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    dt = layers.dtype_of(cfg.dtype)
+    b0, s0, d = x.shape
+    if s0 > MAX_GROUP:
+        if s0 % MAX_GROUP:
+            raise ValueError(f"a sequence of {s0} tokens does not split "
+                             f"into groups of {MAX_GROUP}")
+        x = x.reshape(b0 * (s0 // MAX_GROUP), MAX_GROUP, d)
+    g, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    capacity = int(math.ceil(s * k / e * cfg.capacity_factor))
+    capacity = max(capacity, 1)
+
+    router_logits = x.float() @ params["router"].float()        # (G,S,E)
+    probs = torch.softmax(router_logits, dim=-1)
+    mask, weights = _top_k_mask(probs, k)
+
+    # load-balancing auxiliary loss (Switch): E * sum(f_e * p_e)
+    frac_tokens = mask.mean(dim=(0, 1))                         # (E,)
+    frac_probs = probs.mean(dim=(0, 1))                         # (E,)
+    aux_loss = e * torch.sum(frac_tokens * frac_probs)
+
+    # position of each token within its expert's capacity buffer (an fp32
+    # cumsum, as the reference's: exact for groups of up to 2^24 tokens)
+    pos_in_expert = torch.cumsum(mask, dim=1) * mask - 1.0      # (G,S,E)
+    in_capacity = (pos_in_expert < capacity) & (mask > 0)
+    pos_clipped = torch.clamp(pos_in_expert, 0, capacity - 1).long()
+    xs = x.to(dt)
+
+    if cfg.moe_impl == "gather":
+        # slot_token[g, e, c] = index of the token in slot c of expert e; a
+        # stable sort, as jnp.argsort's
+        order = torch.argsort(
+            torch.where(in_capacity, pos_clipped, s + 1), dim=1,
+            stable=True)                                        # (G,S,E)
+        slot_token = order[:, :capacity, :].permute(2, 0, 1)    # (E,G,C)
+        token_valid = torch.gather(in_capacity.permute(2, 0, 1), 2,
+                                   slot_token)                  # (E,G,C)
+        groups = torch.arange(g, device=x.device)
+        expert_in = xs[groups[None, :, None], slot_token] \
+            * token_valid[..., None].to(dt)                     # (E,G,C,d)
+        expert_out = _expert_ffn(params, expert_in, dt)         # (E,G,C,d)
+
+        # combine: for each token, gather its top-k expert outputs
+        topv, topi = torch.topk(weights, k, dim=-1)             # (G,S,k)
+        tok_pos = torch.gather(pos_clipped, 2, topi)            # (G,S,k)
+        tok_ok = torch.gather(in_capacity, 2, topi)             # (G,S,k)
+        picked = expert_out[topi, groups[:, None, None],
+                            tok_pos]                    # (G,S,k,d)
+        out = torch.sum(picked * (topv * tok_ok).to(dt)[..., None], dim=2)
+        return out.reshape(b0, s0, d).to(dt), aux_loss.float()
+
+    # dispatch: (G,S,E,C) one-hot over capacity slots, built in the compute
+    # dtype (an int64 one_hot at the prefill step's shape would take 4x the
+    # bytes); 1 at a token's slot when it is in capacity, else all 0
+    dispatch = torch.zeros(g, s, e, capacity, dtype=dt, device=x.device)
+    dispatch.scatter_(3, pos_clipped[..., None], in_capacity[..., None].to(dt))
+    combine = dispatch * weights[..., None].to(dt)
+
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xs)    # (E,G,C,d)
+    expert_out = _expert_ffn(params, expert_in, dt)             # (E,G,C,d)
+    out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
+    return out.reshape(b0, s0, d).to(dt), aux_loss.float()

@@ -1,7 +1,8 @@
-"""Dense decoder-only LM (llama3.2 / phi4 / minitron / granite family) and
-the xLSTM stack (family "ssm").
+"""Decoder-only LM, dense (llama3.2 / phi4 / minitron / granite family) or
+with MoE FFNs (granite-moe / qwen3-moe family), and the xLSTM stack
+(family "ssm").
 
-Port of the dense and xLSTM parts of ``repro/models/transformer.py``.
+Port of the LM and xLSTM parts of ``repro/models/transformer.py``.
 Parameters are built as plain nested dicts (``lm_init``, or ``convert.py``
 from the reference's tree) and held by the ``TransformerLM`` module: the
 reference's stacked ``blocks`` axis becomes a ``ModuleList`` of ``Block``s.
@@ -23,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, xlstm
+from repro_torch.models import layers, moe, xlstm
 
 VOCAB_PAD = 256
 
@@ -47,17 +48,25 @@ def _frozen_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+    """An MoE config's block holds ``moe`` (router and experts), any other
+    ``mlp``, as the reference's does."""
     dt = layers.dtype_of(cfg.dtype)
-    return {
+    tree = {
         "ln1": layers.rmsnorm_init(cfg.d_model, device=gen.device),
         "attn": attn.attention_init(gen, cfg, dtype=dt),
         "ln2": layers.rmsnorm_init(cfg.d_model, device=gen.device),
-        "mlp": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dt),
     }
+    if cfg.is_moe:
+        tree["moe"] = moe.moe_init(gen, cfg, dtype=dt)
+    else:
+        tree["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff,
+                                         dtype=dt)
+    return tree
 
 
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)), then + swiglu(norm(.))."""
+    """Pre-norm block: x + attn(norm(x)), then + swiglu(norm(.)) or, for an
+    MoE config, + moe(norm(.))."""
 
     def __init__(self, cfg: ModelConfig, tree: Tree):
         super().__init__()
@@ -65,7 +74,10 @@ class Block(nn.Module):
         self.ln1 = _frozen(tree["ln1"])
         self.attn = _frozen_dict(tree["attn"])
         self.ln2 = _frozen(tree["ln2"])
-        self.mlp = _frozen_dict(tree["mlp"])
+        if cfg.is_moe:
+            self.moe = _frozen_dict(tree["moe"])
+        else:
+            self.mlp = _frozen_dict(tree["mlp"])
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
@@ -82,7 +94,11 @@ def block_forward(cfg: ModelConfig, p: Block, x: torch.Tensor,
 
 def _mlp_residual(cfg: ModelConfig, p: Block, h: torch.Tensor
                   ) -> torch.Tensor:
+    """h + ffn(norm(h)).  An MoE block's auxiliary loss is dropped: it
+    matters only to training."""
     hn = layers.rmsnorm(p.ln2, h, cfg.norm_eps)
+    if cfg.is_moe:
+        return h + moe.moe_forward(cfg, p.moe, hn)[0]
     return h + layers.swiglu(p.mlp, hn, layers.dtype_of(cfg.dtype))
 
 
@@ -105,7 +121,8 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> "TransformerLM":
 
 
 class TransformerLM(nn.Module):
-    """Parameters of the dense LM; ``forward(tokens)`` gives all logits."""
+    """Parameters of the decoder-only LM (dense or MoE);
+    ``forward(tokens)`` gives all logits."""
 
     def __init__(self, cfg: ModelConfig, tree: Tree):
         super().__init__()

@@ -6,17 +6,22 @@ imports no JAX, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kernels.py -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
+from repro_torch.kernels.fused_swiglu import kernel as W  # noqa: E402
 from repro_torch.kernels.mlstm_scan import kernel as M  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as S  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import (chunk_inputs,  # noqa: E402
                                               ssd_scan)
+from repro_torch.models import moe  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -58,6 +63,19 @@ MLSTM_CASES = [
     (2, 4096, 4, 1024, 256),
 ]
 MLSTM_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_kernels.py:151
+
+SWIGLU_CASES = [
+    # (e, m, k, f): tests/test_kernels.py:175 (e = 1, a dense MLP), a batch
+    # of ragged experts with an unaligned K, a decode step's M = 4, and
+    # granite-moe-1b-a400m's experts at its prefill step (B = 2, S = 4096)
+    (1, 128, 256, 512),
+    (1, 256, 512, 256),
+    (1, 100, 200, 300),
+    (1, 64, 64, 64),
+    (3, 70, 203, 37),
+    (32, 4, 1024, 512),
+    (32, 2560, 1024, 512),
+]
 
 
 def _tol(dtype):
@@ -243,3 +261,67 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda_device):
                       li, lf, scale)
     with pytest.raises(ValueError):                    # not float32
         M.mlstm_chunk(q.double(), k, v, li, lf, scale)
+
+
+def _swiglu_inputs(case, dtype, device, seed=10):
+    """x ~ 0.5 N, wg, wu ~ 0.05 N (tests/test_kernels.py), (E, ...) form."""
+    e, m, k, f = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32) * scale)
+            .to(device, getattr(torch, dtype))
+            for s, scale in (((e, m, k), 0.5), ((e, k, f), 0.05),
+                             ((e, k, f), 0.05))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SWIGLU_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_kernel_matches_plain_twin(cuda_device, case, dtype):
+    x, wg, wu = _swiglu_inputs(case, dtype, cuda_device)
+    if case[0] == 1:                       # the dense (M, K) form
+        x, wg, wu = x[0], wg[0], wu[0]
+    before = W.LAUNCHES
+    got = W.fused_swiglu(x, wg, wu)
+    torch.cuda.synchronize()
+    assert W.LAUNCHES == before + 1
+    want = W.fused_swiglu_plain(x, wg, wu)
+    assert got.shape == want.shape and got.dtype == x.dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **_tol(getattr(torch, dtype)))
+
+
+@pytest.mark.cuda
+def test_swiglu_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, wg, wu = _swiglu_inputs((1, 64, 64, 64), "float32", cuda_device)
+    with pytest.raises(ValueError):                    # float64
+        W.fused_swiglu(x.double(), wg.double(), wu.double())
+    with pytest.raises(ValueError):                    # mixed dtypes
+        W.fused_swiglu(x.bfloat16(), wg, wu)
+    with pytest.raises(ValueError):                    # not contiguous
+        W.fused_swiglu(x, wg.transpose(1, 2), wu.transpose(1, 2))
+    with pytest.raises(ValueError):                    # two devices
+        W.fused_swiglu(x, wg.cpu(), wu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+def test_moe_layer_on_the_card_matches_the_cpu_path(cuda_device, impl):
+    """granite-moe-1b-a400m's MoE layer at full width (d 1024, 32 experts
+    top-8 of width 512), fp32, 2 groups of 300 tokens: the kernel path on
+    the card against the plain path on the CPU, same parameters."""
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"], dtype="float32",
+                              moe_impl=impl)
+    params = moe.moe_init(torch.Generator("cpu").manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 300, cfg.d_model), np.float32))
+    want, want_aux = moe.moe_forward(cfg, params, x)
+    before = W.LAUNCHES
+    got, aux = moe.moe_forward(
+        cfg, {n: p.to(cuda_device) for n, p in params.items()},
+        x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert W.LAUNCHES == before + 1          # every expert in one launch
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's serving path on one CUDA card.
 
-    python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b]
+    python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b |
+                                          granite-moe-1b-a400m]
 
 Profiles, with ``torch.profiler``, one model at full width (default
 llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
 
 - one prefill step at B = 2, S = 4096 (the flash kernel in every attention
-  layer; for zamba2-7b also the SSD kernel in every mamba layer; for
-  xlstm-1.3b the mLSTM kernel in every mLSTM block, beside the sLSTM
-  blocks' loop over time);
+  layer and the fused SwiGLU kernel in every MLP; for zamba2-7b also the
+  SSD kernel in every mamba layer; for xlstm-1.3b the mLSTM kernel in every
+  mLSTM block, beside the sLSTM blocks' loop over time; for
+  granite-moe-1b-a400m the SwiGLU kernel once a layer for all 32 experts,
+  between the one-hot dispatch and combine products);
 - four greedy decode steps after a prefill of 4 prompts (the ``generate``
   server's loop): 512 tokens each in one batched prefill, or, for a family
   without one, 128 tokens filled token by token.
@@ -17,10 +20,11 @@ llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
 For each it prints one JSON line: the wall time, the device time summed
 over kernels, the device's idle share of the wall time, the kernels that
 took the most device time, and the host time spent inside each kind of
-sequence mixer (``ssm_forward``, ``mlstm_forward``, ``slstm_forward``;
-each call is wrapped in a profiler range here, not in the model code): for
-a loop the host issues op by op, such as the sLSTM recurrence, that time is
-its share of the wall time.  Needs the card; it raises without one.
+sequence mixer (``ssm_forward``, ``mlstm_forward``, ``slstm_forward``) and
+MoE layer (``moe_forward``; each call is wrapped in a profiler range here,
+not in the model code): for a loop the host issues op by op, such as the
+sLSTM recurrence, that time is its share of the wall time.  Needs the
+card; it raises without one.
 """
 
 from __future__ import annotations
@@ -40,14 +44,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch.serve import fill  # noqa: E402
-from repro_torch.models import ssm, xlstm  # noqa: E402
+from repro_torch.models import moe, ssm, xlstm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train.step import (make_decode_step,  # noqa: E402
                                     make_prefill_step)
 
 TOP = 12
 MIXERS = ((ssm, "ssm_forward"), (xlstm, "mlstm_forward"),
-          (xlstm, "slstm_forward"))
+          (xlstm, "slstm_forward"), (moe, "moe_forward"))
 RANGE = "mixer:"
 
 
