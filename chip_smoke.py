@@ -6,11 +6,18 @@
 Drives the port (``src/repro_torch``) through its main paths and checks
 them:
 
-1. device and build: the card's name and power limit, then the four
-   sm_90a kernels built at once from the checkout (``csrc/flash_fwd.cu``,
-   ``csrc/ssd_chunk.cu``, ``csrc/mlstm_chunk.cu`` and
-   ``csrc/fused_swiglu.cu``, one nvcc each), with ptxas' reports;
-2. kernels: each kernel against its plain PyTorch twin.  Flash: the six
+1. device and build: the card's name and power limit, then the six
+   sm_90a sources built at once from the checkout (flash attention's
+   ``csrc/flash_fwd_wgmma.cu`` and ``csrc/flash_fwd.cu``,
+   ``csrc/ssd_chunk.cu``, ``csrc/mlstm_chunk.cu``, and fused SwiGLU's
+   ``csrc/fused_swiglu_wgmma.cu`` and ``csrc/fused_swiglu.cu``, one nvcc
+   each; the two wgmma kernels include ``kernels/csrc/hopper.cuh``), with
+   ptxas' reports;
+2. kernels: each kernel against its plain PyTorch twin, in every variant
+   its wrapper can choose (flash: wgmma for bf16, simt for fp32 and, forced,
+   for bf16; SwiGLU: wgmma for bf16 rows TMA can describe, mma_sync for the
+   others and, forced, for those too, simt for fp32), and the wrapper's
+   choice checked.  Flash: the six
    ``FLASH_CASES`` x {f32, bf16}, D = 112 cases, and the full-width
    llama3.2-3b (D = 128) and zamba2-7b (D = 112) layer shapes, ragged and
    full.  SSD: the four ``SSD_CASES`` of tests/test_kernels.py, zamba2-7b's
@@ -24,10 +31,13 @@ them:
    kernel, its twin and a library yardstick where there is one
    (``scaled_dot_product_attention`` for flash, one cuBLAS product with
    [Wg | Wu] for SwiGLU; the port never calls either; no single PyTorch call
-   computes the SSD or the mLSTM chunk), beside the bound;
+   computes the SSD or the mLSTM chunk), beside the bound; for flash and
+   SwiGLU also the PR 14 design (simt, mma_sync) forced, timed in turns
+   with the new one, and SwiGLU at two decode shapes;
 3. llama3.2-3b prefill step: full width (28 layers, random weights from a
    seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
-   with 28 flash and 28 SwiGLU launches counted; then the kernel path
+   with 28 flash and 28 SwiGLU launches counted, all wgmma; then the
+   kernel path
    against the plain (naive) attention path with the same weights in fp32
    at full width;
 4. llama3.2-3b generate: 4 requests of 512 prompt tokens + 16 greedy
@@ -61,8 +71,12 @@ them:
    640, the kernel path on the card against the plain path on the CPU,
    the routing (each layer's top-k mask) compared exactly.
 
-Every phase prints one JSON line.  Any failed check exits non-zero.  The
-line before the last is the kernel table, the last the device line.  It
+The bf16 prefill steps (3, 5, 11) and generate's SwiGLU launches must
+count under the wgmma variants only, the fp32 parity phases (7, 13) under
+the simt variants only (``LAUNCHES_BY_VARIANT``).  Every phase prints one
+JSON line.  Any failed check exits non-zero.  The line before the last is
+the kernel table (each row with its ``variant`` and ``prev_ms``, the PR 14
+design's time in this run), the last the device line.  It
 needs the card: without one, or without the repo's sources beside it, it
 exits non-zero before printing any result.
 """
@@ -138,6 +152,9 @@ SWIGLU_PATHS = {"llama3.2-3b MLP": (1, 8192, 3072, 8192),
                 "zamba2-7b shared MLP": (1, 8192, 3584, 14336),
                 "granite-moe-1b-a400m experts": (32, 2560, 1024, 512)}
 SWIGLU_EXTRA = [(3, 1000, 1003, 700), (32, 4, 1024, 512)]
+# decode steps' shapes (4 requests), timed beside the path shapes
+SWIGLU_DECODE = {"llama3.2-3b MLP, decode": (1, 4, 3072, 8192),
+                 "granite-moe-1b-a400m experts, decode": (32, 4, 1024, 512)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
@@ -185,14 +202,19 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together -------------------
     t0 = time.perf_counter()
-    kernels = (fa, ssd, ml, sw)
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(m.build) for m in kernels]:
+    sources = [fa.WGMMA_SOURCE, fa.SOURCE, ssd.SOURCE, ml.SOURCE,
+               sw.WGMMA_SOURCE, sw.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for fut in [pool.submit(_build.load, src) for src in sources]:
             fut.result()
+    for m in (ssd, ml):
+        m.build()
+    for m in (fa, sw):
+        for variant in m.VARIANTS:
+            m.build(variant)
     emit({"phase": "build", "ok": True, "gpu": gpu,
           "build_s": time.perf_counter() - t0,
-          "ptxas": {m.SOURCE.name: _build.ptxas_report(m.SOURCE)
-                    for m in kernels}})
+          "ptxas": {src.name: _build.ptxas_report(src) for src in sources}})
 
     llama_row, zamba_flash_row, granite_flash_row = \
         phase_kernels(torch, fa, gpu)
@@ -242,7 +264,26 @@ def _compare(got, want, rtol, atol):
     return ok, err.max().item()
 
 
-def _median_ms(torch, fn, reps, warmup=1):
+def _zero(*mods):
+    """Set the kernels' launch counts to 0, the counts by variant too."""
+    for m in mods:
+        if hasattr(m, "reset_launches"):
+            m.reset_launches()
+        else:
+            m.LAUNCHES = 0
+
+
+def _only(m, variant, n):
+    """Whether kernel module ``m`` counted ``n`` launches, all of them
+    under ``variant``."""
+    return m.LAUNCHES == n and m.LAUNCHES_BY_VARIANT == {
+        v: (n if v == variant else 0) for v in m.VARIANTS}
+
+
+def _median_ms(torch, fn, reps, warmup=1, inner=5):
+    """Median over ``reps`` of the time of one call, each taken from CUDA
+    events around ``inner`` calls in a row, so the card never waits for
+    the host's launch of the next one."""
     for _ in range(warmup):
         fn()
     times = []
@@ -250,11 +291,22 @@ def _median_ms(torch, fn, reps, warmup=1):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
+
+
+def _in_turns(torch, fns):
+    """Each (fn, reps)'s median time, measured twice in turns (a, b, c, c,
+    b, a) in this call; the lesser of the two medians for each."""
+    times = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        fn, reps = fns[i]
+        times[i].append(_median_ms(torch, fn, reps=reps))
+    return [min(t) for t in times]
 
 
 def flash_bound(case, dtype_name):
@@ -279,10 +331,17 @@ def flash_bound(case, dtype_name):
 # 2. kernels against their plain twins
 # ---------------------------------------------------------------------------
 
+def flash_variants(dtype_name):
+    """Every flash kernel the wrapper can choose for a dtype: fp32 runs the
+    SIMT kernel; bf16 the wgmma kernel, and the SIMT (PR 14) design forced
+    beside it."""
+    return ["wgmma", "simt"] if dtype_name == "bfloat16" else ["simt"]
+
+
 def phase_kernels(torch, fa, gpu):
-    """The flash kernel against its twin, then its times at the llama3.2-3b
-    (D = 128), zamba2-7b (D = 112) and granite-moe-1b-a400m (D = 64) layer
-    shapes: one kernel-table row for each."""
+    """The flash kernel against its twin in each variant, then its times at
+    the llama3.2-3b (D = 128), zamba2-7b (D = 112) and granite-moe-1b-a400m
+    (D = 64) layer shapes: one kernel-table row for each."""
     results = []
     cases = FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE, ZAMBA_SHAPE,
                                         GRANITE_SHAPE]
@@ -291,19 +350,26 @@ def phase_kernels(torch, fa, gpu):
             name = str(dtype).split(".")[-1]
             q, k, v = _inputs(torch, case, dtype, seed=len(results))
             causal, bq, bkv = case[6:]
-            got = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                         block_q=bq, block_kv=bkv)
-            torch.cuda.synchronize()
+            chosen = fa.variant_for(q, k, v)
+            check(chosen == flash_variants(name)[0], "kernels",
+                  f"{case} {name}: the wrapper chose {chosen}")
             want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                 block_q=bq, block_kv=bkv)
-            ok, err = _compare(got, want, **TOL[name])
-            results.append({"case": list(case[:7]), "dtype": name,
-                            "max_abs_err": err, "ok": ok})
-            check(ok, "kernels", f"{case} {name}: max_abs_err {err}")
-            del q, k, v, got, want
+            for variant in flash_variants(name):
+                got = fa._launch(q, k, v, causal, variant)
+                torch.cuda.synchronize()
+                ok, err = _compare(got, want, **TOL[name])
+                results.append({"case": list(case[:7]), "dtype": name,
+                                "variant": variant, "max_abs_err": err,
+                                "ok": ok})
+                check(ok, "kernels",
+                      f"{case} {name} {variant}: max_abs_err {err}")
+                del got
+            del q, k, v, want
     emit({"phase": "kernels", "ok": True, "kernel": "flash_attention_fwd",
           "checked": len(results),
-          "worst": max(r["max_abs_err"] for r in results),
+          "worst": {vr: max(r["max_abs_err"] for r in results
+                            if r["variant"] == vr) for vr in fa.VARIANTS},
           "results": results})
     return (_flash_times(torch, fa, gpu, FULL_SHAPE, "llama3.2-3b"),
             _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"),
@@ -313,43 +379,57 @@ def phase_kernels(torch, fa, gpu):
 
 def _flash_times(torch, fa, gpu, shape, arch):
     """Times at a full-width layer shape, bf16 (what the prefill step
-    runs)."""
+    runs): the kernel the wrapper chooses, the PR 14 design (SIMT, forced),
+    the plain twin and SDPA, in turns, in this call."""
     import torch.nn.functional as F
 
     q, k, v = _inputs(torch, shape, torch.bfloat16, seed=123)
     causal, bq, bkv = shape[6:]
+    variant = fa.variant_for(q, k, v)
     out = fa.flash_attention_fwd(q, k, v, causal=causal)
     want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                         block_q=bq, block_kv=bkv)
     _, err = _compare(out, want, **TOL["bfloat16"])
-    ms = _median_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, causal=causal), reps=10)
-    plain_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_plain(
-        q, k, v, causal=causal, block_q=bq, block_kv=bkv), reps=5)
     groups = q.shape[1] // k.shape[1]
     kk = k.repeat_interleave(groups, dim=1)
     vv = v.repeat_interleave(groups, dim=1)
     lib_out = F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
     _, lib_err = _compare(out, lib_out, **TOL["bfloat16"])
-    library_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, kk, vv, is_causal=True), reps=10)
+
+    def new():
+        return fa.flash_attention_fwd(q, k, v, causal=causal)
+
+    def prev():
+        return fa._launch(q, k, v, causal, "simt")
+
+    def library():
+        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+
+    ms, prev_ms, library_ms = _in_turns(
+        torch, [(new, 10), (prev, 3), (library, 10)])
+    plain_ms = _median_ms(torch, lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=causal, block_q=bq, block_kv=bkv), reps=5)
     bound_ms, bound_by, flops = flash_bound(shape, "bfloat16")
     emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
           "kernel": "flash_attention_fwd", "arch": arch,
-          "shape": list(shape[:7]), "dtype": "bfloat16",
-          "kernel_ms": ms, "plain_ms": plain_ms, "sdpa_ms": library_ms,
-          "sdpa_max_abs_diff": lib_err, "bound_ms": bound_ms,
-          "bound_by": bound_by, "kernel_tflops": flops / ms / 1e9,
-          "roofline_share": bound_ms / ms})
+          "shape": list(shape[:7]), "dtype": "bfloat16", "variant": variant,
+          "kernel_ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms,
+          "sdpa_ms": library_ms, "sdpa_max_abs_diff": lib_err,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "kernel_tflops": flops / ms / 1e9,
+          "prev_tflops": flops / prev_ms / 1e9,
+          "sdpa_tflops": flops / library_ms / 1e9,
+          "roofline_share": bound_ms / ms, "speedup_vs_prev": prev_ms / ms})
     del q, k, v, kk, vv, out, want, lib_out
     torch.cuda.empty_cache()
     return {"name": "flash_attention_fwd", "route": "cuda",
+            "variant": variant,
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_fwd.cu",
+                      + fa.SOURCES[variant].name,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
             "path": f"{arch} prefill step", "shape": list(shape[:7]),
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "prev_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -436,11 +516,13 @@ def phase_ssd_kernels(torch, ssd, gpu):
           "roofline_share": bound_ms / ms})
     del ins
     torch.cuda.empty_cache()
-    return {"name": "ssd_chunk", "route": "cuda",
+    # one design (fp32 on the CUDA cores), unchanged since PR 14: it is
+    # both the row's variant and the PR 14 design
+    return {"name": "ssd_chunk", "route": "cuda", "variant": "simt",
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:61",
             "path": "zamba2-7b prefill step", "shape": list(SSD_FULL),
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -530,12 +612,13 @@ def phase_mlstm_kernels(torch, ml, gpu):
           "roofline_share": bound_ms / ms})
     del ins
     torch.cuda.empty_cache()
-    return {"name": "mlstm_chunk", "route": "cuda",
+    # one design (fp32 on the CUDA cores), unchanged since PR 14
+    return {"name": "mlstm_chunk", "route": "cuda", "variant": "simt",
             "source": "src/repro_torch/kernels/mlstm_scan/csrc/"
                       "mlstm_chunk.cu",
             "replaces": "src/repro/kernels/mlstm_scan/kernel.py:65",
             "path": "xlstm-1.3b prefill step", "shape": list(MLSTM_FULL),
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -569,66 +652,95 @@ def _swiglu_inputs(torch, case, dtype, seed):
     return (x[0], wg[0], wu[0]) if e == 1 else (x, wg, wu)
 
 
+def swiglu_variants(case, dtype_name):
+    """Every SwiGLU kernel the wrapper can choose for a case and dtype: fp32
+    runs the SIMT kernel; bf16 the wgmma kernel where TMA can describe the
+    rows (K, F multiples of 8), with the mma.sync (PR 14) design forced
+    beside it, else the mma.sync kernel alone."""
+    if dtype_name == "float32":
+        return ["simt"]
+    _, _, k, f = case
+    return ["wgmma", "mma_sync"] if k % 8 == 0 and f % 8 == 0 \
+        else ["mma_sync"]
+
+
 def phase_swiglu_kernels(torch, sw, gpu):
-    """The fused SwiGLU kernel against its twin in f32 and bf16, then its
-    times at each path's shape in bf16 (what the prefill steps run): one
-    kernel-table row for each."""
+    """The fused SwiGLU kernel against its twin in f32 and bf16, in each
+    variant, then its times at each path's shape in bf16 (what the prefill
+    steps run): one kernel-table row for each; then the decode shapes."""
     results = []
     for case in SWIGLU_CASES + list(SWIGLU_PATHS.values()) + SWIGLU_EXTRA:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             ins = _swiglu_inputs(torch, case, dtype, seed=len(results))
-            got = sw.fused_swiglu(*ins)
-            torch.cuda.synchronize()
+            variants = swiglu_variants(case, name)
+            chosen = sw.variant_for(*ins)
+            check(chosen == variants[0], "swiglu_kernels",
+                  f"{case} {name}: the wrapper chose {chosen}")
             want = sw.fused_swiglu_plain(*ins)
-            ok, err = _compare(got, want, **TOL[name])
-            check(ok and bool(got.isfinite().all()), "swiglu_kernels",
-                  f"{case} {name}: max_abs_err {err}")
-            results.append({"case": list(case), "dtype": name,
-                            "max_abs_err": err, "ok": ok})
-            del ins, got, want
+            for variant in variants:
+                got = sw._launch(*ins, variant)
+                torch.cuda.synchronize()
+                ok, err = _compare(got, want, **TOL[name])
+                check(ok and bool(got.isfinite().all()), "swiglu_kernels",
+                      f"{case} {name} {variant}: max_abs_err {err}")
+                results.append({"case": list(case), "dtype": name,
+                                "variant": variant, "max_abs_err": err,
+                                "ok": ok})
+                del got
+            del ins, want
     emit({"phase": "kernels", "ok": True, "kernel": "fused_swiglu",
           "checked": len(results),
-          "worst": max(r["max_abs_err"] for r in results),
+          "worst": {vr: max(r["max_abs_err"] for r in results
+                            if r["variant"] == vr) for vr in sw.VARIANTS},
           "results": results})
     rows = [_swiglu_times(torch, sw, gpu, case, path)
             for path, case in SWIGLU_PATHS.items()]
+    for path, case in SWIGLU_DECODE.items():
+        _swiglu_times(torch, sw, gpu, case, path)
     torch.cuda.empty_cache()
     return rows
 
 
 def _swiglu_times(torch, sw, gpu, case, path):
+    """Times at one shape, bf16: the kernel the wrapper chooses, the PR 14
+    design (mma.sync, forced), the plain twin and the cuBLAS yardstick, in
+    turns, in this call."""
     x, wg, wu = _swiglu_inputs(torch, case, torch.bfloat16, seed=321)
+    variant = sw.variant_for(x, wg, wu)
     out = sw.fused_swiglu(x, wg, wu)
     want = sw.fused_swiglu_plain(x, wg, wu)
     _, err = _compare(out, want, **TOL["bfloat16"])
-    ms = _median_ms(torch, lambda: sw.fused_swiglu(x, wg, wu), reps=20)
-    plain_ms = _median_ms(torch, lambda: sw.fused_swiglu_plain(x, wg, wu),
-                          reps=5)
     # yardstick: the two products as one cuBLAS call on [Wg | Wu]; no
     # single PyTorch call computes the fused function
     w_cat = torch.cat([wg, wu], dim=-1)
-    library_ms = _median_ms(torch, lambda: torch.matmul(x, w_cat), reps=20)
+    ms, prev_ms, library_ms = _in_turns(torch, [
+        (lambda: sw.fused_swiglu(x, wg, wu), 20),
+        (lambda: sw._launch(x, wg, wu, "mma_sync"), 20),
+        (lambda: torch.matmul(x, w_cat), 20)])
+    plain_ms = _median_ms(torch, lambda: sw.fused_swiglu_plain(x, wg, wu),
+                          reps=5)
     bound_ms, bound_by, flops, nbytes = swiglu_bound(case, "bfloat16")
     emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
           "kernel": "fused_swiglu", "path": path,
           "shape": dict(zip("e m k f".split(), case)), "dtype": "bfloat16",
-          "kernel_ms": ms, "plain_ms": plain_ms,
-          "library_ms": library_ms,
+          "variant": variant, "kernel_ms": ms, "prev_ms": prev_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
           "library_note": "torch.matmul(x, [Wg | Wu]): the two products "
                           "only, no epilogue",
           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
           "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
+          "prev_tflops": flops / prev_ms / 1e9,
           "library_tflops": flops / library_ms / 1e9,
-          "roofline_share": bound_ms / ms})
+          "roofline_share": bound_ms / ms, "speedup_vs_prev": prev_ms / ms})
     del x, wg, wu, out, want, w_cat
-    return {"name": "fused_swiglu", "route": "cuda",
+    return {"name": "fused_swiglu", "route": "cuda", "variant": variant,
             "source": "src/repro_torch/kernels/fused_swiglu/csrc/"
-                      "fused_swiglu.cu",
+                      + sw.SOURCES[variant].name,
             "replaces": "src/repro/kernels/fused_swiglu/kernel.py:56",
             "path": f"{path}, prefill step", "shape": list(case),
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "prev_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -656,16 +768,20 @@ def phase_prefill(torch, fa, sw, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.LAUNCHES = sw.LAUNCHES = 0               # counted main-path run
+    _zero(fa, sw)                               # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, sw_launches = fa.LAUNCHES, sw.LAUNCHES
-    check(launches == cfg.n_layers, "prefill",
-          f"{launches} flash launches for {cfg.n_layers} layers")
-    check(sw_launches == cfg.n_layers, "prefill",
-          f"{sw_launches} SwiGLU launches for {cfg.n_layers} layers")
+    by_variant = {"flash": dict(fa.LAUNCHES_BY_VARIANT),
+                  "swiglu": dict(sw.LAUNCHES_BY_VARIANT)}
+    check(_only(fa, "wgmma", cfg.n_layers), "prefill",
+          f"flash launches {by_variant['flash']}, expected {cfg.n_layers} "
+          "wgmma")
+    check(_only(sw, "wgmma", cfg.n_layers), "prefill",
+          f"SwiGLU launches {by_variant['swiglu']}, expected "
+          f"{cfg.n_layers} wgmma")
     check(logits.shape == (b, s, 128256) and bool(logits.isfinite().all()),
           "prefill", f"logits {tuple(logits.shape)} not finite")
     times = [first_s]
@@ -688,7 +804,7 @@ def phase_prefill(torch, fa, sw, gpu):
     emit({"phase": "prefill", "ok": True, "gpu": gpu, "arch": cfg.name,
           "batch": b, "seq": s, "dtype": cfg.dtype,
           "kernel_launches": launches, "swiglu_launches": sw_launches,
-          "step_s": step_s,
+          "launches_by_variant": by_variant, "step_s": step_s,
           "step_times_s": times, "tokens_per_s": b * s / step_s,
           "peak_gb": peak_gb, "bf16_argmax_agreement_vs_plain": agree})
 
@@ -728,12 +844,12 @@ def phase_generate(torch, fa, sw, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts, 2)                   # warm-up
-    fa.LAUNCHES = sw.LAUNCHES = 0
+    _zero(fa, sw)
     out = generate(model, params, prompts, gen_tokens)
     launches = fa.LAUNCHES
     toks = out.tokens
-    check(sw.LAUNCHES == cfg.n_layers * (gen_tokens + 1), "generate",
-          f"{sw.LAUNCHES} SwiGLU launches in the prefill and "
+    check(_only(sw, "wgmma", cfg.n_layers * (gen_tokens + 1)), "generate",
+          f"SwiGLU launches {sw.LAUNCHES_BY_VARIANT} in the prefill and "
           f"{gen_tokens} decode steps")
     check(toks.shape == (n_req, gen_tokens)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -745,6 +861,7 @@ def phase_generate(torch, fa, sw, gpu):
           "decode_ms": out.decode_s * 1e3,
           "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
           "kernel_launches": launches, "swiglu_launches": sw.LAUNCHES,
+          "swiglu_launches_by_variant": sw.LAUNCHES_BY_VARIANT,
           "first_request_tokens": toks[0].tolist()})
     del params
     torch.cuda.empty_cache()
@@ -806,19 +923,23 @@ def phase_zamba(torch, fa, ssd, sw, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0   # counted main-path run
+    _zero(ssd, fa, sw)                          # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     ssd_launches, flash_launches = ssd.LAUNCHES, fa.LAUNCHES
     sw_launches = sw.LAUNCHES
-    check(sw_launches == n_groups, "zamba_prefill",
-          f"{sw_launches} SwiGLU launches for {n_groups} applications")
+    by_variant = {"flash": dict(fa.LAUNCHES_BY_VARIANT),
+                  "swiglu": dict(sw.LAUNCHES_BY_VARIANT)}
+    check(_only(sw, "wgmma", n_groups), "zamba_prefill",
+          f"SwiGLU launches {by_variant['swiglu']} for {n_groups} "
+          "applications, expected all wgmma")
     check(ssd_launches == cfg.n_layers, "zamba_prefill",
           f"{ssd_launches} SSD launches for {cfg.n_layers} mamba layers")
-    check(flash_launches == n_groups, "zamba_prefill",
-          f"{flash_launches} flash launches for {n_groups} applications")
+    check(_only(fa, "wgmma", n_groups), "zamba_prefill",
+          f"flash launches {by_variant['flash']} for {n_groups} "
+          "applications, expected all wgmma")
     check(logits.shape == (b, s, 32000) and bool(logits.isfinite().all()),
           "zamba_prefill", f"logits {tuple(logits.shape)} not finite")
     for _ in range(2):
@@ -834,7 +955,7 @@ def phase_zamba(torch, fa, ssd, sw, gpu):
           "batch": b, "seq": s, "dtype": cfg.dtype,
           "logits_shape": [b, s, 32000], "ssd_launches": ssd_launches,
           "flash_launches": flash_launches, "swiglu_launches": sw_launches,
-          "init_s": init_s,
+          "launches_by_variant": by_variant, "init_s": init_s,
           "weights_gb": weights_gb, "step_s": step_s, "step_times_s": times,
           "tokens_per_s": b * s / step_s, "peak_gb": peak_gb})
 
@@ -842,7 +963,7 @@ def phase_zamba(torch, fa, ssd, sw, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts[:, :4], 2)           # warm-up
-    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0
+    _zero(ssd, fa, sw)
     out = generate(model, params, prompts, gen_tokens)
     toks = out.tokens
     check(out.mode == "sequential", "zamba_generate", f"mode {out.mode}")
@@ -885,13 +1006,15 @@ def phase_zamba_fp32_parity(torch, fa, ssd, sw):
     g = torch.Generator("cuda").manual_seed(17)
     tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
                            device="cuda")
-    ssd.LAUNCHES = fa.LAUNCHES = sw.LAUNCHES = 0
+    _zero(ssd, fa, sw)
     with torch.no_grad():
         got = model.forward(params, {"tokens": tokens}).cpu()
     launches = {"ssd": ssd.LAUNCHES, "flash": fa.LAUNCHES,
                 "swiglu": sw.LAUNCHES}
-    check(launches == expected, "zamba_fp32_parity",
-          f"kernel launches {launches}, expected {expected}")
+    check(launches == expected and _only(fa, "simt", expected["flash"])
+          and _only(sw, "simt", expected["swiglu"]), "zamba_fp32_parity",
+          f"kernel launches {launches}, expected {expected}, all fp32 "
+          f"(simt): {fa.LAUNCHES_BY_VARIANT} {sw.LAUNCHES_BY_VARIANT}")
     params_cpu = copy.deepcopy(params).to("cpu")
     del params
     torch.cuda.empty_cache()
@@ -939,7 +1062,7 @@ def phase_xlstm(torch, ml, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ml.LAUNCHES = 0                             # counted main-path run
+    _zero(ml)                                   # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
@@ -970,7 +1093,7 @@ def phase_xlstm(torch, ml, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts[:, :4], 2)           # warm-up
-    ml.LAUNCHES = 0
+    _zero(ml)
     out = generate(model, params, prompts, gen_tokens)
     toks = out.tokens
     check(out.mode == "sequential", "xlstm_generate", f"mode {out.mode}")
@@ -1010,7 +1133,7 @@ def phase_xlstm_fp32_parity(torch, ml):
     g = torch.Generator("cuda").manual_seed(23)
     tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
                            device="cuda")
-    ml.LAUNCHES = 0
+    _zero(ml)
     with torch.no_grad():
         got = model.forward(params, {"tokens": tokens}).cpu()
     launches = ml.LAUNCHES
@@ -1066,16 +1189,20 @@ def phase_granite(torch, fa, sw, gpu):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.LAUNCHES = sw.LAUNCHES = 0               # counted main-path run
+    _zero(fa, sw)                               # counted main-path run
     t0 = time.perf_counter()
     logits = step(params, batch)
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     flash_launches, sw_launches = fa.LAUNCHES, sw.LAUNCHES
-    check(flash_launches == cfg.n_layers, "granite_prefill",
-          f"{flash_launches} flash launches for {cfg.n_layers} layers")
-    check(sw_launches == cfg.n_layers, "granite_prefill",
-          f"{sw_launches} SwiGLU launches for {cfg.n_layers} MoE layers")
+    by_variant = {"flash": dict(fa.LAUNCHES_BY_VARIANT),
+                  "swiglu": dict(sw.LAUNCHES_BY_VARIANT)}
+    check(_only(fa, "wgmma", cfg.n_layers), "granite_prefill",
+          f"flash launches {by_variant['flash']} for {cfg.n_layers} "
+          "layers, expected all wgmma")
+    check(_only(sw, "wgmma", cfg.n_layers), "granite_prefill",
+          f"SwiGLU launches {by_variant['swiglu']} for {cfg.n_layers} MoE "
+          "layers, expected all wgmma")
     check(logits.shape == (b, s, vocab) and bool(logits.isfinite().all()),
           "granite_prefill", f"logits {tuple(logits.shape)} not finite")
     del logits
@@ -1091,7 +1218,7 @@ def phase_granite(torch, fa, sw, gpu):
           "experts": cfg.n_experts, "top_k": cfg.top_k, "batch": b,
           "seq": s, "dtype": cfg.dtype, "logits_shape": [b, s, vocab],
           "flash_launches": flash_launches, "swiglu_launches": sw_launches,
-          "params": n_params, "init_s": init_s, "weights_gb": weights_gb,
+          "launches_by_variant": by_variant, "params": n_params, "init_s": init_s, "weights_gb": weights_gb,
           "step_s": step_s, "step_times_s": times,
           "tokens_per_s": b * s / step_s, "peak_gb": peak_gb})
 
@@ -1099,12 +1226,13 @@ def phase_granite(torch, fa, sw, gpu):
     prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
                             device="cuda")
     generate(model, params, prompts, 2)                   # warm-up
-    fa.LAUNCHES = sw.LAUNCHES = 0
+    _zero(fa, sw)
     out = generate(model, params, prompts, gen_tokens)
     toks = out.tokens
     check(out.mode == "batched", "granite_generate", f"mode {out.mode}")
-    check(sw.LAUNCHES == cfg.n_layers * (gen_tokens + 1), "granite_generate",
-          f"{sw.LAUNCHES} SwiGLU launches in the prefill and "
+    check(_only(sw, "wgmma", cfg.n_layers * (gen_tokens + 1)),
+          "granite_generate",
+          f"SwiGLU launches {sw.LAUNCHES_BY_VARIANT} in the prefill and "
           f"{gen_tokens} decode steps")
     check(toks.shape == (n_req, gen_tokens)
           and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -1116,6 +1244,7 @@ def phase_granite(torch, fa, sw, gpu):
           "decode_ms": out.decode_s * 1e3,
           "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
           "flash_launches": fa.LAUNCHES, "swiglu_launches": sw.LAUNCHES,
+          "swiglu_launches_by_variant": sw.LAUNCHES_BY_VARIANT,
           "first_request_tokens": toks[0].tolist()})
     del params
     torch.cuda.empty_cache()
@@ -1155,10 +1284,12 @@ def phase_granite_fp32_parity(torch, fa, sw):
 
     moe._top_k_mask = recorded
     try:
-        fa.LAUNCHES = sw.LAUNCHES = 0
+        _zero(fa, sw)
         with torch.no_grad():
             got = model.forward(params, {"tokens": tokens}).cpu()
         launches = {"flash": fa.LAUNCHES, "swiglu": sw.LAUNCHES}
+        fp32_only = _only(fa, "simt", cfg.n_layers) and \
+            _only(sw, "simt", cfg.n_layers)
         params_cpu = copy.deepcopy(params).to("cpu")
         del params
         torch.cuda.empty_cache()
@@ -1170,8 +1301,9 @@ def phase_granite_fp32_parity(torch, fa, sw):
     finally:
         moe._top_k_mask = top_k_mask
     expected = {"flash": cfg.n_layers, "swiglu": cfg.n_layers}
-    check(launches == expected, "granite_fp32_parity",
-          f"kernel launches {launches}, expected {expected}")
+    check(launches == expected and fp32_only, "granite_fp32_parity",
+          f"kernel launches {launches}, expected {expected}, all fp32 "
+          "(simt)")
     flipped = [int((a != b).any(-1).sum()) for a, b in zip(card_masks, masks)]
     rel = ((got - want).abs().max() / want.abs().max()).item()
     ok = (rel <= LOGITS_REL_TOL and bool(got.isfinite().all())

@@ -3,7 +3,9 @@
 Every kernel of the port is a ``csrc/*.cu`` file with a plain C interface.
 At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/torch_ext/`` at the root of the checkout (``.gitignore`` lists
-``build/``), named by the hash of its source so an edited kernel is
+``build/``), named by the hash of its source and of every header it
+includes from its own directory or from ``kernels/csrc/`` (the shared
+Hopper primitives, ``hopper.cuh``), so an edited kernel or header is
 rebuilt, and loaded with ``ctypes``.  nvcc's output, with ptxas' register
 and shared-memory report, is kept beside the library as ``<name>.log``.
 Builds of different sources may run at the same time (in threads or
@@ -15,13 +17,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-I{INCLUDE_DIR}")
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -39,9 +45,35 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+def included_headers(source: Path,
+                     include_dirs: tuple = (INCLUDE_DIR,)) -> list:
+    """Every file ``source`` pulls in through ``#include "..."``, directly
+    or through another header, found beside the including file or in
+    ``include_dirs`` (nvcc's search order for quoted includes); in the
+    order first met.  System headers (``<...>``) are not followed."""
+    found, todo = [], [Path(source)]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_text()):
+            for d in (cur.parent, *map(Path, include_dirs)):
+                hdr = (d / name).resolve()
+                if hdr.is_file():
+                    if hdr not in found:
+                        found.append(hdr)
+                        todo.append(hdr)
+                    break
+    return found
+
+
+def library_path(source: Path, include_dirs: tuple = (INCLUDE_DIR,)
+                 ) -> Path:
+    """The library built from ``source``: named by the hash of the source
+    and of every header it includes from ``include_dirs``."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    for hdr in included_headers(source, include_dirs):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def load(source: Path) -> ctypes.CDLL:

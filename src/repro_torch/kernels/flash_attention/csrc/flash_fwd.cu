@@ -1,4 +1,10 @@
-// Flash-attention forward (causal or full, GQA) for Hopper, sm_90a.
+// Flash-attention forward (causal or full, GQA) for Hopper, sm_90a: the
+// SIMT variant.
+//
+// It runs fp32 inputs (tensor cores in bf16 or TF32 do not meet the fp32
+// tolerance of 2e-5) and bf16 views whose bases or strides TMA cannot
+// describe; every other bf16 call goes to the wgmma kernel in
+// flash_fwd_wgmma.cu (the rule: choose_variant in ../kernel.py).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:flash_attention_fwd (body
@@ -24,10 +30,10 @@
 // Bound.  At the model's shapes (S = 4096, D = 128) the work is
 // 4 * D * B * Hq * S(S+1)/2 flops against 2 * (|q| + |k| + |v| + |o|)
 // bytes: about 1,500 flops per byte, far above the H100's ~295 bf16
-// flops per byte, so the kernel is bound by operations.  This first
-// version multiplies in fp32 on the CUDA cores from fp32 shared-memory
-// tiles (bf16 inputs are widened on load); tensor-core wgmma, TMA loads
-// and warp specialisation are later work.  Shared memory: Q tile, one
+// flops per byte, so the kernel is bound by operations.  This variant
+// multiplies in fp32 on the CUDA cores from fp32 shared-memory tiles
+// (bf16 inputs are widened on load), at some 26 TFLOP/s; the tensor cores
+// are flash_fwd_wgmma.cu's.  Shared memory: Q tile, one
 // K/V tile and the P tile, padded by one float per row so column reads
 // hit distinct banks: 82,688 bytes at D = 128 (74,496 at D = 112, the
 // zamba2-7b head), which needs the dynamic shared-memory opt-in and leaves

@@ -1,4 +1,12 @@
-// Fused SwiGLU gate/up GEMM for Hopper, sm_90a.
+// Fused SwiGLU gate/up GEMM for Hopper, sm_90a: the mma.sync (bf16) and
+// SIMT (fp32) variants.
+//
+// bf16 calls go to the wgmma kernel in fused_swiglu_wgmma.cu unless TMA
+// cannot describe their rows (K or F not a multiple of 8, a base off a
+// 16-byte boundary); those run the mma.sync kernel here (the rule:
+// choose_variant in ../kernel.py).  fp32
+// runs the CUDA-core kernel here: the fp32 tolerance of 2e-5 rules out
+// the tensor cores.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/fused_swiglu/kernel.py:fused_swiglu_pallas (body
@@ -49,7 +57,8 @@
 // H100 whether its ring held 2, 3 or 4 stages of K = 32 or 64 (PERF.md):
 // the inner loop, not load latency, was the limit, so this one loads each
 // fragment for more products (64 x 32 warp tiles: 8 ldmatrix.x4 feed 32
-// mma).  wgmma on TMA-loaded tiles with a producer warp is the later step.
+// mma).  wgmma on TMA-loaded tiles with a producer warpgroup is
+// fused_swiglu_wgmma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

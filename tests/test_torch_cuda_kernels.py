@@ -92,23 +92,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (variant, dtype): every kernel the flash wrapper can choose, in the
+# dtypes it takes ("wgmma" is bf16 only)
+FLASH_VARIANTS = [("simt", "float32"), ("simt", "bfloat16"),
+                  ("wgmma", "bfloat16")]
+
+
+def _flash_inputs(case, dt, device, seed=4):
+    b, hq, hkv, sq, skv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to(device, dt)
+            for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernel_matches_plain_twin(cuda_device, case, dtype):
-    b, hq, hkv, sq, skv, d, causal = case
+@pytest.mark.parametrize("variant, dtype", FLASH_VARIANTS)
+def test_flash_kernel_matches_plain_twin(cuda_device, case, variant, dtype):
+    """Each variant against the twin; the wrapper picks wgmma for bf16,
+    simt for fp32, and counts the launch under it."""
+    causal = case[6]
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng(4)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
-               .to(cuda_device, dt)
-               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-    before = K.LAUNCHES
-    got = K.flash_attention_fwd(q, k, v, causal=causal)
+    q, k, v = _flash_inputs(case, dt, cuda_device)
+    before = dict(K.LAUNCHES_BY_VARIANT)
+    got = K._launch(q, k, v, causal, variant)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert K.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
     want = K.flash_attention_fwd_plain(q, k, v, causal=causal)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **_tol(dt))
+    assert K.variant_for(q, k, v) == \
+        ("wgmma" if dtype == "bfloat16" else "simt")
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_and_simt_agree_at_a_path_shape(cuda_device):
+    """zamba2-7b's shared attention (D = 112, padded to 128 by TMA's zero
+    fill) at S = 2048: the two designs within the bf16 tolerance."""
+    q, k, v = _flash_inputs((1, 32, 32, 2048, 2048, 112), torch.bfloat16,
+                            cuda_device, seed=12)
+    new = K._launch(q, k, v, True, "wgmma")
+    old = K._launch(q, k, v, True, "simt")
+    np.testing.assert_allclose(new.float().cpu().numpy(),
+                               old.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -273,22 +301,85 @@ def _swiglu_inputs(case, dtype, device, seed=10):
                              ((e, k, f), 0.05))]
 
 
+def _swiglu_variants():
+    """(case, variant, dtype) for every kernel the SwiGLU wrapper can
+    choose: simt in fp32, mma_sync in bf16 on every case, wgmma in bf16
+    where TMA can describe the rows (K, F multiples of 8)."""
+    out = []
+    for case in SWIGLU_CASES:
+        out += [(case, "simt", "float32"), (case, "mma_sync", "bfloat16")]
+        if case[2] % 8 == 0 and case[3] % 8 == 0:
+            out.append((case, "wgmma", "bfloat16"))
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SWIGLU_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_swiglu_kernel_matches_plain_twin(cuda_device, case, dtype):
+@pytest.mark.parametrize("case, variant, dtype", _swiglu_variants())
+def test_swiglu_kernel_matches_plain_twin(cuda_device, case, variant,
+                                          dtype):
     x, wg, wu = _swiglu_inputs(case, dtype, cuda_device)
     if case[0] == 1:                       # the dense (M, K) form
         x, wg, wu = x[0], wg[0], wu[0]
-    before = W.LAUNCHES
-    got = W.fused_swiglu(x, wg, wu)
+    before = dict(W.LAUNCHES_BY_VARIANT)
+    got = W._launch(x, wg, wu, variant)
     torch.cuda.synchronize()
-    assert W.LAUNCHES == before + 1
+    assert W.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
     want = W.fused_swiglu_plain(x, wg, wu)
     assert got.shape == want.shape and got.dtype == x.dtype
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                **_tol(getattr(torch, dtype)))
+
+
+@pytest.mark.cuda
+def test_swiglu_wrapper_routes_by_its_rule(cuda_device):
+    """The wrapper launches the variant choose_variant names: wgmma for
+    granite-moe's expert shape and a decode step, mma_sync for an unaligned
+    K, simt for fp32."""
+    for case, dtype, want in [((32, 2560, 1024, 512), "bfloat16", "wgmma"),
+                              ((1, 4, 3072, 8192), "bfloat16", "wgmma"),
+                              ((3, 70, 203, 37), "bfloat16", "mma_sync"),
+                              ((1, 128, 256, 512), "float32", "simt")]:
+        x, wg, wu = _swiglu_inputs(case, dtype, cuda_device)
+        before = dict(W.LAUNCHES_BY_VARIANT)
+        W.fused_swiglu(x, wg, wu)
+        assert W.LAUNCHES_BY_VARIANT[want] == before[want] + 1, case
+
+
+@pytest.mark.cuda
+def test_swiglu_wgmma_and_mma_sync_agree_at_a_path_shape(cuda_device):
+    """llama3.2-3b's MLP widths (K 3072, F 8192) at M = 2048: the two bf16
+    designs within the bf16 tolerance."""
+    x, wg, wu = (t[0] for t in _swiglu_inputs((1, 2048, 3072, 8192),
+                                               "bfloat16", cuda_device))
+    new = W._launch(x, wg, wu, "wgmma")
+    old = W._launch(x, wg, wu, "mma_sync")
+    np.testing.assert_allclose(new.float().cpu().numpy(),
+                               old.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_bf16_llama_prefill_runs_only_the_wgmma_kernels(cuda_device):
+    """A reduced llama3.2-3b (2 layers at full width) prefill in bf16 at
+    S = 1024 > block_q: every flash and SwiGLU launch is a wgmma one."""
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], n_layers=2,
+                              attention_impl="pallas")
+    assert cfg.dtype == "bfloat16"
+    model = build_model(cfg)
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, 1024))).to(cuda_device)
+    K.reset_launches()
+    W.reset_launches()
+    with torch.no_grad():
+        logits = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert bool(logits.isfinite().all())
+    assert K.LAUNCHES_BY_VARIANT == {"wgmma": 2, "simt": 0}
+    assert W.LAUNCHES_BY_VARIANT == {"wgmma": 2, "mma_sync": 0, "simt": 0}
 
 
 @pytest.mark.cuda

@@ -144,3 +144,91 @@ def test_wrapper_rejects_bad_shapes(shapes):
     with pytest.raises(ValueError):
         K.flash_attention_fwd(torch.zeros(qs), torch.zeros(ks),
                               torch.zeros(ks))
+
+
+# ---- the routing rule and the wgmma kernel's launch plan (no card) ----
+
+def _bshd_views(b, s, hq, hkv, d, dtype, device="meta"):
+    """(B, S, H, D) tensors as the (B, H, S, D) views ops.py passes."""
+    q = torch.empty((b, s, hq, d), dtype=dtype, device=device)
+    k = torch.empty((b, s, hkv, d), dtype=dtype, device=device)
+    return q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", K.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_choose_variant_by_dtype_head_dim_and_alignment(d, dtype, aligned):
+    strides = [4096 * 8 * d, d, 8 * d]          # (B, S, H, D) batch, head, seq
+    if not aligned:
+        strides[2] += 1                          # a row off 16 bytes
+    got = K.choose_variant("cuda", dtype, d, strides, misaligned=False)
+    want = "wgmma" if dtype == torch.bfloat16 and aligned else "simt"
+    assert got == want
+    assert K.choose_variant("cuda", dtype, d, strides[:2] + [8 * d],
+                            misaligned=True) == "simt"
+    assert K.choose_variant("cpu", dtype, d, strides,
+                            misaligned=False) == "plain"
+
+
+def test_choose_variant_refuses_head_dims_the_kernels_lack():
+    assert K.choose_variant("cuda", torch.bfloat16, 96, [96], False) \
+        == "simt"
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("llama3.2-3b", (2, 4096, 24, 8, 128)),
+    ("zamba2-7b", (2, 4096, 32, 32, 112)),
+    ("granite-moe-1b-a400m", (2, 4096, 16, 8, 64)),
+    ("ragged", (2, 1000, 24, 8, 128)),
+    ("one sequence", (1, 640, 32, 32, 112)),
+])
+def test_path_shapes_take_the_wgmma_kernel_in_bf16(arch, shape):
+    b, s, hq, hkv, d = shape
+    assert K.variant_for(*_bshd_views(b, s, hq, hkv, d, torch.bfloat16)) \
+        == "wgmma", arch
+    assert K.variant_for(*_bshd_views(b, s, hq, hkv, d, torch.float32)) \
+        == "simt", arch
+
+
+def test_size_one_dims_do_not_decide_the_variant():
+    """A dim of size 1 never moves the address, so an odd stride there is
+    ignored by the rule and replaced for the tensor map."""
+    q = torch.empty((1, 4, 128, 64), dtype=torch.bfloat16, device="meta")
+    q1 = q.as_strided(q.shape, (3, 128 * 64, 64, 1))
+    assert K.variant_for(q1, q, q) == "wgmma"
+    assert K._tma_strides(q1)[0] % 8 == 0
+    assert K._tma_strides(q1)[1:] == [128 * 64, 64]
+
+
+@pytest.mark.parametrize("d", K.HEAD_DIMS)
+def test_wgmma_shared_memory_fits_a_block(d):
+    """flash_fwd_wgmma.cu's Layout<DP>: Q, three K/V stages, barriers and the
+    alignment slack fit in the 232,448 bytes a block may use."""
+    got = K.wgmma_smem_bytes(d)
+    assert got <= K.SMEM_LIMIT
+    dp = K.padded_head_dim(d)
+    bn = K.wgmma_block_n(d)
+    assert dp % 64 == 0 and dp >= d and bn % 16 == 0
+    assert (bn * dp * 2) % 1024 == 0          # swizzle atoms stay aligned
+    assert got == 128 * dp * 2 + 3 * 2 * bn * dp * 2 + 10 * 8 + 1024
+
+
+def test_cpu_tensors_never_reach_a_cuda_variant():
+    (tq, tk, tv) = [torch.from_numpy(a).bfloat16()
+                    for a in _inputs(1, 2, 2, 64, 64, 64)]
+    assert K.variant_for(tq, tk, tv) == "plain"
+    before = dict(K.LAUNCHES_BY_VARIANT)
+    K.flash_attention_fwd(tq, tk, tv)
+    assert K.LAUNCHES_BY_VARIANT == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.flash_attention_fwd(*_bshd_views(1, 64, 2, 2, 64,
+                                           torch.bfloat16))
+
+
+def test_reset_launches_zeroes_every_count():
+    K.LAUNCHES = 3
+    K.LAUNCHES_BY_VARIANT["simt"] = 2
+    K.reset_launches()
+    assert K.LAUNCHES == 0
+    assert K.LAUNCHES_BY_VARIANT == dict.fromkeys(K.VARIANTS, 0)

@@ -136,3 +136,85 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         K.fused_swiglu(x, wg.to("meta"), wu)
     with pytest.raises(ValueError, match="unsupported device"):
         K.fused_swiglu(x.to("meta"), wg.to("meta"), wu.to("meta"))
+
+
+# ---- the routing rule and the wgmma kernel's launch plan (no card) ----
+
+PATH_SHAPES = {
+    # (e, m, k, f) at the prefill steps (B = 2, S = 4096)
+    "llama3.2-3b MLP": (1, 8192, 3072, 8192),
+    "zamba2-7b shared MLP": (1, 8192, 3584, 14336),
+    "granite-moe-1b-a400m experts": (32, 2560, 1024, 512),
+}
+
+
+@pytest.mark.parametrize("path", PATH_SHAPES)
+def test_path_shapes_take_the_wgmma_kernel_in_bf16(path):
+    shape = PATH_SHAPES[path]
+    assert K.choose_variant("cuda", torch.bfloat16, shape, False) == "wgmma"
+    assert K.choose_variant("cuda", torch.float32, shape, False) == "simt"
+    assert K.choose_variant("cpu", torch.bfloat16, shape, False) == "plain"
+
+
+@pytest.mark.parametrize("shape, why", [
+    ((3, 1000, 1003, 700), "K not a multiple of 8"),
+    ((1, 1000, 1024, 702), "F not a multiple of 8"),
+    ((1, 1000, 0, 512), "K = 0"),
+])
+def test_shapes_tma_or_the_tiles_do_not_suit_take_mma_sync(shape, why):
+    assert K.choose_variant("cuda", torch.bfloat16, shape, False) \
+        == "mma_sync", why
+
+
+def test_misaligned_bases_take_mma_sync():
+    shape = PATH_SHAPES["llama3.2-3b MLP"]
+    assert K.choose_variant("cuda", torch.bfloat16, shape, True) \
+        == "mma_sync"
+    assert K.choose_variant("cuda", torch.float32, shape, True) == "simt"
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 3072, 8192), (32, 4, 1024, 512),
+                                   (1, 1, 64, 64)])
+def test_decode_rows_take_the_wgmma_kernel(shape):
+    """M does not enter the rule: a decode step's few rows run the wgmma
+    kernel, measured no slower there than the mma_sync one."""
+    assert K.choose_variant("cuda", torch.bfloat16, shape, False) == "wgmma"
+
+
+def test_variant_for_reads_the_dense_and_expert_forms():
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    assert K.variant_for(meta(8192, 3072), meta(3072, 8192),
+                         meta(3072, 8192)) == "wgmma"
+    assert K.variant_for(meta(32, 2560, 1024), meta(32, 1024, 512),
+                         meta(32, 1024, 512)) == "wgmma"
+    assert K.variant_for(meta(4, 3072), meta(3072, 8192),
+                         meta(3072, 8192)) == "wgmma"
+    assert K.variant_for(meta(4, 3070), meta(3070, 8192),
+                         meta(3070, 8192)) == "mma_sync"
+
+
+def test_wgmma_shared_memory_fits_a_block():
+    """fused_swiglu_wgmma.cu's SMEM_ALLOC: four stages of x (128 x 64) and
+    Wg, Wu (64 x 128) tiles, barriers and the alignment slack."""
+    got = K.wgmma_smem_bytes()
+    assert got == 4 * (128 * 64 + 2 * 64 * 128) * 2 + 8 * 8 + 1024
+    assert got <= K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cpu_tensors_never_reach_a_cuda_variant(dtype):
+    x, wg, wu = (torch.from_numpy(a).to(getattr(torch, dtype))
+                 for a in _inputs((8192 // 64, 3072 // 16), (192, 512)))
+    assert K.variant_for(x, wg, wu) == "plain"
+    before = dict(K.LAUNCHES_BY_VARIANT)
+    K.fused_swiglu(x, wg, wu)
+    assert K.LAUNCHES_BY_VARIANT == before
+
+
+def test_reset_launches_zeroes_every_count():
+    K.LAUNCHES = 5
+    K.LAUNCHES_BY_VARIANT["wgmma"] = 5
+    K.reset_launches()
+    assert K.LAUNCHES == 0
+    assert K.LAUNCHES_BY_VARIANT == dict.fromkeys(K.VARIANTS, 0)
