@@ -6,18 +6,20 @@
 Drives the port (``src/repro_torch``) through its main paths and checks
 them:
 
-1. device and build: the card's name and power limit, then the six
+1. device and build: the card's name and power limit, then the eight
    sm_90a sources built at once from the checkout (flash attention's
-   ``csrc/flash_fwd_wgmma.cu`` and ``csrc/flash_fwd.cu``,
-   ``csrc/ssd_chunk.cu``, ``csrc/mlstm_chunk.cu``, and fused SwiGLU's
-   ``csrc/fused_swiglu_wgmma.cu`` and ``csrc/fused_swiglu.cu``, one nvcc
-   each; the two wgmma kernels include ``kernels/csrc/hopper.cuh``), with
-   ptxas' reports;
+   ``csrc/flash_fwd_wgmma.cu`` and ``csrc/flash_fwd.cu``, the SSD chunk's
+   ``csrc/ssd_chunk_wgmma.cu`` and ``csrc/ssd_chunk.cu``, the mLSTM
+   chunk's ``csrc/mlstm_chunk_wgmma.cu`` and ``csrc/mlstm_chunk.cu``, and
+   fused SwiGLU's ``csrc/fused_swiglu_wgmma.cu`` and
+   ``csrc/fused_swiglu.cu``, one nvcc each; the four wgmma kernels include
+   ``kernels/csrc/hopper.cuh``), with ptxas' reports;
 2. kernels: each kernel against its plain PyTorch twin, in every variant
    its wrapper can choose (flash: wgmma for bf16, simt for fp32 and, forced,
    for bf16; SwiGLU: wgmma for bf16 rows TMA can describe, mma_sync for the
-   others and, forced, for those too, simt for fp32), and the wrapper's
-   choice checked.  Flash: the six
+   others and, forced, for those too, simt for fp32; SSD and mLSTM: wgmma
+   (3xTF32) for the shapes it takes and, forced, simt beside it, simt
+   alone for the others), and the wrapper's choice checked.  Flash: the six
    ``FLASH_CASES`` x {f32, bf16}, D = 112 cases, and the full-width
    llama3.2-3b (D = 128) and zamba2-7b (D = 112) layer shapes, ragged and
    full.  SSD: the four ``SSD_CASES`` of tests/test_kernels.py, zamba2-7b's
@@ -31,9 +33,10 @@ them:
    kernel, its twin and a library yardstick where there is one
    (``scaled_dot_product_attention`` for flash, one cuBLAS product with
    [Wg | Wu] for SwiGLU; the port never calls either; no single PyTorch call
-   computes the SSD or the mLSTM chunk), beside the bound; for flash and
-   SwiGLU also the PR 14 design (simt, mma_sync) forced, timed in turns
-   with the new one, and SwiGLU at two decode shapes;
+   computes the SSD or the mLSTM chunk), beside the bound (for SSD and
+   mLSTM at the tf32 tensor-core peak); the earlier design (flash simt,
+   SwiGLU mma_sync, SSD and mLSTM simt) forced and timed in turns with the
+   new one; SwiGLU also at two decode shapes;
 3. llama3.2-3b prefill step: full width (28 layers, random weights from a
    seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
    with 28 flash and 28 SwiGLU launches counted, all wgmma; then the
@@ -46,7 +49,7 @@ them:
 5. zamba2-7b prefill step: full width and depth (81 mamba layers, the
    shared attention block applied 13 times), B = 2, S = 4096, bf16,
    ``attention_impl="pallas"``, with 81 SSD, 13 flash and 13 SwiGLU
-   launches counted;
+   launches counted, all wgmma;
 6. zamba2-7b generate: 4 requests of 128 prompt tokens + 16 greedy tokens,
    the state filled token by token (the family has no batched prefill);
 7. zamba2-7b fp32 parity: at full width and a depth of 7 (one group of 6
@@ -54,7 +57,7 @@ them:
    (the same weights on the CPU, where every wrapper runs its twin);
 8. xlstm-1.3b prefill step: full width and depth (6 groups of 7 mLSTM
    blocks and 1 sLSTM block), B = 2, S = 4096, bf16, with the 42 mLSTM
-   kernel launches counted;
+   kernel launches counted, all wgmma;
 9. xlstm-1.3b generate: 4 requests of 128 prompt tokens + 16 greedy
    tokens, the state filled token by token (the family has no batched
    prefill, so the kernel is not launched);
@@ -69,14 +72,22 @@ them:
    counted (24 in the prefill and in each decode step);
 13. granite-moe-1b-a400m fp32 parity: at full width and a depth of 4, S =
    640, the kernel path on the card against the plain path on the CPU,
-   the routing (each layer's top-k mask) compared exactly.
+   the routing (each layer's top-k mask) compared exactly;
+14. bf16 parity: llama3.2-3b (depth 2), zamba2-7b (7), granite-moe-1b-a400m
+   (4) and xlstm-1.3b (8) at full width, S = 640, the card path (every
+   kernel launch wgmma) against the plain path on the CPU, normwise within
+   2e-2; granite-moe's CPU path replays the card's expert choices and the
+   choices it would have flipped are counted; xlstm-1.3b is held per
+   mLSTM block (its depth-8 logits move by ~0.1 between two correct fp32
+   mLSTM implementations) and its logits are reported.
 
-The bf16 prefill steps (3, 5, 11) and generate's SwiGLU launches must
-count under the wgmma variants only, the fp32 parity phases (7, 13) under
-the simt variants only (``LAUNCHES_BY_VARIANT``).  Every phase prints one
+The bf16 prefill steps (3, 5, 8, 11) and generate's SwiGLU launches must
+count under the wgmma variants only; in the fp32 parity phases (7, 10,
+13) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
+(``LAUNCHES_BY_VARIANT``).  Every phase prints one
 JSON line.  Any failed check exits non-zero.  The line before the last is
-the kernel table (each row with its ``variant`` and ``prev_ms``, the PR 14
-design's time in this run), the last the device line.  It
+the kernel table (each row with its ``variant`` and ``prev_ms``, the
+earlier design's time in this run), the last the device line.  It
 needs the card: without one, or without the repo's sources beside it, it
 exits non-zero before printing any result.
 """
@@ -97,7 +108,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# (tfloat32: the tensor cores on tf32 operands, the rate of each pass
+# of a 3xTF32 product)
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 FLASH_CASES = [
@@ -202,14 +215,12 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together -------------------
     t0 = time.perf_counter()
-    sources = [fa.WGMMA_SOURCE, fa.SOURCE, ssd.SOURCE, ml.SOURCE,
-               sw.WGMMA_SOURCE, sw.SOURCE]
+    sources = [fa.WGMMA_SOURCE, fa.SOURCE, ssd.WGMMA_SOURCE, ssd.SOURCE,
+               ml.WGMMA_SOURCE, ml.SOURCE, sw.WGMMA_SOURCE, sw.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.load, src) for src in sources]:
             fut.result()
-    for m in (ssd, ml):
-        m.build()
-    for m in (fa, sw):
+    for m in (fa, ssd, ml, sw):
         for variant in m.VARIANTS:
             m.build(variant)
     emit({"phase": "build", "ok": True, "gpu": gpu,
@@ -232,6 +243,7 @@ def main() -> int:
     granite_flash_row["launches"], sw_rows[2]["launches"] = \
         phase_granite(torch, fa, sw, gpu)
     phase_granite_fp32_parity(torch, fa, sw)
+    phase_bf16_parity(torch, fa, ssd, ml, sw)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
@@ -436,11 +448,15 @@ def _flash_times(torch, fa, gpu, shape, arch):
 def ssd_bound(case):
     """Least time (ms) the card needs for one SSD chunk call on ``case``'s
     chunks: the larger of the matrix operations the function needs on the
-    pairs the causal mask keeps over the fp32 peak, and the fp32 bytes of
-    its inputs and outputs over HBM bandwidth.  B and C are one group, so
-    C Bᵀ (2n per kept pair) is counted once per (batch, chunk); the
-    decay-weighted product with X (2p per kept pair) and the state
-    (2 Q n p) once per (batch, chunk, head)."""
+    pairs the causal mask keeps over the tf32 tensor-core peak, and the
+    fp32 bytes of its inputs and outputs over HBM bandwidth.  The tf32
+    peak, not the fp32 CUDA-core one, because the tensor cores compute the
+    same fp32-accurate products (3xTF32: three tf32 passes on split
+    operands, each pass counted at the full rate): it is the least time
+    for this work on this card.  B and C are one group, so C Bᵀ (2n per
+    kept pair) is counted once per (batch, chunk); the decay-weighted
+    product with X (2p per kept pair) and the state (2 Q n p) once per
+    (batch, chunk, head)."""
     b, s, h, p, n, chunk = case
     q = min(chunk, s)
     nc = -(-s // q)
@@ -451,7 +467,7 @@ def ssd_bound(case):
               + b * nc * q * h + h            # dt, A_log
               + 2 * b * nc * q * n            # B, C
               + ctas * n * p + ctas)          # states, chunk_lf
-    t_ops = flops / PEAK_FLOPS["float32"]
+    t_ops = flops / PEAK_FLOPS["tfloat32"]
     t_bytes = 4 * floats / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
@@ -475,65 +491,123 @@ def _ssd_inputs(torch, case, seed):
     return xc, dtc, A_log, Bc, Cc
 
 
-def phase_ssd_kernels(torch, ssd, gpu):
-    """The SSD kernel against its twin (all three outputs), then its times
-    at zamba2-7b's full-width shape: the kernel-table row."""
-    results = []
-    for case in SSD_CASES + [SSD_RAGGED, SSD_FULL]:
-        ins = _ssd_inputs(torch, case, seed=len(results))
-        got = ssd.ssd_chunk(*ins)
-        torch.cuda.synchronize()
-        want = ssd.ssd_chunk_plain(*ins)
-        errs = []
-        for name, g, w in zip(("y_diag", "states", "chunk_lf"), got, want):
-            ok, err = _compare(g, w, **SSD_TOL)
-            check(ok and bool(g.isfinite().all()), "ssd_kernels",
-                  f"{case} {name}: max_abs_err {err}")
-            errs.append(err)
-        results.append({"case": list(case), "max_abs_err": max(errs),
-                        "per_output": errs, "ok": True})
-        del ins, got, want
-    emit({"phase": "kernels", "ok": True, "kernel": "ssd_chunk",
-          "checked": len(results), "tol": SSD_TOL,
-          "worst": max(r["max_abs_err"] for r in results),
-          "results": results})
+def ssd_variant(case):
+    """The SSD kernel the wrapper should choose: wgmma for n = p = 64 and
+    chunks of whole 64-row tiles up to 256, else simt."""
+    _, s, _, p, n, chunk = case
+    q = min(chunk, s)
+    return "wgmma" if p == n == 64 and q % 64 == 0 and q <= 256 else "simt"
 
+
+def mlstm_variant(case):
+    """The mLSTM kernel the wrapper should choose: wgmma for head dims
+    that are multiples of 128 and chunks of whole 64-row tiles up to 256,
+    else simt."""
+    _, s, _, p, chunk = case
+    q = min(chunk, s)
+    return "wgmma" if p % 128 == 0 and q % 64 == 0 and q <= 256 else "simt"
+
+
+def _twin_checks(torch, m, kernel, cases, make_inputs, names, tol,
+                 expected):
+    """Each case's every variant (the one the wrapper should choose, and
+    the earlier simt design forced beside a wgmma one) against the
+    plain twin, all outputs finite and within ``tol``; the wrapper's
+    choice checked.  Returns the results."""
+    plain = getattr(m, f"{kernel}_plain")
+    results = []
+    for case in cases:
+        ins = make_inputs(torch, case, seed=len(results))
+        chosen = m.variant_for(*ins[:5])
+        check(chosen == expected(case), kernel,
+              f"{case}: the wrapper chose {chosen}")
+        want = plain(*ins)
+        for variant in dict.fromkeys([chosen, "simt"]):
+            got = m._launch(*ins, variant)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, w in zip(names, got, want):
+                ok, err = _compare(g, w, **tol)
+                check(ok and bool(g.isfinite().all()), kernel,
+                      f"{case} {variant} {name}: max_abs_err {err}")
+                errs.append(err)
+            results.append({"case": list(case), "variant": variant,
+                            "max_abs_err": max(errs),
+                            "per_output": dict(zip(names, errs)),
+                            "ok": True})
+            del got
+        del ins, want
+    emit({"phase": "kernels", "ok": True, "kernel": kernel,
+          "checked": len(results), "tol": tol,
+          "worst": {vr: max(r["max_abs_err"] for r in results
+                            if r["variant"] == vr)
+                    for vr in m.VARIANTS
+                    if any(r["variant"] == vr for r in results)},
+          "results": results})
+    return results
+
+
+def _scan_times(torch, m, kernel, ins, reps):
+    """The kernel the wrapper chooses and the earlier simt design,
+    in turns, in this call; then the plain twin."""
+    fn, plain = getattr(m, kernel), getattr(m, f"{kernel}_plain")
+    ms, prev_ms = _in_turns(torch, [
+        (lambda: fn(*ins), reps), (lambda: m._launch(*ins, "simt"), reps)])
+    plain_ms = _median_ms(torch, lambda: plain(*ins), reps=3)
+    return ms, prev_ms, plain_ms
+
+
+SSD_OUTPUTS = ("y_diag", "states", "chunk_lf")
+
+
+def phase_ssd_kernels(torch, ssd, gpu):
+    """The SSD kernel against its twin (all three outputs) in every
+    variant, then its times at zamba2-7b's full-width shape: the wgmma
+    kernel and the earlier simt design in turns; the kernel-table row."""
+    _twin_checks(torch, ssd, "ssd_chunk", SSD_CASES + [SSD_RAGGED, SSD_FULL],
+                 _ssd_inputs, SSD_OUTPUTS, SSD_TOL, ssd_variant)
     ins = _ssd_inputs(torch, SSD_FULL, seed=321)
+    variant = ssd.variant_for(*ins)
     err = max(_compare(g, w, **SSD_TOL)[1] for g, w in
               zip(ssd.ssd_chunk(*ins), ssd.ssd_chunk_plain(*ins)))
-    ms = _median_ms(torch, lambda: ssd.ssd_chunk(*ins), reps=20)
-    plain_ms = _median_ms(torch, lambda: ssd.ssd_chunk_plain(*ins), reps=3)
+    ms, prev_ms, plain_ms = _scan_times(torch, ssd, "ssd_chunk", ins, 20)
     bound_ms, bound_by, flops, nbytes = ssd_bound(SSD_FULL)
     emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
           "kernel": "ssd_chunk", "arch": "zamba2-7b",
           "shape": dict(zip("b s h p n chunk".split(), SSD_FULL)),
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "variant": variant, "kernel_ms": ms, "prev_ms": prev_ms,
+          "plain_ms": plain_ms, "library_ms": None,
           "library_note": "no single PyTorch call computes the SSD chunk "
                           "(a masked decay-weighted product and the chunk "
                           "state)",
           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
           "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
-          "roofline_share": bound_ms / ms})
+          "prev_tflops": flops / prev_ms / 1e9,
+          "roofline_share": bound_ms / ms,
+          "prev_roofline_share": bound_ms / prev_ms,
+          "speedup_vs_prev": prev_ms / ms})
     del ins
     torch.cuda.empty_cache()
-    # one design (fp32 on the CUDA cores), unchanged since PR 14: it is
-    # both the row's variant and the PR 14 design
-    return {"name": "ssd_chunk", "route": "cuda", "variant": "simt",
-            "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_chunk.cu",
+    return {"name": "ssd_chunk", "route": "cuda", "variant": variant,
+            "source": "src/repro_torch/kernels/ssm_scan/csrc/"
+                      + ssd.SOURCES[variant].name,
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:61",
             "path": "zamba2-7b prefill step", "shape": list(SSD_FULL),
-            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": prev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
 def mlstm_bound(case):
     """Least time (ms) the card needs for one mLSTM chunk call on ``case``'s
-    chunks: the larger of the operations the function needs over the fp32
-    peak (per (batch, chunk, head): 2p flops on each pair the causal mask
-    keeps for q kᵀ and again for W v, 2 Q p² for the state and 2 Q p for
-    the norm) and the fp32 bytes of its inputs and outputs over HBM
-    bandwidth."""
+    chunks: the larger of the operations the function needs over the tf32
+    tensor-core peak (per (batch, chunk, head): 2p flops on each pair the
+    causal mask keeps for q kᵀ and again for W v, 2 Q p² for the state and
+    2 Q p for the norm) and the fp32 bytes of its inputs and outputs over
+    HBM bandwidth.  The tf32 peak, not the fp32 CUDA-core one, because the
+    tensor cores compute the same fp32-accurate products (3xTF32, each
+    pass counted at the full rate): it is the least time for this work on
+    this card."""
     b, s, h, p, chunk = case
     q = min(chunk, s)
     nc = -(-s // q)
@@ -544,7 +618,7 @@ def mlstm_bound(case):
     floats = (4 * rows * p                    # q, k, v, y_intra
               + 4 * rows                      # li, lf, n_intra, m_intra
               + units * (p * p + p + 2))      # states, norms, 2 scalars
-    t_ops = flops / PEAK_FLOPS["float32"]
+    t_ops = flops / PEAK_FLOPS["tfloat32"]
     t_bytes = 4 * floats / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
@@ -571,54 +645,40 @@ MLSTM_OUTPUTS = ("y_intra", "n_intra", "m_intra", "states", "norms",
 
 
 def phase_mlstm_kernels(torch, ml, gpu):
-    """The mLSTM kernel against its twin (all seven outputs), then its
-    times at xlstm-1.3b's full-width shape: the kernel-table row."""
-    results = []
-    for case in MLSTM_CASES + [MLSTM_RAGGED, MLSTM_FULL]:
-        ins = _mlstm_inputs(torch, case, seed=len(results))
-        got = ml.mlstm_chunk(*ins)
-        torch.cuda.synchronize()
-        want = ml.mlstm_chunk_plain(*ins)
-        errs = []
-        for name, g, w in zip(MLSTM_OUTPUTS, got, want):
-            ok, err = _compare(g, w, **MLSTM_TOL)
-            check(ok and bool(g.isfinite().all()), "mlstm_kernels",
-                  f"{case} {name}: max_abs_err {err}")
-            errs.append(err)
-        results.append({"case": list(case), "max_abs_err": max(errs),
-                        "per_output": dict(zip(MLSTM_OUTPUTS, errs)),
-                        "ok": True})
-        del ins, got, want
-    emit({"phase": "kernels", "ok": True, "kernel": "mlstm_chunk",
-          "checked": len(results), "tol": MLSTM_TOL,
-          "worst": max(r["max_abs_err"] for r in results),
-          "results": results})
-
+    """The mLSTM kernel against its twin (all seven outputs) in every
+    variant, then its times at xlstm-1.3b's full-width shape: the wgmma
+    kernel and the earlier simt design in turns; the kernel-table row."""
+    _twin_checks(torch, ml, "mlstm_chunk",
+                 MLSTM_CASES + [MLSTM_RAGGED, MLSTM_FULL], _mlstm_inputs,
+                 MLSTM_OUTPUTS, MLSTM_TOL, mlstm_variant)
     ins = _mlstm_inputs(torch, MLSTM_FULL, seed=321)
+    variant = ml.variant_for(*ins[:5])
     err = max(_compare(g, w, **MLSTM_TOL)[1] for g, w in
               zip(ml.mlstm_chunk(*ins), ml.mlstm_chunk_plain(*ins)))
-    ms = _median_ms(torch, lambda: ml.mlstm_chunk(*ins), reps=10)
-    plain_ms = _median_ms(torch, lambda: ml.mlstm_chunk_plain(*ins), reps=3)
+    ms, prev_ms, plain_ms = _scan_times(torch, ml, "mlstm_chunk", ins, 10)
     bound_ms, bound_by, flops, nbytes = mlstm_bound(MLSTM_FULL)
     emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
           "kernel": "mlstm_chunk", "arch": "xlstm-1.3b",
           "shape": dict(zip("b s h p chunk".split(), MLSTM_FULL)),
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "variant": variant, "kernel_ms": ms, "prev_ms": prev_ms,
+          "plain_ms": plain_ms, "library_ms": None,
           "library_note": "no single PyTorch call computes the mLSTM chunk "
                           "(a masked, stabilised decay-weighted product, "
                           "the chunk state and its norm)",
           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
           "bytes": nbytes, "kernel_tflops": flops / ms / 1e9,
-          "roofline_share": bound_ms / ms})
+          "prev_tflops": flops / prev_ms / 1e9,
+          "roofline_share": bound_ms / ms,
+          "prev_roofline_share": bound_ms / prev_ms,
+          "speedup_vs_prev": prev_ms / ms})
     del ins
     torch.cuda.empty_cache()
-    # one design (fp32 on the CUDA cores), unchanged since PR 14
-    return {"name": "mlstm_chunk", "route": "cuda", "variant": "simt",
+    return {"name": "mlstm_chunk", "route": "cuda", "variant": variant,
             "source": "src/repro_torch/kernels/mlstm_scan/csrc/"
-                      "mlstm_chunk.cu",
+                      + ml.SOURCES[variant].name,
             "replaces": "src/repro/kernels/mlstm_scan/kernel.py:65",
             "path": "xlstm-1.3b prefill step", "shape": list(MLSTM_FULL),
-            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": ms, "prev_ms": prev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -935,8 +995,10 @@ def phase_zamba(torch, fa, ssd, sw, gpu):
     check(_only(sw, "wgmma", n_groups), "zamba_prefill",
           f"SwiGLU launches {by_variant['swiglu']} for {n_groups} "
           "applications, expected all wgmma")
-    check(ssd_launches == cfg.n_layers, "zamba_prefill",
-          f"{ssd_launches} SSD launches for {cfg.n_layers} mamba layers")
+    by_variant["ssd"] = dict(ssd.LAUNCHES_BY_VARIANT)
+    check(_only(ssd, "wgmma", cfg.n_layers), "zamba_prefill",
+          f"SSD launches {by_variant['ssd']} for {cfg.n_layers} mamba "
+          "layers, expected all wgmma")
     check(_only(fa, "wgmma", n_groups), "zamba_prefill",
           f"flash launches {by_variant['flash']} for {n_groups} "
           "applications, expected all wgmma")
@@ -1012,9 +1074,11 @@ def phase_zamba_fp32_parity(torch, fa, ssd, sw):
     launches = {"ssd": ssd.LAUNCHES, "flash": fa.LAUNCHES,
                 "swiglu": sw.LAUNCHES}
     check(launches == expected and _only(fa, "simt", expected["flash"])
-          and _only(sw, "simt", expected["swiglu"]), "zamba_fp32_parity",
-          f"kernel launches {launches}, expected {expected}, all fp32 "
-          f"(simt): {fa.LAUNCHES_BY_VARIANT} {sw.LAUNCHES_BY_VARIANT}")
+          and _only(sw, "simt", expected["swiglu"])
+          and _only(ssd, "wgmma", expected["ssd"]), "zamba_fp32_parity",
+          f"kernel launches {launches}, expected {expected}: SSD all wgmma "
+          f"{ssd.LAUNCHES_BY_VARIANT}, flash and SwiGLU all fp32 (simt) "
+          f"{fa.LAUNCHES_BY_VARIANT} {sw.LAUNCHES_BY_VARIANT}")
     params_cpu = copy.deepcopy(params).to("cpu")
     del params
     torch.cuda.empty_cache()
@@ -1068,8 +1132,10 @@ def phase_xlstm(torch, ml, gpu):
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     launches = ml.LAUNCHES
-    check(launches == n_groups * per, "xlstm_prefill",
-          f"{launches} mLSTM launches for {n_groups * per} mLSTM blocks")
+    by_variant = dict(ml.LAUNCHES_BY_VARIANT)
+    check(_only(ml, "wgmma", n_groups * per), "xlstm_prefill",
+          f"mLSTM launches {ml.LAUNCHES_BY_VARIANT} for {n_groups * per} "
+          "mLSTM blocks, expected all wgmma")
     check(logits.shape == (b, s, vocab) and bool(logits.isfinite().all()),
           "xlstm_prefill", f"logits {tuple(logits.shape)} not finite")
     del logits
@@ -1085,6 +1151,7 @@ def phase_xlstm(torch, ml, gpu):
           "mlstm_blocks": n_groups * per, "slstm_blocks": n_groups,
           "batch": b, "seq": s, "dtype": cfg.dtype,
           "logits_shape": [b, s, vocab], "mlstm_launches": launches,
+          "mlstm_launches_by_variant": by_variant,
           "init_s": init_s, "weights_gb": weights_gb, "step_s": step_s,
           "step_times_s": times, "tokens_per_s": b * s / step_s,
           "peak_gb": peak_gb})
@@ -1137,8 +1204,8 @@ def phase_xlstm_fp32_parity(torch, ml):
     with torch.no_grad():
         got = model.forward(params, {"tokens": tokens}).cpu()
     launches = ml.LAUNCHES
-    check(launches == n_groups * per == 7, "xlstm_fp32_parity",
-          f"{launches} mLSTM launches, expected 7")
+    check(n_groups * per == 7 and _only(ml, "wgmma", 7), "xlstm_fp32_parity",
+          f"mLSTM launches {ml.LAUNCHES_BY_VARIANT}, expected 7 wgmma")
     params_cpu = copy.deepcopy(params).to("cpu")
     del params
     torch.cuda.empty_cache()
@@ -1316,6 +1383,167 @@ def phase_granite_fp32_parity(torch, fa, sw):
           "plain_path_cpu_s": cpu_s})
     check(ok, "granite_fp32_parity",
           f"max_rel_err {rel}, flipped expert choices per layer {flipped}")
+
+
+# ---------------------------------------------------------------------------
+# 14. bf16: the card path (wgmma kernels) against the plain path
+# ---------------------------------------------------------------------------
+
+# depth of each model for the bf16 check: one group of zamba2-7b (6 mamba
+# layers + the shared block, then a tail layer) and of xlstm-1.3b (7 mLSTM
+# blocks + the sLSTM block)
+BF16_PARITY = {"llama3.2-3b": 2, "zamba2-7b": 7, "granite-moe-1b-a400m": 4,
+               "xlstm-1.3b": 8}
+# xlstm-1.3b's gated bf16 comparison is per mLSTM block (these three): its
+# logits at depth 8 move by ~0.1 normwise between two correct fp32 mLSTM
+# implementations (its twin and the simt kernel, both on the card), so the
+# model-level number is reported beside the same number for the twin
+XLSTM_BF16_BLOCKS = (0, 3, 6)
+# max|a-b| / max|b|: the CPU bf16 model tests' normwise bound (bf16 rounds
+# after each op in another order on the card: the wgmma kernels keep P and
+# h in bf16, cuBLAS and the CPU sum in other orders)
+BF16_REL_TOL = 2e-2
+
+
+def bf16_launches(cfg):
+    """{kernel: launches} of one forward of ``cfg``: all wgmma in bf16."""
+    from repro_torch.models.transformer import xlstm_layout
+    from repro_torch.models.zamba import layout
+
+    if cfg.family == "hybrid":
+        groups = layout(cfg)[0]
+        return {"ssd": cfg.n_layers, "flash": groups, "swiglu": groups}
+    if cfg.family == "ssm":
+        groups, per = xlstm_layout(cfg)
+        return {"mlstm": groups * per}
+    return {"flash": cfg.n_layers, "swiglu": cfg.n_layers}
+
+
+def phase_bf16_parity(torch, fa, ssd, ml, sw):
+    """Each model at full width and reduced depth (``BF16_PARITY``) in
+    bf16, S = 640 > block_q so flash runs and the last SSD or mLSTM chunk
+    is ragged: the logits of the card path, every kernel launch under its
+    wgmma variant, against the plain path (the same weights on the CPU,
+    where every wrapper runs its twin), normwise within ``BF16_REL_TOL``.
+    granite-moe's routing: the CPU path replays the card's expert choices,
+    so the logits compare the arithmetic, and the choices the CPU path
+    would have made differently are counted.  xlstm-1.3b is gated per mLSTM
+    block (``XLSTM_BF16_BLOCKS``, the block's output at full width and
+    S = 640); its logits are reported beside those of the same card path
+    with the mLSTM kernel's plain twin in its place."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+    from repro_torch.models import moe, xlstm
+    from repro_torch.models.model import build_model
+
+    mods = {"flash": fa, "ssd": ssd, "mlstm": ml, "swiglu": sw}
+    results = []
+    top_k_mask = moe._top_k_mask
+    for arch, depth in BF16_PARITY.items():
+        cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas",
+                                  dtype="bfloat16", n_layers=depth)
+        model = build_model(cfg)
+        params = model.init(0)
+        g = torch.Generator("cuda").manual_seed(37)
+        tokens = torch.randint(0, cfg.vocab, (1, 640), generator=g,
+                               device="cuda")
+        card_masks, cpu_masks = [], []
+        replay = []              # set once the card path has run
+
+        def recorded(probs, k):
+            mask, weights = top_k_mask(probs, k)
+            if not replay:
+                card_masks.append(mask.cpu())
+                return mask, weights
+            card = card_masks[len(cpu_masks)].to(mask.dtype)
+            cpu_masks.append(mask)
+            w = probs * card
+            return card, w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+
+        moe._top_k_mask = recorded
+        try:
+            _zero(*mods.values())
+            with torch.no_grad():
+                got = model.forward(params, {"tokens": tokens}).float().cpu()
+            launches = {n: dict(m.LAUNCHES_BY_VARIANT)
+                        for n, m in mods.items()}
+            expected = bf16_launches(cfg)
+            launches_ok = all(_only(m, "wgmma", expected.get(n, 0))
+                              for n, m in mods.items())
+            params_cpu = copy.deepcopy(params).to("cpu")
+            if cfg.family == "ssm":
+                twin_got = _with_mlstm_twin(
+                    torch, mlstm_ops, ml,
+                    lambda: model.forward(params, {"tokens": tokens}))
+                layer_rels = _xlstm_layer_rels(torch, xlstm, cfg, params,
+                                               params_cpu)
+            del params
+            torch.cuda.empty_cache()
+            replay.append(True)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want = model.forward(params_cpu,
+                                     {"tokens": tokens.cpu()}).float()
+            cpu_s = time.perf_counter() - t0
+        finally:
+            moe._top_k_mask = top_k_mask
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        flipped = [int((a != b).any(-1).sum())
+                   for a, b in zip(card_masks, cpu_masks)]
+        row = {"arch": arch, "layers": depth, "seq": 640,
+               "launches_by_variant": launches, "expected": expected,
+               "max_rel_err": rel, "tol": BF16_REL_TOL,
+               "plain_path_cpu_s": cpu_s}
+        if cfg.family == "moe":
+            row["tokens_with_flipped_experts_per_layer"] = flipped
+        gated = rel
+        if cfg.family == "ssm":
+            row["logits_gated"] = False
+            row["mlstm_twin_on_card_max_rel_err"] = (
+                (twin_got - want).abs().max() / want.abs().max()).item()
+            row["kernel_vs_twin_on_card_max_rel_err"] = (
+                (got - twin_got).abs().max() / twin_got.abs().max()).item()
+            row["mlstm_block_max_rel_err"] = dict(zip(
+                map(str, XLSTM_BF16_BLOCKS), layer_rels))
+            gated = max(layer_rels)
+        results.append(row)
+        del params_cpu, got, want
+        check(launches_ok, "bf16_parity",
+              f"{arch}: kernel launches {launches}, expected {expected} "
+              "all wgmma")
+        check(gated <= BF16_REL_TOL, "bf16_parity",
+              f"{arch}: max_rel_err {gated} ({row})")
+    emit({"phase": "bf16_parity", "ok": True, "results": results})
+
+
+def _with_mlstm_twin(torch, mlstm_ops, ml, forward):
+    """``forward()`` with the mLSTM kernel's plain twin in its place, on the
+    card (logits, on the CPU)."""
+    kernel = mlstm_ops.mlstm_chunk
+    mlstm_ops.mlstm_chunk = ml.mlstm_chunk_plain
+    try:
+        with torch.no_grad():
+            return forward().float().cpu()
+    finally:
+        mlstm_ops.mlstm_chunk = kernel
+
+
+def _xlstm_layer_rels(torch, xlstm, cfg, params, params_cpu):
+    """max|a-b| / max|b| of each ``XLSTM_BF16_BLOCKS`` mLSTM block's output,
+    the card (wgmma kernel) against the CPU (plain twin), on one seeded
+    input of 640 rows at full width."""
+    g = torch.Generator("cuda").manual_seed(41)
+    x = torch.randn(1, 640, cfg.d_model, generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    rels = []
+    for blk in XLSTM_BF16_BLOCKS:
+        with torch.no_grad():
+            got = xlstm.mlstm_forward(cfg, params.mblocks[blk].mlstm, x)
+            want = xlstm.mlstm_forward(cfg, params_cpu.mblocks[blk].mlstm,
+                                       x.cpu()).float()
+        rels.append(((got.float().cpu() - want).abs().max()
+                     / want.abs().max()).item())
+    return rels
 
 
 if __name__ == "__main__":

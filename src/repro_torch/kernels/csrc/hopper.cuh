@@ -4,9 +4,11 @@
 // them: mbarriers for the producer/consumer ring, TMA tensor loads into
 // shared memory, wgmma shared-memory descriptors for the 128-byte swizzle,
 // the wgmma fences and the m64nNk16 bf16 -> fp32 products (both operands
-// in shared memory, "SS", or A in registers, "RS"), setmaxnreg, and the
-// host-side encoding of a TMA tensor map.  Raw PTX, no CUTLASS: each nvcc
-// build stays at seconds.
+// in shared memory, "SS", or A in registers, "RS"), the m64nNk8 tf32
+// products with the operand split that makes them fp32-accurate, the
+// swizzled address of a 32-bit element and the proxy fence for tiles that
+// threads store themselves, setmaxnreg, and the host-side encoding of a
+// TMA tensor map.  Raw PTX, no CUTLASS: each nvcc build stays at seconds.
 //
 // Layout conventions (PTX ISA, "Shared Memory Matrix Layout"):
 //  * A TMA box whose inner extent is 64 bf16 (128 bytes), loaded with
@@ -40,6 +42,13 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The warpgroup of this thread, broadcast from lane 0 so the compiler
+// knows it is the same across the warp: a branch or loop bound on it is not
+// a divergent path, which would make ptxas serialise the wgmmas inside it.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -327,6 +336,48 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate), "n"(TRANS_B));
 }
 
+// ---------------------------------------------------------------------------
+// wgmma m64nNk8, tf32 x tf32 -> fp32, both operands in shared memory and
+// K-major (PTX has no transpose bit for .tf32: an operand whose reduction
+// axis is its row axis in device memory is transposed on its way into
+// shared memory).  A tf32 operand is a 32-bit float whose low 13 mantissa
+// bits the tensor core does not read.  d[N / 2] per thread, in the same
+// register layout as the bf16 products above.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24),
+        HOPPER_R8(32), HOPPER_R8(40), HOPPER_R8(48), HOPPER_R8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef HOPPER_R8
 
 // N-generic front ends, so a kernel templated on a width calls one name.
@@ -366,6 +417,53 @@ struct Wgmma<128, TRANS_B> {
     wgmma_rs_n128<TRANS_B>(d, a, b, acc);
   }
 };
+
+// ---------------------------------------------------------------------------
+// fp32-accurate products on the tf32 tensor cores ("3xTF32")
+//
+// a = hi + lo with hi = a rounded to tf32 (round to nearest, ties away) and
+// lo = a - hi (exact in fp32) rounded to tf32 again; a product is then
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, three tf32 passes into one fp32
+// accumulator.  What is left out (lo_a lo_b and the rounding of lo) is
+// about 2^-22 of |a b|, against 2^-11 for one tf32 pass.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - hi);
+}
+
+__device__ __forceinline__ void split_tf32(const float4& a, float4& hi,
+                                           float4& lo) {
+  split_tf32(a.x, hi.x, lo.x);
+  split_tf32(a.y, hi.y, lo.y);
+  split_tf32(a.z, hi.z, lo.z);
+  split_tf32(a.w, hi.w, lo.w);
+}
+
+// Byte offset of element (row, k), 0 <= k < 32, inside one 128-byte-swizzle
+// atom of 32-bit elements: rows of 128 bytes, the 16-byte chunk k / 4
+// XOR-ed with row % 8 (what TMA's SWIZZLE_128B writes and a K-major
+// descriptor reads).  An operand tile of R rows x K columns is K / 32 such
+// atoms of R * 128 bytes, each 1024-byte aligned; its k8 step s starts
+// (s / 4) R 128 + (s % 4) 32 bytes on.
+__device__ __forceinline__ uint32_t sw128_f32_offset(int row, int k) {
+  return static_cast<uint32_t>(row * 128 +
+                               ((((k >> 2) ^ row) & 7) << 4) + ((k & 3) << 2));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (wgmma, TMA); call after the stores and before
+// the barrier that hands the tile to the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // 2^x by the SFU (ex2.approx.ftz: about 2 ulp, subnormal results flushed
 // to zero); one instruction, where exp2f adds range handling.

@@ -146,13 +146,20 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor
     x: (M, K), wg, wu: (K, F) -> (M, F); or x: (E, M, K), wg, wu:
     (E, K, F) -> (E, M, F).  Contiguous, all float32 or all bfloat16.
     CUDA tensors go to the sm_90a kernel :func:`choose_variant` names, CPU
-    tensors to the plain twin.
+    tensors to the plain twin.  The kernels have no backward yet, so a
+    CUDA call that would need a gradient raises rather than return an
+    output the gradient cannot flow through.
     """
     _check(x, wg, wu)
     if x.device.type == "cpu":
         return fused_swiglu_plain(x, wg, wu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wg, wu)):
+        raise NotImplementedError(
+            "fused_swiglu is forward-only on the card; its backward comes "
+            "with the training slice")
     return _launch(x, wg, wu, variant_for(x, wg, wu))
 
 

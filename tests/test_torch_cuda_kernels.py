@@ -177,16 +177,33 @@ def _ssd_inputs(case, device, seed=6):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def _ssd_variant(case):
+    """The SSD kernel the wrapper chooses: wgmma for n = p = 64 and whole
+    64-row chunks up to 256, simt otherwise."""
+    _, s, _, p, n, chunk = case
+    q = min(chunk, s)
+    return "wgmma" if p == n == 64 and q % 64 == 0 and q <= 256 else "simt"
+
+
+def _with_simt(cases, variant_of):
+    """(case, variant) for the variant the wrapper chooses and, beside a
+    wgmma one, the earlier simt design forced."""
+    return [(c, v) for c in cases
+            for v in dict.fromkeys([variant_of(c), "simt"])]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SSD_CASES)
-def test_ssd_kernel_matches_plain_twin(cuda_device, case):
-    """All three outputs: y_diag, states, chunk_lf."""
+@pytest.mark.parametrize("case, variant", _with_simt(SSD_CASES, _ssd_variant))
+def test_ssd_kernel_matches_plain_twin(cuda_device, case, variant):
+    """All three outputs: y_diag, states, chunk_lf, in every variant; the
+    wrapper chooses the rule's variant and counts the launch under it."""
     x, dt, A_log, B, C = _ssd_inputs(case, cuda_device)
     xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, case[-1])
-    before = S.LAUNCHES
-    got = S.ssd_chunk(xc, dtc, A_log, Bc, Cc)
+    assert S.variant_for(xc, dtc, A_log, Bc, Cc) == _ssd_variant(case)
+    before = dict(S.LAUNCHES_BY_VARIANT)
+    got = S._launch(xc, dtc, A_log, Bc, Cc, variant)
     torch.cuda.synchronize()
-    assert S.LAUNCHES == before + 1
+    assert S.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
     want = S.ssd_chunk_plain(xc, dtc, A_log, Bc, Cc)
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(g.isfinite().all())
@@ -242,16 +259,27 @@ def _mlstm_chunks(case, device, seed=8):
             lf.reshape(b, nc, qq, h).contiguous(), 1 / np.sqrt(p))
 
 
+def _mlstm_variant(case):
+    """The mLSTM kernel the wrapper chooses: wgmma for head dims that are
+    multiples of 128 and whole 64-row chunks up to 256, simt otherwise."""
+    _, s, _, p, chunk = case
+    q = min(chunk, s)
+    return "wgmma" if p % 128 == 0 and q % 64 == 0 and q <= 256 else "simt"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", MLSTM_CASES)
-def test_mlstm_kernel_matches_plain_twin(cuda_device, case):
+@pytest.mark.parametrize("case, variant",
+                         _with_simt(MLSTM_CASES, _mlstm_variant))
+def test_mlstm_kernel_matches_plain_twin(cuda_device, case, variant):
     """All seven outputs: y_intra, n_intra, m_intra, states, norms,
-    chunk_lf, m_state."""
+    chunk_lf, m_state, in every variant; the wrapper chooses the rule's
+    variant and counts the launch under it."""
     ins = _mlstm_chunks(case, cuda_device)
-    before = M.LAUNCHES
-    got = M.mlstm_chunk(*ins)
+    assert M.variant_for(*ins[:5]) == _mlstm_variant(case)
+    before = dict(M.LAUNCHES_BY_VARIANT)
+    got = M._launch(*ins, variant)
     torch.cuda.synchronize()
-    assert M.LAUNCHES == before + 1
+    assert M.LAUNCHES_BY_VARIANT[variant] == before[variant] + 1
     want = M.mlstm_chunk_plain(*ins)
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(g.isfinite().all())
@@ -416,3 +444,144 @@ def test_moe_layer_on_the_card_matches_the_cpu_path(cuda_device, impl):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ssd_and_mlstm_wrappers_route_by_their_rules(cuda_device):
+    """The public wrappers launch the variant choose_variant names: wgmma
+    at the zamba2-7b and xlstm-1.3b chunk shapes, simt for widths 32 and
+    head dim 64."""
+    for case, want in [((1, 300, 8, 64, 64, 256), "wgmma"),
+                       ((2, 128, 4, 32, 64, 64), "simt")]:
+        x, dt, A_log, B, C = _ssd_inputs(case, cuda_device)
+        chunks = chunk_inputs(x, dt, B, C, case[-1])
+        before = dict(S.LAUNCHES_BY_VARIANT)
+        S.ssd_chunk(chunks[0], chunks[1], A_log, *chunks[2:])
+        assert S.LAUNCHES_BY_VARIANT[want] == before[want] + 1, case
+    for case, want in [((1, 300, 2, 256, 256), "wgmma"),
+                       ((1, 300, 2, 64, 256), "simt")]:
+        before = dict(M.LAUNCHES_BY_VARIANT)
+        M.mlstm_chunk(*_mlstm_chunks(case, cuda_device))
+        assert M.LAUNCHES_BY_VARIANT[want] == before[want] + 1, case
+
+
+def _needs_grad(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+@pytest.mark.cuda
+def test_swiglu_refuses_a_gradient_on_the_card(cuda_device):
+    """The kernel has no backward: under grad with an input that requires
+    one it raises instead of returning an output without a grad_fn; under
+    no_grad it runs."""
+    x, wg, wu = _swiglu_inputs((1, 64, 64, 64), "float32", cuda_device)
+    with pytest.raises(NotImplementedError):
+        W.fused_swiglu(_needs_grad(x[0]), wg[0], wu[0])
+    with torch.no_grad():
+        W.fused_swiglu(_needs_grad(x[0]), wg[0], wu[0])
+
+
+@pytest.mark.cuda
+def test_ssd_refuses_a_gradient_on_the_card(cuda_device):
+    x, dt, A_log, B, C = _ssd_inputs((1, 64, 2, 64, 64, 64), cuda_device)
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, 64)
+    with pytest.raises(NotImplementedError):
+        S.ssd_chunk(_needs_grad(xc), dtc, A_log, Bc, Cc)
+    with pytest.raises(NotImplementedError):
+        ssd_scan(x, dt, _needs_grad(A_log), B, C)
+    with torch.no_grad():
+        S.ssd_chunk(_needs_grad(xc), dtc, A_log, Bc, Cc)
+
+
+@pytest.mark.cuda
+def test_mlstm_refuses_a_gradient_on_the_card(cuda_device):
+    q, k, v, li, lf, scale = _mlstm_chunks((1, 64, 2, 128, 64), cuda_device)
+    with pytest.raises(NotImplementedError):
+        M.mlstm_chunk(q, _needs_grad(k), v, li, lf, scale)
+    with torch.no_grad():
+        M.mlstm_chunk(q, _needs_grad(k), v, li, lf, scale)
+
+
+# depth of each model at full width for the bf16 check (chip_smoke.py's
+# phase_bf16_parity): one group of zamba2-7b.  xlstm-1.3b is held per
+# mLSTM block (test_bf16_xlstm_block_parity_on_the_card): at depth 8 its
+# logits move by ~0.1 between two correct fp32 mLSTM implementations.
+BF16_DEPTHS = {"llama3.2-3b": 2, "zamba2-7b": 7, "granite-moe-1b-a400m": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(BF16_DEPTHS))
+def test_bf16_model_parity_on_the_card(cuda_device, arch):
+    """The card path in bf16 (every flash, SwiGLU, SSD and mLSTM launch a
+    wgmma one) against the plain path, the same weights on the CPU, at
+    S = 640, normwise within the CPU bf16 model tests' 2e-2.  granite-moe's
+    CPU path replays the card's expert choices (a flipped near-tie would
+    move a token's logits by O(1)); the flips are counted in chip_smoke."""
+    import copy
+
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas",
+                              dtype="bfloat16", n_layers=BF16_DEPTHS[arch])
+    model = build_model(cfg)
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (1, 640))).to(cuda_device)
+    card_masks, cpu_masks = [], []
+    top_k_mask = moe._top_k_mask
+    replay = []              # set once the card path has run
+
+    def recorded(probs, k):
+        mask, weights = top_k_mask(probs, k)
+        if not replay:
+            card_masks.append(mask.cpu())
+            return mask, weights
+        card = card_masks[len(cpu_masks)].to(mask.dtype)
+        cpu_masks.append(mask)
+        w = probs * card
+        return card, w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+
+    moe._top_k_mask = recorded
+    try:
+        for m in (K, W, S, M):
+            m.reset_launches()
+        with torch.no_grad():
+            got = model.forward(params, {"tokens": tokens}).float().cpu()
+        for m in (K, W, S, M):
+            assert m.LAUNCHES == m.LAUNCHES_BY_VARIANT["wgmma"], m.__name__
+        assert K.LAUNCHES + S.LAUNCHES + M.LAUNCHES > 0
+        replay.append(True)
+        with torch.no_grad():
+            want = model.forward(copy.deepcopy(params).to("cpu"),
+                                 {"tokens": tokens.cpu()}).float()
+    finally:
+        moe._top_k_mask = top_k_mask
+    assert bool(got.isfinite().all())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= 2e-2, rel
+
+
+@pytest.mark.cuda
+def test_bf16_xlstm_block_parity_on_the_card(cuda_device):
+    """One mLSTM block of xlstm-1.3b at full width in bf16, S = 640 (three
+    chunks, the last ragged): the card path (the wgmma kernel) against the
+    plain path on the CPU, normwise within the CPU bf16 tests' 2e-2."""
+    import copy
+
+    from repro_torch.models import xlstm
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS["xlstm-1.3b"], n_layers=8)
+    assert cfg.dtype == "bfloat16"
+    params = build_model(cfg).init(0)
+    block = params.mblocks[0]
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (1, 640, cfg.d_model), np.float32)).to(cuda_device, torch.bfloat16)
+    M.reset_launches()
+    with torch.no_grad():
+        got = xlstm.mlstm_forward(cfg, block.mlstm, x).float().cpu()
+        assert M.LAUNCHES_BY_VARIANT == {"wgmma": 1, "simt": 0}
+        want = xlstm.mlstm_forward(cfg, copy.deepcopy(block).to("cpu").mlstm,
+                                   x.cpu()).float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= 2e-2, rel

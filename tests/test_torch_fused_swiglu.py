@@ -218,3 +218,13 @@ def test_reset_launches_zeroes_every_count():
     K.reset_launches()
     assert K.LAUNCHES == 0
     assert K.LAUNCHES_BY_VARIANT == dict.fromkeys(K.VARIANTS, 0)
+
+
+def test_cpu_twin_differentiates():
+    """On the CPU the wrapper runs the twin, plain torch ops, so a gradient
+    flows (on the card the wrapper refuses one: test_torch_cuda_kernels)."""
+    x, wg, wu = (torch.from_numpy(a).requires_grad_(True)
+                 for a in _inputs((16, 32), (32, 24)))
+    K.fused_swiglu(x, wg, wu).sum().backward()
+    for t in (x, wg, wu):
+        assert t.grad is not None and bool(t.grad.abs().sum() > 0)

@@ -152,3 +152,30 @@ def test_wrapper_rejects_bad_shapes(bad):
     args = [torch.zeros(shapes[n]) for n in ("q", "k", "v", "li", "lf")]
     with pytest.raises(ValueError):
         K.mlstm_chunk(*args, 0.25)
+
+
+def test_choose_variant_routes_by_head_dim_and_chunk():
+    """wgmma for p a multiple of 128 and whole 64-row tiles up to Q = 256
+    (xlstm-1.3b's p = 1024); simt for the other head dims, ragged chunks
+    and offset views; the twin for CPU tensors."""
+    cv = K.choose_variant
+    assert cv("cpu", (256, 1024), False) == "plain"
+    for shape in [(256, 1024), (64, 128), (192, 512)]:
+        assert cv("cuda", shape, False) == "wgmma", shape
+    for shape in [(256, 64), (256, 16), (256, 1000), (32, 1024),
+                  (100, 1024), (600, 1024)]:
+        assert cv("cuda", shape, False) == "simt", shape
+    assert cv("cuda", (256, 1024), True) == "simt"
+
+
+def test_cpu_twin_differentiates():
+    """On the CPU the wrapper runs the twin, plain torch ops, so a gradient
+    flows (on the card the wrapper refuses one: test_torch_cuda_kernels)."""
+    q, k, v, ig, fg = _torch(_inputs((1, 64, 2, 16, 32, TEST_GATES), 6))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    y = mlstm_scan(q, k, v, ig, fg, chunk=32)
+    y.sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and bool(t.grad.isfinite().all())
+        assert bool(t.grad.abs().sum() > 0)

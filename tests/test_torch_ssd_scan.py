@@ -143,3 +143,42 @@ def test_wrapper_rejects_bad_shapes(bad):
     args = [torch.zeros(shapes[k]) for k in ("x", "dt", "A_log", "B", "C")]
     with pytest.raises(ValueError):
         K.ssd_chunk(*args)
+
+
+def test_choose_variant_routes_by_width_and_chunk():
+    """wgmma for n = p = 64 and whole 64-row tiles up to Q = 256 (zamba2-7b's
+    mamba layers); simt for the other widths, ragged or long chunks and
+    offset views; the twin for CPU tensors."""
+    cv = K.choose_variant
+    assert cv("cpu", (256, 64, 64), False) == "plain"
+    for q in (64, 128, 192, 256):
+        assert cv("cuda", (q, 64, 64), False) == "wgmma"
+    for shape in [(256, 32, 64), (256, 64, 32), (256, 16, 16), (32, 64, 64),
+                  (100, 64, 64), (320, 64, 64), (1024, 64, 64)]:
+        assert cv("cuda", shape, False) == "simt", shape
+    assert cv("cuda", (256, 64, 64), True) == "simt"
+
+
+def test_zamba_chunks_route_to_wgmma():
+    """zamba2-7b's mamba layer at a full and a ragged S: chunk_inputs pads
+    to whole chunks of 256, which the rule sends to wgmma on the card."""
+    for s in (4096, 4000, 300):
+        x = torch.zeros(1, s, 2, 64)
+        B = torch.zeros(1, s, 64)
+        xc, dtc, Bc, Cc = chunk_inputs(x, torch.zeros(1, s, 2), B, B, 256)
+        assert K.choose_variant("cuda", (xc.shape[2], Bc.shape[-1],
+                                         xc.shape[-1]), False) == "wgmma"
+        assert K.variant_for(xc, dtc, torch.zeros(2), Bc, Cc) == "plain"
+
+
+def test_cpu_twin_differentiates():
+    """On the CPU the wrapper runs the twin, plain torch ops, so a gradient
+    flows (on the card the wrapper refuses one: test_torch_cuda_kernels)."""
+    x, dt, A_log, B, C = _torch(_inputs((1, 64, 2, 16, 16, 32), 5))
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, 32)
+    xc.requires_grad_(True)
+    Bc.requires_grad_(True)
+    y, states, _ = K.ssd_chunk(xc, dtc, A_log, Bc, Cc)
+    (y.sum() + states.sum()).backward()
+    assert xc.grad is not None and bool(xc.grad.isfinite().all())
+    assert Bc.grad is not None and bool(Bc.grad.abs().sum() > 0)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Ablations of the wgmma flash-attention and fused-SwiGLU kernels on one
-CUDA card.
+"""Ablations of the wgmma kernels (flash attention, fused SwiGLU, SSD chunk,
+mLSTM chunk) on one CUDA card.
 
     python3 tools/kernel_ablation.py
 
 Each ablation is a copy of the kernel's source with one design choice
 undone by a textual edit, built into ``build/ablation/`` with the port's
 own nvcc flags, then timed in turns (as built, ablated, ablated, as built)
-with CUDA events at the main paths' shapes, bf16:
+with CUDA events at the main paths' shapes:
 
 - flash attention (llama3.2-3b D 128, zamba2-7b D 112, granite-moe D 64,
   B = 2, S = 4096, causal): ``no_pingpong`` (the warpgroups issue their
@@ -22,10 +22,19 @@ with CUDA events at the main paths' shapes, bf16:
   traffic in the loop);
 - fused SwiGLU (llama3.2-3b MLP, zamba2-7b shared MLP, granite-moe-1b-a400m
   experts): ``accurate_epilogue`` (expf and a true division in silu) and
-  ``no_setmaxnreg``.
+  ``no_setmaxnreg``;
+- SSD chunk, fp32 (zamba2-7b's mamba layer, B = 2, S = 4096):
+  ``cbt_per_head_pair`` (2 heads a CTA instead of 8, one a warpgroup: C Bᵀ
+  computed 4x as often) and ``single_tf32`` (one tf32 pass, hi_a hi_b,
+  instead of three; the lo tiles are still stored);
+- mLSTM chunk, fp32 (xlstm-1.3b's mLSTM layer, B = 2, S = 4096):
+  ``w_through_device_memory`` (W written from shared memory to a device
+  scratch and read back before W v, as the simt kernel's W goes) and
+  ``single_tf32``.
 
 Every ablation that keeps the function is checked against the plain twin
-at the bf16 tolerance.  For each build it prints ptxas' register, spill
+at its tolerance (bf16: 2e-2; SSD and mLSTM: 1e-4); the single tf32 pass
+reports its error beside its time.  For each build it prints ptxas' register, spill
 and wgmma-serialisation lines; for each shape one JSON line of times (ms)
 beside the card's name and power limit.  Needs the card; exits non-zero
 without one.
@@ -48,6 +57,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 OUT_DIR = ROOT / "build" / "ablation"
 TOL = dict(rtol=2e-2, atol=2e-2)          # tests/test_kernels.py, bf16
+FP32_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py:105,151
 
 SETMAXNREG_OFF = [("    setmaxnreg_dec<PRODUCER_REGS>();\n", ""),
                   ("    setmaxnreg_inc<CONSUMER_REGS>();\n", "")]
@@ -84,6 +94,53 @@ SWIGLU_ABLATIONS = {
     "accurate_epilogue": ([("return __fdividef(g, 1.0f + __expf(-g)) * u;",
                             "return g / (1.0f + expf(-g)) * u;")], True),
     "no_setmaxnreg": (SETMAXNREG_OFF, True),
+}
+SSD_ABLATIONS = {
+    "cbt_per_head_pair": ([("constexpr int HEADS = 8;",
+                            "constexpr int HEADS = 2;")], True),
+    "single_tf32": ([("""    wgmma_tf32_n64(acc, desc_k_major(a_lo + off), desc_k_major(b_hi + off),
+                   !(overwrite && s == 0));
+    wgmma_tf32_n64(acc, desc_k_major(a_hi + off), desc_k_major(b_lo + off),
+                   1);
+""", ""), ("""    wgmma_tf32_n64(acc, desc_k_major(a_hi + off), desc_k_major(b_hi + off),
+                   1);""", """    wgmma_tf32_n64(acc, desc_k_major(a_hi + off), desc_k_major(b_hi + off),
+                   !(overwrite && s == 0));""")], False),
+}
+MLSTM_W_ROUND_TRIP = """
+  // ablation: W through device memory and back
+  {
+    __syncthreads();
+    constexpr int N4 = 16 * ATOM64 / 16;
+    float4* g = reinterpret_cast<float4*>(w_scratch) +
+                size_t(blockIdx.x) * N4;
+    float4* s4 = reinterpret_cast<float4*>(sm + W_HI);
+    for (int i = t; i < N4; i += THREADS) __stcg(g + i, s4[i]);
+    __syncthreads();
+    for (int i = t; i < N4; i += THREADS) s4[i] = __ldcg(g + i);
+  }
+
+  // ---- y = W v: 128-column slices of v, each warpgroup 64 of them -------"""
+MLSTM_ABLATIONS = {
+    "w_through_device_memory": ([
+        ("using namespace hopper;\n",
+         "using namespace hopper;\n__device__ float w_scratch[512 * 16 * 64 "
+         "* 128 / 4];\n"),
+        ("\n  // ---- y = W v: 128-column slices of v, each warpgroup 64 of "
+         "them -------", MLSTM_W_ROUND_TRIP)], True),
+    "single_tf32": ([
+        ("""  wgmma_tf32_n64(acc, desc_k_major(a_lo), desc_k_major(b_hi), accumulate);
+  wgmma_tf32_n64(acc, desc_k_major(a_hi), desc_k_major(b_lo), 1);
+  wgmma_tf32_n64(acc, desc_k_major(a_hi), desc_k_major(b_hi), 1);""",
+         """  wgmma_tf32_n64(acc, desc_k_major(a_hi), desc_k_major(b_hi), accumulate);"""),
+        ("""      wgmma_tf32_n128(acc, desc_k_major(sb + A_LO + a_off),
+                      desc_k_major(sb + B_HI + b_off), a > 0 || k8 > 0);
+      wgmma_tf32_n128(acc, desc_k_major(sb + A_HI + a_off),
+                      desc_k_major(sb + B_LO + b_off), 1);
+      wgmma_tf32_n128(acc, desc_k_major(sb + A_HI + a_off),
+                      desc_k_major(sb + B_HI + b_off), 1);""",
+         """      wgmma_tf32_n128(acc, desc_k_major(sb + A_HI + a_off),
+                      desc_k_major(sb + B_HI + b_off), a > 0 || k8 > 0);""")],
+                    False),
 }
 FLASH_SHAPES = {"llama3.2-3b": (2, 24, 8, 4096, 128),
                 "zamba2-7b": (2, 32, 32, 4096, 112),
@@ -235,8 +292,109 @@ def swiglu(torch, libs, gpu):
         torch.cuda.empty_cache()
 
 
+def _fp32_err(got, want):
+    """(max |got - want|, max of it over the fp32 tolerance) over the
+    outputs."""
+    errs = [(g - w).abs() for g, w in zip(got, want)]
+    return (max(e.max().item() for e in errs),
+            max((e / (FP32_TOL["atol"] + FP32_TOL["rtol"] * w.abs()))
+                .max().item() for e, w in zip(errs, want)))
+
+
+def _scan_ablations(torch, libs, ablations, run, ins, want, kernel, shape,
+                    gpu, reps):
+    """Errors against the twin (a build that keeps the function must meet
+    the fp32 tolerance), then the times in turns; one JSON line."""
+    errs, shares = {}, {}
+    for name, lib in libs.items():
+        errs[name], shares[name] = _fp32_err(run(lib, ins), want)
+        if (name == "as_built" or ablations[name][1]) and shares[name] > 1:
+            raise SystemExit(f"{kernel} {name}: max abs err {errs[name]}")
+    times = in_turns(torch, {n: (lambda lib=lib: run(lib, ins))
+                             for n, lib in libs.items()}, reps=reps)
+    emit({"kernel": kernel, "variant": "wgmma", "shape": shape, "gpu": gpu,
+          "ms": times, "max_abs_err": errs, "err_over_tol": shares})
+
+
+def ssd(torch, libs, gpu):
+    from repro_torch.kernels.ssm_scan import kernel as S
+    from repro_torch.kernels.ssm_scan.ops import chunk_inputs
+
+    for lib in libs.values():
+        lib.ssd_chunk_fwd_wgmma.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def run(lib, ins):
+        x, dt, A_log, B, C = ins
+        b, nc, q, h, p = x.shape
+        n = B.shape[-1]
+        outs = (torch.empty_like(x),
+                torch.empty(b, nc, h, n, p, device="cuda"),
+                torch.empty(b, nc, h, device="cuda"))
+        err = lib.ssd_chunk_fwd_wgmma(
+            *(t.data_ptr() for t in ins + outs), b * nc, q, h, n, p,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return outs
+
+    b, s, h, p, n, chunk = 2, 4096, 112, 64, 64, 256     # zamba2-7b
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda")
+    B = torch.randn(b, s, n, generator=g, device="cuda")
+    C = torch.randn(b, s, n, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=g, device="cuda"))
+    A_log = torch.randn(h, generator=g, device="cuda") * 0.5
+    xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, chunk)
+    ins = (xc, dtc, A_log, Bc, Cc)
+    _scan_ablations(torch, libs, SSD_ABLATIONS, run, ins,
+                    S.ssd_chunk_plain(*ins), "ssd_chunk",
+                    [b, s, h, p, n, chunk], gpu, reps=20)
+
+
+def mlstm(torch, libs, gpu):
+    from repro_torch.kernels.mlstm_scan import kernel as M
+    from repro_torch.kernels.mlstm_scan.ops import chunk_inputs
+
+    for lib in libs.values():
+        lib.mlstm_chunk_fwd_wgmma.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
+
+    def run(lib, ins):
+        q, k, v, li, lf, scale = ins
+        b, nc, nq, h, p = q.shape
+        f32 = dict(device="cuda")
+        outs = (torch.empty_like(q), torch.empty(b, nc, nq, h, **f32),
+                torch.empty(b, nc, nq, h, **f32),
+                torch.empty(b, nc, h, p, p, **f32),
+                torch.empty(b, nc, h, p, **f32), torch.empty(b, nc, h, **f32),
+                torch.empty(b, nc, h, **f32))
+        err = lib.mlstm_chunk_fwd_wgmma(
+            *(t.data_ptr() for t in ins[:5] + outs), b * nc * h, nq, h, p,
+            scale, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+        return outs
+
+    b, s, h, p, chunk = 2, 4096, 4, 1024, 256              # xlstm-1.3b
+    g = torch.Generator("cuda").manual_seed(3)
+    q, k, v = (torch.randn(b, s, h, p, generator=g, device="cuda")
+               for _ in range(3))
+    ig = torch.randn(b, s, h, generator=g, device="cuda") * 2
+    fg = torch.randn(b, s, h, generator=g, device="cuda") * 2 + 2
+    ins = (*chunk_inputs(q, k, v, ig, fg, chunk), 1 / math.sqrt(p))
+    _scan_ablations(torch, libs, MLSTM_ABLATIONS, run, ins,
+                    M.mlstm_chunk_plain(*ins), "mlstm_chunk",
+                    [b, s, h, p, chunk], gpu, reps=10)
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="flash,swiglu,ssd,mlstm",
+                        help="comma-separated kernels to ablate")
+    only = parser.parse_args().only.split(",")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -244,6 +402,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.kernels.mlstm_scan import kernel as ml_k
+    from repro_torch.kernels.ssm_scan import kernel as ssd_k
 
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -251,10 +411,15 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     gpu = gpu.splitlines()[0]
     print(gpu, flush=True)
-    fsrc = ablated_sources(fa.WGMMA_SOURCE, FLASH_ABLATIONS, "flash")
-    ssrc = ablated_sources(sw.WGMMA_SOURCE, SWIGLU_ABLATIONS, "swiglu")
-    sources = {**{("flash", n): p for n, p in fsrc.items()},
-               **{("swiglu", n): p for n, p in ssrc.items()}}
+    srcs = {"flash": ablated_sources(fa.WGMMA_SOURCE, FLASH_ABLATIONS,
+                                     "flash"),
+            "swiglu": ablated_sources(sw.WGMMA_SOURCE, SWIGLU_ABLATIONS,
+                                      "swiglu"),
+            "ssd": ablated_sources(ssd_k.WGMMA_SOURCE, SSD_ABLATIONS, "ssd"),
+            "mlstm": ablated_sources(ml_k.WGMMA_SOURCE, MLSTM_ABLATIONS,
+                                     "mlstm")}
+    sources = {(k, n): p for k, s in srcs.items() if k in only
+               for n, p in s.items()}
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(_build.load, sources.values())))
     for key, path in sources.items():
@@ -262,8 +427,10 @@ def main() -> int:
         emit({"build": list(key), "ptxas": [
             ln.split("info    : ")[-1] for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "serialized" in ln]})
-    flash(torch, {n: libs[("flash", n)] for n in fsrc}, gpu)
-    swiglu(torch, {n: libs[("swiglu", n)] for n in ssrc}, gpu)
+    for kernel, fn in (("flash", flash), ("swiglu", swiglu), ("ssd", ssd),
+                       ("mlstm", mlstm)):
+        if kernel in only:
+            fn(torch, {n: libs[(kernel, n)] for n in srcs[kernel]}, gpu)
     return 0
 
 
