@@ -79,13 +79,37 @@ them:
    2e-2; granite-moe's CPU path replays the card's expert choices and the
    choices it would have flipped are counted; xlstm-1.3b is held per
    mLSTM block (its depth-8 logits move by ~0.1 between two correct fp32
-   mLSTM implementations) and its logits are reported.
+   mLSTM implementations) and its logits are reported;
+15. paper_zoo, the paper's own path (``repro_torch.core``: LayerGraph ->
+   compile_plan -> replay -> grads): all 16 ``ZOO`` graphs at the zoo's own
+   widths (150528-wide inputs, 3x224x224 images), batch 64, planned with
+   the swap-forcing ``MemoryPlanConfig(min_idle_phases=3, min_bytes=4096)``
+   and replayed on ``sim`` and on ``async`` (the CUDA copy stream into one
+   pinned host pool); each replay is held to the compiled op list, to no
+   late swap-in, to its planned peak and DMA bytes, to the other backend's
+   transfer accounting, and to ``reference_loss_and_grads`` (autograd) on
+   the card, elementwise (rtol 1e-4, atol 1e-5 per unit of the tensor's
+   largest entry) and normwise (1e-4); each row also gives how far the
+   port's and autograd's fp32 grads lie from an fp64 autograd run;
+16. paper_trunk: the llama3.2-3b MLP trunk (``transformer_mlp_stack()``: 28
+   x (3072 -> 8192 relu -> 3072), MSE head) at batch 4096 rows in fp32,
+   planned with the default config (swaps) and with ``swap=False``: three
+   SGD steps on ``async`` over the swapped plan (its host pool pinned
+   first, timed apart), one on ``sim`` and one on the no-swap plan (after
+   a warm-up step); step-1 grads against autograd elementwise and
+   normwise, and the allocator's measured peak during each replay
+   (parameters and inputs subtracted), which must fall by at least half
+   the planned saving against the no-swap replay.  Then five rounds of one
+   swapped and one no-swap step in turns (ABBA), whose median step times
+   are the phase's comparison of the two plans.
 
 The bf16 prefill steps (3, 5, 8, 11) and generate's SwiGLU launches must
 count under the wgmma variants only; in the fp32 parity phases (7, 10,
 13) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
 (``LAUNCHES_BY_VARIANT``).  Every phase prints one
-JSON line.  Any failed check exits non-zero.  The line before the last is
+JSON line.  Any failed check exits non-zero.  TF32 is off for cuDNN and
+for matmuls throughout.  Before the kernel table comes the paper path's
+table (one row per graph, backend and plan).  The line before the last is
 the kernel table (each row with its ``variant`` and ``prev_ms``, the
 earlier design's time in this run), the last the device line.  It
 needs the card: without one, or without the repo's sources beside it, it
@@ -170,6 +194,26 @@ SWIGLU_DECODE = {"llama3.2-3b MLP, decode": (1, 4, 3072, 8192),
                  "granite-moe-1b-a400m experts, decode": (32, 4, 1024, 512)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),       # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# the paper's path (phases 15-16): the executor tests' swap-forcing config
+PAPER_EXEC = dict(min_idle_phases=3, min_bytes=1 << 12)
+PAPER_ZOO_BATCH = 64
+TRUNK_BATCH = 4096
+TRUNK_STEPS = 3
+# after the SGD steps: rounds of one swapped (async) and one no-swap step,
+# in turns, for the medians of their step times
+TRUNK_TIMED_ROUNDS = 5
+# grads against autograd on the card: elementwise rtol 1e-4 with atol 1e-5
+# per unit of the tensor's largest entry, and normwise max|a-b| <= 1e-4
+# max|b|.  The port's backward (layer by layer, from the lowered schedule)
+# and autograd's sum in different orders, and each fp32 result lies far
+# further from the exact gradients than from the other (paper_zoo's rows
+# carry both: grad_err against autograd, grad_err_fp64 and
+# ref_grad_err_fp64 against an fp64 autograd run), so on resnet18 a plain
+# atol of 1e-5 would hold mid-sized entries to more than fp32 computes.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_NORM_TOL = 1e-4
+PAIRED_STATS = ("swap_outs", "prefetches", "inplace_prefetches", "dma_bytes",
+                "hbm_high_water", "host_high_water", "peak_inflight_prefetch")
 # fp32 full-width logits, kernel path vs plain path: max|a-b| / max|b|.
 # Both sum in fp32 in another order through 28 layers; computing either in
 # bf16 (or TF32) gives errors near 1e-2.
@@ -244,9 +288,14 @@ def main() -> int:
         phase_granite(torch, fa, sw, gpu)
     phase_granite_fp32_parity(torch, fa, sw)
     phase_bf16_parity(torch, fa, ssd, ml, sw)
+    _zero(fa, ssd, ml, sw)
+    paper_rows = phase_paper_zoo(torch, gpu) + phase_paper_trunk(torch, gpu)
+    check(all(m.LAUNCHES == 0 for m in (fa, ssd, ml, sw)), "paper_path",
+          "the paper's path launched a kernel of the transformer path")
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
+    print(json.dumps({"paper_path": paper_rows}), flush=True)
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
                                   mlstm_row, *sw_rows,
                                   granite_flash_row]}), flush=True)
@@ -1514,6 +1563,280 @@ def phase_bf16_parity(torch, fa, ssd, ml, sw):
         check(gated <= BF16_REL_TOL, "bf16_parity",
               f"{arch}: max_rel_err {gated} ({row})")
     emit({"phase": "bf16_parity", "ok": True, "results": results})
+
+
+# ---------------------------------------------------------------------------
+# 15-16. the paper's path: LayerGraph -> compile_plan -> replay -> grads
+# ---------------------------------------------------------------------------
+
+def _graph_batch(torch, g, batch, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    shape = (batch,) + tuple(g.input_shape)
+    if any(l.kind == "embedding" for l in g.layers):
+        x = torch.randint(0, 50, shape, generator=gen, device="cuda")
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda")
+    y = torch.randn((batch,) + tuple(g.label_shape), generator=gen,
+                    device="cuda")
+    if g.layers[-1].kind == "loss_ce":
+        y = torch.nn.functional.one_hot(
+            y.argmax(-1), y.shape[-1]).to(torch.float32)
+    return x, y
+
+
+def _grad_errs(torch, got, want):
+    """(elementwise within GRAD_TOL, max abs err, max normwise err) over
+    every gradient tensor."""
+    ok = sorted(got) == sorted(want) and all(
+        sorted(got[k]) == sorted(want[k]) for k in want)
+    max_abs = max_rel = 0.0
+    for k in want:
+        for n, b in want[k].items():
+            a = got[k][n]
+            err = (a - b).abs()
+            top = b.abs().max().item()
+            ok &= bool((err <= GRAD_TOL["atol"] * max(1.0, top)
+                        + GRAD_TOL["rtol"] * b.abs()).all())
+            e = err.max().item()
+            max_abs = max(max_abs, e)
+            max_rel = max(max_rel, e / top if top else e)
+    return ok, max_abs, max_rel
+
+
+def _max_abs_err(got, want):
+    return max((got[k][n].double() - b.double()).abs().max().item()
+               for k in want for n, b in want[k].items())
+
+
+def _fp64_grads(torch, reference_loss_and_grads, g, params, x, y):
+    """The exact gradients' stand-in: autograd over the graph in fp64."""
+    params = {k: {n: v.double() for n, v in p.items()}
+              for k, p in params.items()}
+    if x.is_floating_point():
+        x = x.double()
+    return reference_loss_and_grads(g, params, x, y.double())[1]
+
+
+def _timed_step(torch, cp, params, x, y, executor):
+    """One replay: (loss, grads, stats, wall s, allocator peak over what was
+    allocated before it, parameters and inputs among that)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads, stats = cp.loss_and_grads(params, x, y, executor=executor)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return loss, grads, stats, wall, torch.cuda.max_memory_allocated() - base
+
+
+def _paper_row(graph, backend, plan, cp, stats, wall, loss, **extra):
+    """One row of the paper path's table (floats to 4 significant
+    digits: the line must fit the end of the output)."""
+    def r(v):
+        return float(f"{v:.4g}") if isinstance(v, float) else v
+    row = {"graph": graph, "backend": backend, "plan": plan,
+           "step_s": wall, "loss": float(loss),
+           "swap_outs": stats.swap_outs, "dma_bytes": stats.dma_bytes,
+           "hbm_high_water": stats.hbm_high_water,
+           "late_swap_ins": stats.late_swap_ins, "fences": stats.fences,
+           "stalled_fences": stats.stalled_fences,
+           "achieved_overlap": stats.achieved_overlap,
+           "hidden_dma_s": stats.hidden_dma_s,
+           "exposed_dma_s": stats.exposed_dma_s,
+           "inflight_high_water": stats.inflight_high_water,
+           "peak_inflight_prefetch": stats.peak_inflight_prefetch, **extra}
+    return {k: r(v) for k, v in row.items()}
+
+
+def phase_paper_zoo(torch, gpu):
+    from repro_torch.core.exec.layers import reference_loss_and_grads
+    from repro_torch.core.plan import MemoryPlanConfig, compile_plan
+    from repro_torch.core.zoo import ZOO
+
+    rows = []
+    t_phase = time.perf_counter()
+    for i, name in enumerate(sorted(ZOO)):
+        g = ZOO[name]()
+        cp = compile_plan(g, MemoryPlanConfig(**PAPER_EXEC),
+                          batch=PAPER_ZOO_BATCH)
+        params = cp.init_params(torch.Generator("cuda").manual_seed(i))
+        x, y = _graph_batch(torch, g, PAPER_ZOO_BATCH, 100 + i)
+        ref_loss, ref_grads = reference_loss_and_grads(g, params, x, y)
+        exact = _fp64_grads(torch, reference_loss_and_grads, g, params, x, y)
+        ref_err_fp64 = _max_abs_err(ref_grads, exact)
+        got = {}
+        for backend in ("sim", "async"):
+            loss, grads, stats, wall, _ = _timed_step(
+                torch, cp, params, x, y, backend)
+            ok, max_abs, max_rel = _grad_errs(torch, grads, ref_grads)
+            loss_err = abs(loss.item() - ref_loss.item())
+            where = f"{name} on {backend}"
+            check(stats.replayed_ops == cp.lowered.ops, "paper_zoo",
+                  f"{where}: the replay left the compiled op list")
+            check(stats.late_swap_ins == 0, "paper_zoo",
+                  f"{where}: {stats.late_swap_ins} late swap-ins")
+            check(stats.hbm_high_water <= cp.plan.activation_residency_peak(),
+                  "paper_zoo", f"{where}: high water {stats.hbm_high_water} "
+                  "over the planned residency peak")
+            # the lowered transfers' bytes: cp.dma_bytes also counts the
+            # swaps of S: scratch tensors, which stay plan-level (no op)
+            lowered_dma = sum(op.nbytes for op in cp.lowered.transfers())
+            check(stats.dma_bytes == lowered_dma, "paper_zoo",
+                  f"{where}: {stats.dma_bytes} DMA bytes, lowered "
+                  f"{lowered_dma}")
+            check(ok and max_rel <= GRAD_NORM_TOL
+                  and loss_err <= 1e-4 * abs(ref_loss.item()) + 1e-5,
+                  "paper_zoo", f"{where}: grads max abs err {max_abs} "
+                  f"(normwise {max_rel}), loss err {loss_err}")
+            got[backend] = stats
+            rows.append(_paper_row(name, backend, "swap", cp, stats, wall,
+                                   loss, grad_err=max_abs,
+                                   grad_norm_err=max_rel,
+                                   grad_err_fp64=_max_abs_err(grads, exact),
+                                   ref_grad_err_fp64=ref_err_fp64))
+        for field in PAIRED_STATS:
+            check(getattr(got["sim"], field) == getattr(got["async"], field),
+                  "paper_zoo", f"{name}: {field} differs between sim "
+                  f"({getattr(got['sim'], field)}) and async "
+                  f"({getattr(got['async'], field)})")
+        del params, ref_grads, grads, exact
+        torch.cuda.empty_cache()
+    emit({"phase": "paper_zoo", "ok": True, "gpu": gpu,
+          "graphs": len(ZOO), "batch": PAPER_ZOO_BATCH,
+          "transfers": sum(2 * r["swap_outs"] for r in rows
+                           if r["backend"] == "async"),
+          "wall_s": time.perf_counter() - t_phase})
+    return rows
+
+
+def phase_paper_trunk(torch, gpu):
+    from repro_torch.core.exec.backends import AsyncDeviceBackend
+    from repro_torch.core.exec.layers import (reference_loss_and_grads,
+                                              sgd_update)
+    from repro_torch.core.plan import MemoryPlanConfig, compile_plan
+    from repro_torch.core.zoo import transformer_mlp_stack
+
+    g = transformer_mlp_stack()
+    t0 = time.perf_counter()
+    cp = compile_plan(g, MemoryPlanConfig(), batch=TRUNK_BATCH)
+    cp_flat = compile_plan(g, MemoryPlanConfig(swap=False), batch=TRUNK_BATCH)
+    compile_s = time.perf_counter() - t0
+    params = cp.init_params(torch.Generator("cuda").manual_seed(5))
+    x, y = _graph_batch(torch, g, TRUNK_BATCH, 6)
+    # He init doubles the variance through each up/down pair (the down
+    # projection has no activation), 2^28 over the trunk: inputs at std
+    # 2^-14 reach the MSE head at unit scale, so SGD steps stay finite
+    n_pairs = sum(l.kind == "linear" for l in g.layers) // 2
+    x = x * 2.0 ** (-n_pairs / 2)
+    ref_loss, ref_grads = reference_loss_and_grads(g, params, x, y)
+    torch.cuda.empty_cache()
+    rows = []
+
+    def held(where, plan, stats, grads, loss):
+        ok, max_abs, max_rel = _grad_errs(torch, grads, ref_grads)
+        check(stats.replayed_ops == plan.lowered.ops, "paper_trunk",
+              f"{where}: the replay left the compiled op list")
+        check(stats.late_swap_ins == 0, "paper_trunk",
+              f"{where}: {stats.late_swap_ins} late swap-ins")
+        check(ok and max_rel <= GRAD_NORM_TOL, "paper_trunk",
+              f"{where}: step-1 grads max abs err {max_abs}, normwise "
+              f"{max_rel}")
+        check(abs(loss.item() - ref_loss.item())
+              <= 1e-4 * abs(ref_loss.item()), "paper_trunk",
+              f"{where}: loss {loss.item()} against {ref_loss.item()}")
+        return dict(grad_err=max_abs, grad_norm_err=max_rel)
+
+    # the no-swap plan (after one untimed warm-up step), then sim, then
+    # async: step 1 from the same params
+    cp_flat.loss_and_grads(params, x, y, executor="async")
+    loss, grads, stats, wall, flat_peak = _timed_step(
+        torch, cp_flat, params, x, y, "async")
+    errs = held("no-swap plan", cp_flat, stats, grads, loss)
+    rows.append(_paper_row("transformer_mlp_stack", "async", "no_swap",
+                           cp_flat, stats, wall, loss, step=1,
+                           measured_peak_bytes=flat_peak, **errs))
+    del grads
+    loss, grads, stats, wall, sim_peak = _timed_step(
+        torch, cp, params, x, y, "sim")
+    errs = held("sim", cp, stats, grads, loss)
+    rows.append(_paper_row("transformer_mlp_stack", "sim", "swap", cp, stats,
+                           wall, loss, step=1, measured_peak_bytes=sim_peak,
+                           **errs))
+    del grads
+    torch.cuda.empty_cache()
+
+    backend = AsyncDeviceBackend()     # keeps its pinned pool across steps
+    t0 = time.perf_counter()
+    backend.make_engine(x.device).reserve(cp.host_pool_bytes)
+    pin_s = time.perf_counter() - t0
+    losses = []
+    swap_peak = None
+    for step in range(1, TRUNK_STEPS + 1):
+        loss, grads, stats, wall, peak = _timed_step(
+            torch, cp, params, x, y, backend)
+        extra = {}
+        if step == 1:
+            swap_peak = peak
+            extra = held("async", cp, stats, grads, loss)
+            del ref_grads
+        check(stats.replayed_ops == cp.lowered.ops
+              and stats.late_swap_ins == 0, "paper_trunk",
+              f"async step {step}: replay {stats.late_swap_ins} late")
+        losses.append(loss.item())
+        rows.append(_paper_row("transformer_mlp_stack", "async", "swap", cp,
+                               stats, wall, loss, step=step,
+                               measured_peak_bytes=peak, **extra))
+        params = sgd_update(params, grads)
+        del grads
+    # one step's wall time spreads by tens of percent between steps, so
+    # the swapped and the no-swap plan are compared by the medians of
+    # steps taken in turns from the same params (ABBA order)
+    walls = {"swap": [], "no_swap": []}
+    last = {}
+    for i in range(TRUNK_TIMED_ROUNDS):
+        order = (("swap", cp, backend), ("no_swap", cp_flat, "async"))
+        for plan, plan_cp, executor in order[::(-1) ** i]:
+            loss, grads, stats, wall, _ = _timed_step(
+                torch, plan_cp, params, x, y, executor)
+            check(stats.replayed_ops == plan_cp.lowered.ops
+                  and stats.late_swap_ins == 0, "paper_trunk",
+                  f"timed {plan} step: {stats.late_swap_ins} late")
+            walls[plan].append(wall)
+            last[plan] = (plan_cp, stats, loss)
+            del grads
+    medians = {plan: statistics.median(w) for plan, w in walls.items()}
+    for plan, (plan_cp, stats, loss) in last.items():
+        rows.append(_paper_row("transformer_mlp_stack", "async", plan,
+                               plan_cp, stats, medians[plan], loss,
+                               step=f"median of {TRUNK_TIMED_ROUNDS}"))
+    saved = flat_peak - swap_peak
+    ok = saved >= cp.hbm_bytes_saved / 2 \
+        and all(math.isfinite(v) for v in losses)
+    emit({"phase": "paper_trunk", "ok": ok, "gpu": gpu,
+          "batch": TRUNK_BATCH,
+          "layers": sum(l.kind == "linear" for l in g.layers) // 2,
+          "dtype": "float32",
+          "tf32": False, "compile_s": compile_s,
+          "planned_peak_bytes": cp.peak_bytes,
+          "planned_no_swap_peak_bytes": cp_flat.peak_bytes,
+          "planned_hbm_bytes_saved": cp.hbm_bytes_saved,
+          "host_pool_bytes": cp.host_pool_bytes, "dma_bytes": cp.dma_bytes,
+          "measured_peak_bytes": swap_peak,
+          "measured_no_swap_peak_bytes": flat_peak,
+          "measured_sim_peak_bytes": sim_peak,
+          "measured_bytes_saved": saved, "pool_pin_s": pin_s,
+          "losses": losses, "timed_step_s": walls,
+          "median_step_s": medians,
+          "swap_over_no_swap": medians["swap"] / medians["no_swap"]})
+    check(all(math.isfinite(v) for v in losses), "paper_trunk",
+          f"SGD losses {losses}")
+    check(ok, "paper_trunk",
+          f"measured peak fell by {saved} bytes, under half the planned "
+          f"{cp.hbm_bytes_saved}")
+    del params, x, y
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _with_mlstm_twin(torch, mlstm_ops, ml, forward):

@@ -28,8 +28,15 @@ xlstm-1.3b):
     kernels/fused_swiglu/        hand-written sm_90a CUDA fused SwiGLU
                                  gate/up GEMM (dense MLPs and MoE experts)
     convert.py                   reference param tree (numpy) -> port modules
+                                 or layer-graph parameters
     train/step.py                prefill / decode step callables
     launch/serve.py              ``generate``: prefill + greedy decode
+    core/                        the paper's path: LayerGraph ->
+                                 compile_plan -> replay -> grads (the
+                                 planning modules copied from the
+                                 reference; layer math, the activation
+                                 store with its CUDA copy-stream engine and
+                                 the sim / async backends in torch)
 """
 
 from repro_torch.device import resolve_device

@@ -17,6 +17,11 @@ array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
 - norm ``scale``s, the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``,
   the mLSTM gate projection ``w_if`` and ``b_if`` and the sLSTM ``bias``
   stay float32 (the reference casts ``conv`` and ``bias`` at use).
+
+``graph_params_from_numpy`` takes the reference's layer-graph parameters
+(``repro.core.exec.layers.init_params``: layer name -> parameter name ->
+array, leaves as numpy) and returns the same tree of float32 tensors, the
+layout ``repro_torch.core.exec.layers`` uses.
 """
 
 from __future__ import annotations
@@ -38,6 +43,14 @@ _SSM_F32 = ("conv", "A_log", "D", "dt_bias")
 # (dense kernels, float32 leaves) of the xLSTM blocks
 _MLSTM = (("up_l", "up_r", "wq", "wk", "wv", "down"), ("w_if", "b_if"))
 _SLSTM = (("wx", "wh", "proj"), ("bias",))
+
+
+def graph_params_from_numpy(params, device: DeviceLike = None):
+    """Layer-graph parameters (dict of dicts of arrays) as port tensors."""
+    dev = resolve_device(device)
+    return {layer: {n: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                    for n, a in entry.items()}
+            for layer, entry in params.items()}
 
 
 def params_from_numpy(tree, cfg: ModelConfig,

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b |
                                           granite-moe-1b-a400m]
+    python3 tools/profile_torch_serve.py --paper-trunk
 
 Profiles, with ``torch.profiler``, one model at full width (default
 llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
@@ -18,13 +19,24 @@ llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
   without one, 128 tokens filled token by token.
 
 For each it prints one JSON line: the wall time, the device time summed
-over kernels, the device's idle share of the wall time, the kernels that
+over kernels (``device_busy_ms``), the device time of host<->device copies
+(``copy_ms``), the device's idle share of the wall time (the share in
+which no kernel ran; copies do not count, since they may run on a stream
+of their own beside the kernels), the kernels and copies that
 took the most device time, and the host time spent inside each kind of
 sequence mixer (``ssm_forward``, ``mlstm_forward``, ``slstm_forward``) and
 MoE layer (``moe_forward``; each call is wrapped in a profiler range here,
 not in the model code): for a loop the host issues op by op, such as the
 sLSTM recurrence, that time is its share of the wall time.  Needs the
 card; it raises without one.
+
+``--paper-trunk`` profiles the paper's path instead: one training step of
+the llama3.2-3b MLP trunk (``transformer_mlp_stack()``: 28 x (3072 -> 8192
+relu -> 3072), MSE head; He-init weights from seed 5, inputs at std
+2^-14, 4096 rows, fp32, TF32 off) replayed from ``compile_plan``, on
+``async`` over the default plan (54 swap-outs and 54 prefetches on the
+CUDA copy stream, its pinned pool reserved first) and on the no-swap
+plan, each after a warm-up step.
 """
 
 from __future__ import annotations
@@ -95,24 +107,59 @@ def profiled(label: str, fn) -> None:
               if e.key.startswith(RANGE) and e.device_type == DeviceType.CPU}
     rows = [(e.key, e.count, _device_us(e)) for e in events]
     rows = [r for r in rows if r[2] > 0]
-    busy_us = sum(r[2] for r in rows)
+    # copies may run on a stream of their own beside the kernels, so the
+    # card counts as busy for the kernels' time only
+    copy_us = sum(us for k, _, us in rows if k.startswith("Memcpy"))
+    busy_us = sum(r[2] for r in rows) - copy_us
     rows.sort(key=lambda r: -r[2])
     print(json.dumps({
         "profile": label, "wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
+        "device_idle_share": 1 - busy_us / 1e6 / wall,
+        "copy_ms": copy_us / 1e3,
         "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3,
-                 "share": us / busy_us} for k, c, us in rows[:TOP]],
+                 "share": us / (busy_us + copy_us)}
+                for k, c, us in rows[:TOP]],
         "mixers_host": mixers,
     }), flush=True)
+
+
+def profile_paper_trunk() -> None:
+    from repro_torch.core.exec.backends import AsyncDeviceBackend
+    from repro_torch.core.plan import MemoryPlanConfig, compile_plan
+    from repro_torch.core.zoo import transformer_mlp_stack
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g, batch = transformer_mlp_stack(), 4096
+    swapped = compile_plan(g, MemoryPlanConfig(), batch=batch)
+    flat = compile_plan(g, MemoryPlanConfig(swap=False), batch=batch)
+    params = swapped.init_params(torch.Generator("cuda").manual_seed(5))
+    gen = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn((batch,) + tuple(g.input_shape), generator=gen,
+                    device="cuda") * 2.0 ** -14
+    y = torch.randn((batch,) + tuple(g.label_shape), generator=gen,
+                    device="cuda")
+    backend = AsyncDeviceBackend()
+    backend.make_engine(x.device).reserve(swapped.host_pool_bytes)
+    for cp, label in ((swapped, "async_swapped"), (flat, "no_swap")):
+        def step(cp=cp):
+            cp.loss_and_grads(params, x, y, executor=backend)
+        step()                                           # warm-up
+        profiled(f"transformer_mlp_stack_b{batch}_{label}", step)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llama3.2-3b", choices=sorted(ARCHS))
+    ap.add_argument("--paper-trunk", action="store_true",
+                    help="profile a training step of the paper's path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
+    if args.paper_trunk:
+        profile_paper_trunk()
+        return 0
     annotate_mixers()
     cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
     model = build_model(cfg)
