@@ -28,15 +28,23 @@ xlstm-1.3b):
     kernels/fused_swiglu/        hand-written sm_90a CUDA fused SwiGLU
                                  gate/up GEMM (dense MLPs and MoE experts)
     convert.py                   reference param tree (numpy) -> port modules
-                                 or layer-graph parameters
+                                 or layer-graph parameters; a reference
+                                 optimizer runtime's host state
     train/step.py                prefill / decode step callables
-    launch/serve.py              ``generate``: prefill + greedy decode
+    launch/serve.py              ``generate``: prefill + greedy decode;
+                                 ``personalize``: the multi-tenant server
     core/                        the paper's path: LayerGraph ->
                                  compile_plan -> replay -> grads (the
                                  planning modules copied from the
                                  reference; layer math, the activation
                                  store with its CUDA copy-stream engine and
-                                 the sim / async backends in torch)
+                                 the sim / async backends in torch), and
+                                 the offloaded optimizer state
+                                 (core/optim_offload.py)
+    optim/                       int8 block quantizer, AdamW, momentum SGD
+    serve/                       personalization serving: buckets, admission,
+                                 per-user sessions, the interleaved scheduler
+    runtime/fault.py             fault injection (plain copy)
 """
 
 from repro_torch.device import resolve_device

@@ -22,6 +22,12 @@ array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
 (``repro.core.exec.layers.init_params``: layer name -> parameter name ->
 array, leaves as numpy) and returns the same tree of float32 tensors, the
 layout ``repro_torch.core.exec.layers`` uses.
+
+``optim_state_from_numpy`` carries a reference ``OptimRuntime``'s host
+state (``repro.core.optim_offload``: per layer the int8 blocks and fp32
+scales, or the fp32 state when uncompressed, the EF residual and the step
+count, leaves as numpy) into a port runtime built from the same plan, so
+the port can continue a reference run.
 """
 
 from __future__ import annotations
@@ -51,6 +57,23 @@ def graph_params_from_numpy(params, device: DeviceLike = None):
     return {layer: {n: torch.from_numpy(np.array(a, np.float32)).to(dev)
                     for n, a in entry.items()}
             for layer, entry in params.items()}
+
+
+def optim_state_from_numpy(runtime, host_state, residual, count: int
+                           ) -> None:
+    """Write a reference runtime's host state into ``runtime`` (a
+    ``repro_torch.core.optim_offload.OptimRuntime`` of the same plan), in
+    place: its pinned host copies stay where they are."""
+    for layer, hs in host_state.items():
+        dst = runtime.host_state[layer]
+        if isinstance(dst, dict):
+            for part in ("q", "scale"):
+                dst[part].copy_(torch.from_numpy(np.array(hs[part])))
+            runtime.residual[layer].copy_(
+                torch.from_numpy(np.array(residual[layer])))
+        else:
+            dst.copy_(torch.from_numpy(np.array(hs)))
+    runtime.count = int(count)
 
 
 def params_from_numpy(tree, cfg: ModelConfig,

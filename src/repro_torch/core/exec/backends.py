@@ -17,8 +17,17 @@ One interpreter, two realisations of its transfer ops:
 
 The reference's third backend, ``"jit_blocks"`` (each proven-fusable
 ``Compute`` run dispatched as one compiled call), is not ported yet: its
-counterpart replays each ``FusedBlock`` as one CUDA-graph replay (ROADMAP
-slice 5, item 4).  Asking for it raises ``NotImplementedError``.
+counterpart replays each ``FusedBlock`` as one CUDA-graph replay over a
+packed device arena, so that every tensor sits at a fixed address (the
+next item of the ROADMAP's queue A).  Asking for it raises
+``NotImplementedError``.
+
+Optimizer-state transfers (``OptPrefetch`` / ``OptSwapOut``, from
+``MemoryPlanConfig(optim_offload=True)``) are replayed by both backends:
+each prefetch is issued to the engine's optimizer lane at its EO and
+fenced at the first ``Compute`` of its read EO, and the working region's
+residency is held to the packed optimizer plan.  The numerical update
+itself runs in :mod:`repro_torch.core.optim_offload`.
 
 Both backends replay the compiled op list *verbatim*:
 ``SwapExecStats.replayed_ops == lowered.ops`` is gated per backend, so a
@@ -241,6 +250,18 @@ class _ComputeEnv:
                     self.derivs[inp] = dx
 
 
+def _check_opt_high_water(plan, stats: SwapExecStats) -> None:
+    """Assert the replayed optimizer residency against the packed region
+    (the optimizer-lane analogue of the activation residency-peak gate)."""
+    optim = getattr(plan, "optim", None)
+    if optim is not None \
+            and stats.opt_device_high_water > optim.device_peak_bytes:
+        raise AssertionError(
+            f"optimizer working region exceeded the packed peak: "
+            f"{stats.opt_device_high_water} > {optim.device_peak_bytes} "
+            f"bytes")
+
+
 class ScheduleCursor:
     """Resumable replay of one lowered schedule, preemptible at phase
     boundaries.
@@ -261,7 +282,8 @@ class ScheduleCursor:
     dropped.
 
     ``stats.wall_time_s`` accumulates only the time spent *inside*
-    ``advance``/``result``.
+    ``advance``/``result`` (host clock): under interleaving, the time a
+    session spends preempted is other tenants' work, not this step's.
     """
 
     def __init__(self, backend: "_ReplayBackend", graph: LayerGraph,
@@ -293,7 +315,9 @@ class ScheduleCursor:
                                put=store.put, aliased=aliased)
         self._replayed: List[Any] = []
         self._inflight = 0
+        self._opt_resident = 0
         self._done_at: Dict[int, int] = {}
+        self._opt_fence_at: Dict[int, List[str]] = {}
         self._retired_eo = -1
         # phase groups: runs of ops sharing one EO, in schedule order
         self._phases: List[List[Tuple[int, Any]]] = []
@@ -306,6 +330,7 @@ class ScheduleCursor:
         self._next_phase = 0
         self._finished = False
         self.aborted = False
+        self.last_advance_s = 0.0
         self._result: Optional[Tuple] = None
 
     # ------------------------------------------------------------ driving
@@ -317,6 +342,14 @@ class ScheduleCursor:
     def phases_done(self) -> int:
         return self._next_phase
 
+    @property
+    def has_inflight_dma(self) -> bool:
+        """True while this cursor has issued-but-unfenced transfers —
+        the condition under which another session's compute hides them."""
+        return bool(getattr(self.engine, "has_inflight", False)
+                    or getattr(self.engine, "inflight_bytes", 0)
+                    or getattr(self.engine, "opt_inflight_bytes", 0))
+
     @torch.no_grad()
     def advance(self) -> bool:
         """Execute one phase; True while more phases remain."""
@@ -327,7 +360,8 @@ class ScheduleCursor:
         for op_index, op in self._phases[self._next_phase]:
             self._exec_op(op, op_index)
         self._next_phase += 1
-        self.stats.wall_time_s += time.perf_counter() - t0
+        self.last_advance_s = time.perf_counter() - t0
+        self.stats.wall_time_s += self.last_advance_s
         if self._next_phase >= len(self._phases):
             self._finish()
             return False
@@ -348,11 +382,19 @@ class ScheduleCursor:
         if self._finished:
             return
         self.engine.drain(self.stats)
+        self._release()
+        self._finished = True
+        self.aborted = True
+
+    def _release(self) -> None:
+        """Drop every activation, saved context and gradient buffer the
+        replay holds.  The compute env's accessors close over this cursor,
+        a reference cycle that only the cyclic collector would free: a
+        finished step's device memory must not wait for it."""
         self.store.device.clear()
         self.store.host.clear()
         self.store.alive.clear()
-        self._finished = True
-        self.aborted = True
+        self.env = None
 
     # ----------------------------------------------------------- op body
     def _exec_op(self, op, op_index: int) -> None:
@@ -360,11 +402,29 @@ class ScheduleCursor:
                                            OptSwapOut, Prefetch, SwapOut)
 
         stats, store = self.stats, self.store
-        if isinstance(op, (OptPrefetch, OptSwapOut)):
-            raise NotImplementedError(
-                "optimizer-state offload ops are not ported yet (ROADMAP "
-                "item 5)")
-        if isinstance(op, Prefetch):
+        if isinstance(op, OptPrefetch):
+            # optimizer working state lands in its own device region; the
+            # numerical dance (dequantize, AdamW update, EF requantize)
+            # runs in repro_torch.core.optim_offload — the replay accounts
+            # residency and bus traffic, issues the H2D of the compressed
+            # host copy *now* and fences it at the first Compute of its
+            # read EO, so the copy hides behind the compute in between
+            self._opt_resident += op.nbytes
+            stats.opt_device_high_water = max(
+                stats.opt_device_high_water, self._opt_resident)
+            stats.opt_prefetches += 1
+            stats.opt_dma_bytes += op.host_nbytes
+            self.engine.opt_swap_in(op.tensor, op.nbytes, op.host_nbytes,
+                                    stats, op.host_offset)
+            self._opt_fence_at.setdefault(op.read_eo, []).append(op.tensor)
+            self._replayed.append(op)
+        elif isinstance(op, OptSwapOut):
+            self._opt_resident -= op.nbytes
+            stats.opt_swap_outs += 1
+            stats.opt_dma_bytes += op.nbytes
+            stats.opt_compressed_bytes += op.host_nbytes
+            self._replayed.append(op)
+        elif isinstance(op, Prefetch):
             if op.tensor in store.alive:
                 return  # late swap-in already brought it back
             store.swap_in(op.tensor, stats)
@@ -376,11 +436,16 @@ class ScheduleCursor:
             self._replayed.append(op)
         elif isinstance(op, Compute):
             # prefetches issued at earlier phases complete by their read
-            # EO: retire their double-buffer slots at the phase boundary
+            # EO: retire their double-buffer slots at the phase boundary,
+            # and fence optimizer slots whose read EO has arrived
             if op.eo > self._retired_eo:
                 for eo in list(self._done_at):
                     if eo <= op.eo:
                         self._inflight -= self._done_at.pop(eo)
+                for eo in list(self._opt_fence_at):
+                    if eo <= op.eo:
+                        for owner in self._opt_fence_at.pop(eo):
+                            self.engine.opt_fence(owner, stats)
                 self._retired_eo = op.eo
             self.env.step(op)
             self._replayed.append(op)
@@ -421,8 +486,10 @@ class ScheduleCursor:
                     f"swap executor exceeded the packed host pool: "
                     f"{stats.host_high_water} > {stats.planned_host_pool} "
                     f"bytes")
+        _check_opt_high_water(plan, stats)
         self._finished = True
         self._result = (self.env.loss_val, self.env.grads, stats)
+        self._release()
 
 
 class _ReplayBackend:
@@ -476,7 +543,14 @@ class _ReplayBackend:
         sanitizer = StaticResidencyModel(ordered) if self.sanitize else None
         if engine is None:
             engine = self.make_engine(x.device)
-        engine.reserve(plan.host_pool_bytes if plan is not None else 0)
+        # the optimizer lane's host pool: the optimizer plan's packed
+        # copies, wherever the lowered prefetches place them
+        from repro_torch.core.plan import OptPrefetch
+        opt_pool = max((op.host_offset + op.host_nbytes for op in
+                        lowered.ops if isinstance(op, OptPrefetch)),
+                       default=0)
+        engine.reserve(plan.host_pool_bytes if plan is not None else 0,
+                       opt_pool)
         return ScheduleCursor(self, graph, params, x, label,
                               schedule=schedule, ordered=ordered, plan=plan,
                               lowered=lowered, mask=mask, engine=engine,
@@ -520,6 +594,11 @@ class _ReplayBackend:
             "dispatch_calls": s.dispatch_calls,
             "replayed_op_count": len(s.replayed_ops),
             "wall_time_s": s.wall_time_s,
+            "opt_swap_outs": s.opt_swap_outs,
+            "opt_prefetches": s.opt_prefetches,
+            "opt_dma_bytes": s.opt_dma_bytes,
+            "opt_compressed_bytes": s.opt_compressed_bytes,
+            "opt_device_high_water": s.opt_device_high_water,
         }
 
 
@@ -555,21 +634,26 @@ class AsyncDeviceBackend(_ReplayBackend):
         super().__init__(sanitize=sanitize)
         self.device = device
         self._pool: Optional[HostPool] = None
+        self._opt_pool: Optional[HostPool] = None
 
     def make_engine(self, device: torch.device) -> TransferEngine:
         dev = torch.device(self.device) if self.device is not None \
             else device
         if self._pool is None or self._pool.device != dev:
             self._pool = HostPool(dev)
-        return DeviceStreamEngine(dev, pool=self._pool)
+            self._opt_pool = HostPool(dev)
+        return DeviceStreamEngine(dev, pool=self._pool,
+                                  opt_pool=self._opt_pool)
 
     def _finalize_stats(self, stats: SwapExecStats,
                         engine: TransferEngine) -> None:
         # fences/stalled_fences accumulate per call on the stats record
         # (so a session-scoped view over a shared engine still yields
         # per-session numbers); the engine contributes its in-flight
-        # high-water mark
+        # high-water marks
         stats.inflight_high_water = getattr(engine, "inflight_high_water", 0)
+        stats.opt_inflight_high_water = getattr(
+            engine, "opt_inflight_high_water", 0)
         stats.achieved_overlap = (
             (stats.fences - stats.stalled_fences) / stats.fences
             if stats.fences else None)
@@ -589,9 +673,16 @@ class AsyncDeviceBackend(_ReplayBackend):
                                     if planned else None),
             # measured bus-time split: seconds the activation DMAs ran
             # hidden under dispatched compute vs seconds consumer fences
-            # actually stalled the compute stream
+            # actually stalled the compute stream — and the same split for
+            # the optimizer lane
             "hidden_dma_s": s.hidden_dma_s,
             "exposed_dma_s": s.exposed_dma_s,
+            "opt_hidden_dma_s": s.opt_hidden_dma_s,
+            "opt_exposed_dma_s": s.opt_exposed_dma_s,
+            "opt_fences": s.opt_fences,
+            "opt_stalled_fences": s.opt_stalled_fences,
+            "opt_inflight_high_water": s.opt_inflight_high_water,
+            "cross_hidden_dma_s": s.cross_hidden_dma_s,
         })
         return out
 
@@ -613,7 +704,8 @@ BACKENDS = {
     AsyncDeviceBackend.name: AsyncDeviceBackend,
     "jit_blocks": _NotPorted(
         "jit_blocks", "its counterpart replays each proven FusedBlock as "
-        "one CUDA-graph replay (ROADMAP slice 5, item 4)"),
+        "one CUDA-graph replay over the plan's packed device arena, the "
+        "next item of ROADMAP queue A"),
 }
 
 

@@ -15,7 +15,10 @@ bytes move.  Data movement is delegated to a :class:`TransferEngine`:
   real device streams).  The engine measures the overlap it achieved: how
   many fences found the transfer already complete, the device time each
   fence stalled the compute stream, and the in-flight byte high-water
-  mark to compare against the plan's ``peak_inflight_prefetch``.
+  mark to compare against the plan's ``peak_inflight_prefetch``.  Its
+  optimizer lane issues each ``OptPrefetch``'s H2D of the slot's
+  compressed bytes from a second pinned pool at the planned host offset,
+  fenced at the first compute of the slot's read phase.
 
 An owner group (one planned ``X:`` tensor and the layer outputs merged
 into it) moves as the storages it holds: an in-place activation and a
@@ -30,7 +33,9 @@ shared.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Protocol, Set, Tuple
 
@@ -79,7 +84,7 @@ class SwapExecStats:
     # wall-clock seconds the backend spent replaying the op list, the
     # end-of-step synchronisation included (0.0 until a run completes)
     wall_time_s: float = 0.0
-    # ---- optimizer-state offload (not ported yet: ROADMAP item 5) ----
+    # ---- optimizer-state offload ----
     opt_swap_outs: int = 0
     opt_prefetches: int = 0
     opt_dma_bytes: int = 0
@@ -98,8 +103,11 @@ class SwapExecStats:
     opt_fences: int = 0
     opt_stalled_fences: int = 0
     opt_inflight_high_water: int = 0
-    # portion of hidden_dma_s that elapsed while *another* session held
-    # the compute slot (phase-interleaved serving, not ported yet)
+    # portion of the hidden DMA (both lanes) that elapsed while *another*
+    # session held the compute stream (phase-interleaved serving).  On the
+    # card: the copy intervals intersected with the other sessions' phase
+    # intervals, from CUDA events; on the CPU: the host clock the
+    # scheduler reads around each phase
     cross_hidden_dma_s: float = 0.0
 
 
@@ -204,18 +212,25 @@ class HostPool:
 class TransferEngine(Protocol):
     """How activation bytes move between the device and host tiers.
 
-    ``reserve`` sizes the host pool for a plan before its replay;
+    ``reserve`` sizes the host pools for a plan before its replay (the
+    activation pool and the optimizer lane's);
     ``swap_out``/``swap_in`` receive the member tensors (or host handles)
     of one owner group and return the handles of the destination tier;
     ``fence`` makes the consumer wait until a previously issued
     ``swap_in`` of ``owner`` is complete (no-op for synchronous engines
     and for owners with nothing in flight); ``drain`` fences everything
-    still outstanding at the end of an iteration.
+    still outstanding at the end of an iteration, in both lanes.
+
+    The optimizer lane: ``opt_swap_in`` issues the H2D copy of one slot's
+    compressed host bytes at its scheduled EO; ``opt_fence`` makes the
+    consuming compute wait for it.  Synchronous engines move nothing in
+    flight (a paced one charges the bus at the issue).
     """
 
     name: str
 
-    def reserve(self, host_pool_bytes: int) -> None: ...
+    def reserve(self, host_pool_bytes: int, opt_pool_bytes: int = 0
+                ) -> None: ...
 
     def swap_out(self, owner: str, members: Dict[str, Tensor],
                  nbytes: int, host_offset: int = -1
@@ -229,6 +244,12 @@ class TransferEngine(Protocol):
     def drain(self, stats: SwapExecStats) -> None: ...
 
     def begin_phase(self) -> None: ...
+
+    def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
+                    stats: SwapExecStats, host_offset: int = -1
+                    ) -> None: ...
+
+    def opt_fence(self, owner: str, stats: SwapExecStats) -> None: ...
 
 
 def _check_bus(bus_gbps, bus_latency_s) -> None:
@@ -268,7 +289,8 @@ class SyncHostEngine:
         if self.bus_gbps is not None and nbytes > 0:
             time.sleep(self.bus_latency_s + nbytes / (self.bus_gbps * 1e9))
 
-    def reserve(self, host_pool_bytes: int) -> None:
+    def reserve(self, host_pool_bytes: int, opt_pool_bytes: int = 0
+                ) -> None:
         pass
 
     def swap_out(self, owner: str, members: Dict[str, Tensor],
@@ -298,6 +320,15 @@ class SyncHostEngine:
     def begin_phase(self) -> None:
         pass
 
+    def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
+                    stats: SwapExecStats, host_offset: int = -1) -> None:
+        # nothing is ever in flight, but the blocking bus still carries
+        # the compressed optimizer image synchronously when paced
+        self._bus_block(host_nbytes)
+
+    def opt_fence(self, owner: str, stats: SwapExecStats) -> None:
+        pass
+
 
 # How many phases the host may run ahead of the card.  A swapped-out block
 # is reusable once its copy has landed, but the caching allocator only
@@ -306,6 +337,26 @@ class SyncHostEngine:
 # every activation, the swaps saving nothing.  The plan's phase model
 # frees a swapped tensor's device bytes when its phase completes.
 PHASES_AHEAD = 3
+
+
+# Separates a session's scope from the owner name in a shared engine's keys.
+_SCOPE_SEP = "\x1f"
+
+
+def _scope_of(key: str) -> str:
+    return key.split(_SCOPE_SEP, 1)[0] if _SCOPE_SEP in key else ""
+
+
+@dataclasses.dataclass
+class _Copy:
+    """One prefetch in flight: its bytes, its issue time on the host clock,
+    its emulated ready time, and on the card the copy's start and end
+    events."""
+    nbytes: int
+    issued: float
+    ready_at: float
+    start: Any = None
+    done: Any = None
 
 
 class DeviceStreamEngine:
@@ -322,6 +373,12 @@ class DeviceStreamEngine:
       buffer is allocated on the copy stream, an event marks the copy's
       end, and ``record_stream`` on the compute stream keeps the buffer
       alive until the compute that reads it is done.
+    * **Optimizer prefetch (H2D).** ``opt_swap_in`` copies the slot's
+      ``host_nbytes`` from a second pinned pool (the optimizer plan's
+      host pool, at the slot's planned offset) to a device buffer on the
+      copy stream; ``opt_fence`` fences it like an activation prefetch.
+      The bytes are the transfer the plan prices; the optimizer's values
+      travel through :mod:`repro_torch.core.optim_offload`'s runtime.
     * **Fence.** At the first read of the owner the compute stream waits
       on the copy's event.  CUDA events around that wait measure the stall
       (``exposed_dma_s``); the part of the copy that ran before the
@@ -333,10 +390,15 @@ class DeviceStreamEngine:
     * **Lead.** At each phase boundary the host records an event on the
       compute stream and waits for the one :data:`PHASES_AHEAD` phases
       back, so blocks freed by swap-outs and frees are reused as planned.
+      The events also time each phase on the compute stream, tagged with
+      the session that ran it: the part of a session's hidden copy time
+      that overlapped *another* session's phases is its
+      ``cross_hidden_dma_s``, on the card's clock.
 
     Counters keep the reference's meanings: the stats record's ``fences``
-    and ``stalled_fences``, the engine's ``inflight_high_water`` (bytes
-    issued on the copy stream but not yet fenced).
+    and ``stalled_fences`` (``opt_*`` for the optimizer lane), the
+    engine's ``inflight_high_water`` and ``opt_inflight_high_water``
+    (bytes issued on the copy stream but not yet fenced).
 
     On the CPU (``device="cpu"``) the same class runs its accounting with
     plain copies, and ``bus_gbps`` emulates a narrow bus: every transfer
@@ -350,7 +412,8 @@ class DeviceStreamEngine:
     name = "device_stream"
 
     def __init__(self, device: DeviceLike = None, bus_gbps=None,
-                 bus_latency_s=0.0, pool: Optional[HostPool] = None):
+                 bus_latency_s=0.0, pool: Optional[HostPool] = None,
+                 opt_pool: Optional[HostPool] = None):
         _check_bus(bus_gbps, bus_latency_s)
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
@@ -361,16 +424,25 @@ class DeviceStreamEngine:
         self.bus_latency_s = bus_latency_s
         self._bus_free_at = 0.0      # emulated serialized-bus availability
         self.pool = pool if pool is not None else HostPool(self.device)
+        self.opt_pool = opt_pool if opt_pool is not None \
+            else HostPool(self.device)
         self.copy_stream = torch.cuda.Stream(self.device) if self.cuda \
             else None
-        # owner -> (nbytes, issued, emulated ready time, start, done)
-        self._inflight: Dict[str, Tuple[int, float, float, Any, Any]] = {}
-        # (stats, copy start, copy done, fence begin, fence end) events,
-        # resolved after the step's synchronisation
-        self._timings: List[Tuple[SwapExecStats, Any, Any, Any, Any]] = []
+        # (owner key) -> the prefetch in flight, per lane
+        self._inflight: Dict[str, _Copy] = {}
+        self._opt_inflight: Dict[str, _Copy] = {}
+        # (lane, scope, stats, copy, fence begin, fence end), resolved
+        # after the step's synchronisation
+        self._timings: List[Tuple[str, str, SwapExecStats, _Copy, Any,
+                                  Any]] = []
         self._phase_ends: List[Any] = []
+        # (session scope, event at the phase's start) on the compute
+        # stream; scope None marks the end of the last phase
+        self._phase_log: List[Tuple[Optional[str], Any]] = []
         self.inflight_bytes = 0
         self.inflight_high_water = 0
+        self.opt_inflight_bytes = 0
+        self.opt_inflight_high_water = 0
 
     def _bus_schedule(self, nbytes: int) -> float:
         """Reserve the emulated bus for ``nbytes``; returns the completion
@@ -387,15 +459,18 @@ class DeviceStreamEngine:
     def _event(self):
         return torch.cuda.Event(enable_timing=True)
 
-    def reserve(self, host_pool_bytes: int) -> None:
+    def reserve(self, host_pool_bytes: int, opt_pool_bytes: int = 0
+                ) -> None:
         self.pool.reserve(host_pool_bytes)
+        self.opt_pool.reserve(opt_pool_bytes)
 
-    def begin_phase(self) -> None:
+    def begin_phase(self, scope: str = "") -> None:
         if not self.cuda:
             return
-        ev = torch.cuda.Event()
+        ev = self._event()
         ev.record(torch.cuda.current_stream(self.device))
         self._phase_ends.append(ev)
+        self._phase_log.append((scope, ev))
         if len(self._phase_ends) > PHASES_AHEAD:
             self._phase_ends.pop(0).synchronize()
 
@@ -435,65 +510,108 @@ class DeviceStreamEngine:
         self._bus_schedule(nbytes)
         return out
 
+    def _h2d(self, bufs: List[Tensor]) -> Tuple[List[Tensor], Any, Any]:
+        """Device copies of host buffers issued on the copy stream (plain
+        clones on the CPU), with the copy's start and end events."""
+        if not self.cuda:
+            return [b.clone() for b in bufs], None, None
+        compute = torch.cuda.current_stream(self.device)
+        out = []
+        with torch.cuda.stream(self.copy_stream):
+            start = self._event()
+            start.record()
+            for buf in bufs:
+                dst = torch.empty(buf.numel(), dtype=torch.uint8,
+                                  device=self.device)
+                dst.copy_(buf, non_blocking=True)
+                dst.record_stream(compute)
+                out.append(dst)
+            done = self._event()
+            done.record()
+        return out, start, done
+
     def swap_in(self, owner: str, members: Dict[str, HostCopy],
                 nbytes: int) -> Dict[str, Tensor]:
         groups = _by_buffer(members)
         if not groups:
             return {}
+        copies, start, done = self._h2d([buf for buf, _ in groups])
         arrays: Dict[str, Tensor] = {}
-        start = done = None
-        if self.cuda:
-            compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self.copy_stream):
-                start = self._event()
-                start.record()
-                for buf, laid in groups:
-                    dst = torch.empty(buf.numel(), dtype=torch.uint8,
-                                      device=self.device)
-                    dst.copy_(buf, non_blocking=True)
-                    dst.record_stream(compute)
-                    arrays.update(_members_of(dst, laid))
-                done = self._event()
-                done.record()
-        else:
-            for buf, laid in groups:
-                arrays.update(_members_of(buf.clone(), laid))
-        self._inflight[owner] = (nbytes, time.perf_counter(),
-                                 self._bus_schedule(nbytes), start, done)
+        for dst, (_, laid) in zip(copies, groups):
+            arrays.update(_members_of(dst, laid))
+        self._inflight[owner] = _Copy(nbytes, time.perf_counter(),
+                                      self._bus_schedule(nbytes), start,
+                                      done)
         self.inflight_bytes += nbytes
         self.inflight_high_water = max(self.inflight_high_water,
                                        self.inflight_bytes)
         return arrays
 
-    # ------------------------------------------------------------- fence
-    def fence(self, owner: str, stats: SwapExecStats) -> None:
-        entry = self._inflight.pop(owner, None)
-        if entry is None:
+    def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
+                    stats: SwapExecStats, host_offset: int = -1) -> None:
+        self.opt_swap_in_from(owner, host_nbytes, self.opt_pool.slot(
+            host_offset, max(1, host_nbytes)))
+
+    def opt_swap_in_from(self, owner: str, host_nbytes: int,
+                         src: Tensor) -> None:
+        if owner in self._opt_inflight:      # already streaming this slot
             return
-        nbytes, issued, ready_at, start, done = entry
-        t0 = time.perf_counter()
-        self.inflight_bytes -= nbytes
-        stats.fences += 1
+        _, start, done = self._h2d([src])
+        self._opt_inflight[owner] = _Copy(host_nbytes, time.perf_counter(),
+                                          self._bus_schedule(host_nbytes),
+                                          start, done)
+        self.opt_inflight_bytes += host_nbytes
+        self.opt_inflight_high_water = max(self.opt_inflight_high_water,
+                                           self.opt_inflight_bytes)
+
+    # ------------------------------------------------------------- fence
+    def _fence(self, lane: str, owner: str, stats: SwapExecStats
+               ) -> Optional[_Copy]:
+        """Make the consumer wait for ``owner``'s copy in ``lane``; on the
+        card the split is read after the step (:meth:`settle`), on the CPU
+        from the host clock against the emulated bus here."""
+        table = self._inflight if lane == "act" else self._opt_inflight
+        copy = table.pop(owner, None)
+        if copy is None:
+            return None
         if self.cuda:
             compute = torch.cuda.current_stream(self.device)
             begin, end = self._event(), self._event()
             begin.record(compute)
-            compute.wait_event(done)
+            compute.wait_event(copy.done)
             end.record(compute)
-            self._timings.append((stats, start, done, begin, end))
-            return
-        ready = t0 >= ready_at
-        if ready_at > 0.0:
-            left = ready_at - time.perf_counter()
+            self._timings.append((lane, _scope_of(owner), stats, copy,
+                                  begin, end))
+            return copy
+        t0 = time.perf_counter()
+        ready = t0 >= copy.ready_at
+        if copy.ready_at > 0.0:
+            left = copy.ready_at - time.perf_counter()
             if left > 0:
                 time.sleep(left)     # emulated bus stall -> exposed
-        stats.hidden_dma_s += t0 - issued
-        stats.exposed_dma_s += time.perf_counter() - t0
-        stats.stalled_fences += not ready
+        pre = "" if lane == "act" else "opt_"
+        _credit(stats, pre + "hidden_dma_s", t0 - copy.issued)
+        _credit(stats, pre + "exposed_dma_s", time.perf_counter() - t0)
+        _credit(stats, pre + "stalled_fences", not ready)
+        return copy
+
+    def fence(self, owner: str, stats: SwapExecStats) -> None:
+        copy = self._fence("act", owner, stats)
+        if copy is not None:
+            self.inflight_bytes -= copy.nbytes
+            stats.fences += 1
+
+    def opt_fence(self, owner: str, stats: SwapExecStats) -> None:
+        copy = self._fence("opt", owner, stats)
+        if copy is not None:
+            self.opt_inflight_bytes -= copy.nbytes
+            stats.opt_fences += 1
 
     def drain(self, stats: SwapExecStats) -> None:
         for owner in list(self._inflight):
             self.fence(owner, stats)
+        for owner in list(self._opt_inflight):
+            self.opt_fence(owner, stats)
         self.settle()
 
     def settle(self) -> None:
@@ -501,15 +619,56 @@ class DeviceStreamEngine:
         the stats record it was fenced for (nothing to do on the CPU)."""
         if not self.cuda:
             return
+        end = self._event()
+        end.record(torch.cuda.current_stream(self.device))
+        self._phase_log.append((None, end))
         torch.cuda.synchronize(self.device)
         self._phase_ends.clear()
-        for st, start, done, begin, end in self._timings:
-            dma_s = start.elapsed_time(done) / 1e3
-            before = start.elapsed_time(begin) / 1e3
-            st.hidden_dma_s += min(max(before, 0.0), dma_s)
-            st.exposed_dma_s += begin.elapsed_time(end) / 1e3
-            st.stalled_fences += done.elapsed_time(begin) < 0.0
+        phases = self._phases()
+        for lane, scope, st, copy, begin, fenced in self._timings:
+            pre = "" if lane == "act" else "opt_"
+            dma_s = copy.start.elapsed_time(copy.done) / 1e3
+            before = copy.start.elapsed_time(begin) / 1e3
+            hidden = min(max(before, 0.0), dma_s)
+            _credit(st, pre + "hidden_dma_s", hidden)
+            _credit(st, pre + "exposed_dma_s",
+                    begin.elapsed_time(fenced) / 1e3)
+            _credit(st, pre + "stalled_fences",
+                    copy.done.elapsed_time(begin) < 0.0)
+            if phases is not None and hidden > 0.0:
+                at = phases[0].elapsed_time(copy.start) / 1e3
+                st.cross_hidden_dma_s += _overlap(phases[1:], scope, at,
+                                                  at + hidden)
         self._timings.clear()
+        if not self._inflight and not self._opt_inflight:
+            self._phase_log.clear()
+
+    def _phases(self):
+        """The logged phases as (first event, starts, ends, scopes), in
+        seconds from the first; None when no two sessions shared the
+        stream."""
+        log = self._phase_log
+        if len({scope for scope, _ in log if scope is not None}) < 2:
+            return None
+        t0 = log[0][1]
+        offs = [t0.elapsed_time(ev) / 1e3 for _, ev in log]
+        return t0, offs[:-1], offs[1:], [scope for scope, _ in log[:-1]]
+
+
+def _credit(stats: SwapExecStats, field: str, value) -> None:
+    setattr(stats, field, getattr(stats, field) + value)
+
+
+def _overlap(phases, scope: str, a: float, b: float) -> float:
+    """Seconds of [a, b] during which another session's phase ran."""
+    starts, ends, scopes = phases
+    total = 0.0
+    i = max(0, bisect.bisect_right(starts, a) - 1)
+    while i < len(starts) and starts[i] < b:
+        if scopes[i] is not None and scopes[i] != scope:
+            total += max(0.0, min(b, ends[i]) - max(a, starts[i]))
+        i += 1
+    return total
 
 
 class SessionScopedEngine:
@@ -518,7 +677,7 @@ class SessionScopedEngine:
     Sessions that replay the same compiled plan share the copy stream, so
     one tenant's DMA can hide under another's compute, but owner names and
     host offsets collide across them: this wrapper namespaces owners with
-    the session scope, gives the session a host pool of its own, and
+    the session scope, gives the session host pools of its own, and
     tracks which transfers belong to it, so ``drain`` (end of step, or an
     abort after a mid-step kill) fences only this session's copies.
     Per-session ``inflight_bytes`` / high-water marks are kept here.
@@ -530,15 +689,21 @@ class SessionScopedEngine:
         self.inner = inner
         self.scope = scope
         self.pool = HostPool(inner.device)
+        self.opt_pool = HostPool(inner.device)
         self._sizes: Dict[str, int] = {}       # outstanding owner -> bytes
+        self._opt_sizes: Dict[str, int] = {}
         self.inflight_bytes = 0
         self.inflight_high_water = 0
+        self.opt_inflight_bytes = 0
+        self.opt_inflight_high_water = 0
 
     def _k(self, owner: str) -> str:
-        return f"{self.scope}\x1f{owner}"
+        return f"{self.scope}{_SCOPE_SEP}{owner}"
 
-    def reserve(self, host_pool_bytes: int) -> None:
+    def reserve(self, host_pool_bytes: int, opt_pool_bytes: int = 0
+                ) -> None:
         self.pool.reserve(host_pool_bytes)
+        self.opt_pool.reserve(opt_pool_bytes)
 
     def swap_out(self, owner: str, members: Dict[str, Tensor],
                  nbytes: int, host_offset: int = -1
@@ -562,14 +727,59 @@ class SessionScopedEngine:
         if nbytes is not None:
             self.inflight_bytes -= nbytes
 
+    def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
+                    stats: SwapExecStats, host_offset: int = -1) -> None:
+        if owner in self._opt_sizes:
+            return
+        self.inner.opt_swap_in_from(
+            self._k(owner), host_nbytes,
+            self.opt_pool.slot(host_offset, max(1, host_nbytes)))
+        self._opt_sizes[owner] = host_nbytes
+        self.opt_inflight_bytes += host_nbytes
+        self.opt_inflight_high_water = max(self.opt_inflight_high_water,
+                                           self.opt_inflight_bytes)
+
+    def opt_fence(self, owner: str, stats: SwapExecStats) -> None:
+        self.inner.opt_fence(self._k(owner), stats)
+        host_nbytes = self._opt_sizes.pop(owner, None)
+        if host_nbytes is not None:
+            self.opt_inflight_bytes -= host_nbytes
+
     def begin_phase(self) -> None:
-        self.inner.begin_phase()
+        self.inner.begin_phase(self.scope)
 
     def drain(self, stats: SwapExecStats) -> None:
         """Fence everything *this session* still has in flight."""
         for owner in list(self._sizes):
             self.fence(owner, stats)
+        for owner in list(self._opt_sizes):
+            self.opt_fence(owner, stats)
         self.inner.settle()
+
+    @property
+    def has_inflight(self) -> bool:
+        return bool(self._sizes or self._opt_sizes)
+
+    @property
+    def next_ready_at(self) -> float:
+        """The scheduler's stall-risk signal: when this session's *oldest*
+        in-flight transfer completes (0.0 when nothing is pending).
+        Prefetches are issued and consumed in EO order, so the next fence
+        this session hits is approximately its oldest outstanding
+        transfer.  On the CPU the emulated bus's completion time; on the
+        card 0.0 once that copy's end event has completed and ``inf``
+        before (``event.query()``, read now on the host: a hint, not a
+        measurement)."""
+        pending = [self.inner._inflight.get(self._k(o)) for o in self._sizes]
+        pending += [self.inner._opt_inflight.get(self._k(o))
+                    for o in self._opt_sizes]
+        pending = [c for c in pending if c is not None]
+        if not pending:
+            return 0.0
+        oldest = min(pending, key=lambda c: c.issued)
+        if self.inner.cuda:
+            return 0.0 if oldest.done.query() else math.inf
+        return min(c.ready_at for c in pending)
 
 
 class ActivationStore:

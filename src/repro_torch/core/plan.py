@@ -89,11 +89,16 @@ knob (default)          meaning
                         before DAG, plan legal compute fusion and measure
                         per-transfer slack; summary lands in
                         ``report()["deps"]`` (False skips the analysis)
-``optim_offload``       optimizer state (AdamW moments) as a planned
-(False)                 resource: not ported yet, True raises (ROADMAP
-                        item 5)
-``optim_compress``      int8 host copies of offloaded optimizer state;
-(True)                  read only with ``optim_offload``
+``optim_offload``       make optimizer state (AdamW moments) a planned
+(False)                 resource: per-layer ``O:`` slots packed into their
+                        own device region + compressed host pool, lowered
+                        to ``OptPrefetch``/``OptSwapOut`` ops both
+                        executor backends replay (see
+                        ``repro_torch.core.optim_offload``)
+``optim_compress``      quantize offloaded optimizer host copies to int8
+(True)                  block-scaled form (``optim/compression.py``
+                        ``_q``/``_deq`` with error feedback); False keeps
+                        fp32 host copies (exact, ~4x the host bytes)
 ======================  =====================================================
 
 Static verification
@@ -172,13 +177,17 @@ class MemoryPlanConfig:
                          backend would execute, and per-transfer prefetch
                          slack, folded into ``report()["deps"]``.  See
                          ``repro_torch.core.verify.deps``.
-    ``optim_offload``    plan optimizer state as ``O:`` slots lowered to
-                         ``OptPrefetch``/``OptSwapOut`` ops: not ported
-                         yet, True raises ``NotImplementedError`` (ROADMAP
-                         item 5).  False (the default) keeps optimizer
-                         state outside the plan.
-    ``optim_compress``   int8 host copies for offloaded optimizer slots;
-                         read only with ``optim_offload``
+    ``optim_offload``    plan optimizer state (AdamW moments, 2x params)
+                         as first-class ``O:`` slots: packed into a
+                         separate device working region + compressed host
+                         pool and lowered to typed ``OptPrefetch``/
+                         ``OptSwapOut`` ops (default False — optimizer
+                         state stays outside the plan).  See
+                         ``repro_torch.core.optim_offload``.
+    ``optim_compress``   int8 block-scaled host copies for offloaded
+                         optimizer slots, with error feedback keeping
+                         updates unbiased (default True); False keeps
+                         exact fp32 host copies
 
     Remat / offload knobs (model-config path — the joint planner):
 
@@ -530,8 +539,9 @@ class CompiledMemoryPlan:
 
     @property
     def optim_plan(self):
-        """The packed optimizer-state offload plan; always None until
-        optimizer offload is ported (ROADMAP item 5)."""
+        """The packed optimizer-state offload plan
+        (:class:`repro_torch.core.optim_offload.OptimPlan`), or None when
+        ``config.optim_offload`` is off."""
         return getattr(self.plan, "optim", None)
 
     @property
@@ -807,17 +817,18 @@ def _compile_graph_plan(graph: LayerGraph, config: MemoryPlanConfig,
     get_planner(config.host_planner)
     get_backend(config.executor)
     _check_verify_mode(config)
-    if config.optim_offload:
-        raise NotImplementedError(
-            "optim_offload=True is not ported yet: the optimizer-state "
-            "offload runtime is ROADMAP item 5")
 
     ordered = compute_execution_order(graph, batch)
     baseline = get_planner(config.planner).plan(ordered)
 
+    optim_plan = None
+    if config.optim_offload:
+        from repro_torch.core.optim_offload import plan_optim_offload
+        optim_plan = plan_optim_offload(graph, ordered, config)
 
     if not config.swap:
         empty = make_schedule(())
+        baseline.optim = optim_plan
         return _apply_verify(CompiledMemoryPlan(
             config=config, source="graph", graph=graph, ordered=ordered,
             schedule=empty, plan=baseline, baseline=baseline, batch=batch,
@@ -844,6 +855,7 @@ def _compile_graph_plan(graph: LayerGraph, config: MemoryPlanConfig,
                            single_pass_peak_bytes=single_peak,
                            single_pass_dma_bytes=single_dma)
 
+    plan.optim = optim_plan
     return _apply_verify(CompiledMemoryPlan(
         config=config, source="graph", graph=graph, ordered=ordered,
         schedule=plan.schedule, plan=plan, baseline=baseline, coopt=coopt,

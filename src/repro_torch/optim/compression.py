@@ -1,0 +1,104 @@
+"""int8 block quantisation with error feedback, in PyTorch.
+
+Port of ``repro/optim/compression.py``: a tensor is cut into blocks of
+:data:`CBLOCK` elements (the last one zero-padded); each block keeps one
+fp32 absmax scale (``absmax / 127``, 1.0 for an all-zero block) and its
+entries as int8, ``round(x / scale)`` clipped to [-127, 127].  Error
+feedback (EF-SGD style) carries the quantisation error into the next
+step:
+
+    c_t = Q(g_t + e_{t-1}),   e_t = (g_t + e_{t-1}) - deQ(c_t)
+
+The optimizer-state offload (``repro_torch.core.optim_offload``) stores
+its host copies in this format.  The arithmetic is the reference's op for
+op: ``torch.round`` rounds half to even as ``jnp.round`` does, and both
+divisions are true fp32 divisions by a tensor (on a CUDA tensor, a
+division by a Python scalar multiplies by its reciprocal, which rounds
+differently), so ``_q`` gives the reference's int8 blocks and scales bit
+for bit.
+
+The trees here are nested dicts, lists and tuples of tensors; a map walks
+the structure of its first tree and indexes the others by the same keys
+(``jax.tree_util``'s ``flatten_up_to``).  The reference's
+``compressed_psum_pod`` (an all-gather over the pod axis inside
+``shard_map``) belongs to the pod layer and is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+CBLOCK = 256
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the entries of ``rest`` at
+    the same positions), keeping ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _numel(shape: Sequence[int]) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def _q(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """``(q, scale)``: int8 blocks (nb, CBLOCK) and fp32 scales (nb, 1)."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    nb = -(-n // CBLOCK)
+    padded = F.pad(flat, (0, nb * CBLOCK - n)).reshape(nb, CBLOCK)
+    top = torch.full((), 127.0, dtype=padded.dtype, device=padded.device)
+    scale = padded.abs().amax(dim=1, keepdim=True) / top
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(padded / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _deq(q: Tensor, scale: Tensor, shape) -> Tensor:
+    n = _numel(shape)
+    return (q.to(torch.float32) * scale).reshape(-1)[:n].reshape(
+        tuple(shape))
+
+
+def compress_gradients(grads) -> Any:
+    """Tree of {"q": int8 blocks, "scale": fp32 scales}: ~8.06x under
+    fp32."""
+    return tree_map(
+        lambda g: dict(zip(("q", "scale"), _q(g.to(torch.float32)))), grads)
+
+
+def decompress_gradients(cgrads, like) -> Any:
+    return tree_map(
+        lambda g, c: _deq(c["q"], c["scale"], g.shape).to(torch.float32),
+        like, cgrads)
+
+
+def error_feedback_update(grads, residual):
+    """(compressed, new_residual): quantise g + e, carry the error
+    forward."""
+    def one(g, e):
+        gf = g.to(torch.float32) + e
+        q, scale = _q(gf)
+        return {"q": q, "scale": scale}, gf - _deq(q, scale, gf.shape)
+    outs = tree_map(one, grads, residual)
+    return (tree_map(lambda _, o: o[0], grads, outs),
+            tree_map(lambda _, o: o[1], grads, outs))
+
+
+def init_residual(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)

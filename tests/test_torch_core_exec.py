@@ -310,10 +310,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="CUDA-graph"):
         cp.loss_and_grads({}, torch.zeros(1), torch.zeros(1),
                           executor="jit_blocks")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tplan.compile_plan(cp.graph,
-                           tplan.MemoryPlanConfig(optim_offload=True),
-                           batch=BATCH)
     from repro_torch.core.remat_policy import RematPlan, tag
     with pytest.raises(NotImplementedError, match="item 8"):
         RematPlan(("qkv",), (), 0, 0.0).policy()

@@ -172,10 +172,6 @@ def test_unported_policy_and_optimizer_offload_raise():
                             batch_tokens=4096)
     with pytest.raises(NotImplementedError, match="item 8"):
         cp.offload_policy
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tplan.compile_plan(tzoo.ZOO["lenet5"](),
-                           tplan.MemoryPlanConfig(optim_offload=True),
-                           batch=BATCH)
     with pytest.raises(NotImplementedError, match="CUDA-graph"):
         tplan.compile_plan(tzoo.ZOO["lenet5"](),
                            tplan.MemoryPlanConfig(executor="jit_blocks"),
