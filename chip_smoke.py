@@ -148,6 +148,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -229,9 +230,15 @@ PAPER_EXEC = dict(min_idle_phases=3, min_bytes=1 << 12)
 PAPER_ZOO_BATCH = 64
 TRUNK_BATCH = 4096
 TRUNK_STEPS = 3
+# paper_optim's learning rates: the reference's AdamW default, at which the
+# trunk's loss diverges, and one at which it falls
+TRUNK_LRS = (3e-4, 1e-5)
 # after the SGD steps: rounds of one swapped (async) and one no-swap step,
 # in turns, for the medians of their step times
 TRUNK_TIMED_ROUNDS = 5
+# personalize: after the gated runs, waves of the same traffic drained
+# interleaved and FIFO in turns, for the medians of their wall times
+SERVE_TIMED_ROUNDS = 7
 # grads against autograd on the card: elementwise rtol 1e-4 with atol 1e-5
 # per unit of the tensor's largest entry, and normwise max|a-b| <= 1e-4
 # max|b|.  The port's backward (layer by layer, from the lowered schedule)
@@ -1892,155 +1899,217 @@ def _param_max(a):
     return max(v.abs().max().item() for e in a.values() for v in e.values())
 
 
-def _update_peak(torch, fn):
-    """(result, host s, allocator peak over what was allocated before)."""
+def _optim_step(torch, cp, params, x, y, backend, step):
+    """One replay that also runs ``step`` (an ``OffloadedStep``) at the
+    plan's optimizer ops: (loss, grads, stats, wall s, allocator peak over
+    what was allocated before it)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = fn()
+    loss, grads, stats = cp.loss_and_grads(params, x, y, executor=backend,
+                                           optim=step)
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0,
+    return (loss, grads, stats, time.perf_counter() - t0,
             torch.cuda.max_memory_allocated() - base)
+
+
+def _resident_step(torch, cp, params, x, y, backend, opt, state):
+    """A replay with no optimizer ops, then the resident AdamW update under
+    the same allocator window: (loss, grads, new params, new state, replay
+    s, update s, peak over what was allocated before it, the resident
+    moments counted although they were allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - _tensor_bytes(torch, state)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads, _ = cp.loss_and_grads(params, x, y, executor=backend)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if state is None:
+        state = opt.init(params)
+    new, state = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    return (loss, grads, new, state, t1 - t0, time.perf_counter() - t1,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def _tensor_bytes(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(torch, v) for v in tree.values())
+    return 0
 
 
 def phase_paper_optim(torch, gpu):
     """The trunk fine-tuned with AdamW three ways from the same params and
-    grads: resident moments on the card, offloaded with int8 host copies,
-    offloaded with fp32 host copies."""
+    grads: resident moments on the card, and offloaded with int8 or fp32
+    host copies, updated inside the replay at the plan's optimizer ops (the
+    replay moves the runtime's own host copies).  At the reference's lr
+    the trunk diverges, so a second lr, at which the resident loss falls,
+    gives the drift in fine-tuning."""
     from repro_torch.core.exec.backends import AsyncDeviceBackend
     from repro_torch.core.exec.layers import reference_loss_and_grads
-    from repro_torch.core.optim_offload import (OptimRuntime,
-                                                offloaded_update,
-                                                plan_optim_offload)
     from repro_torch.core.plan import MemoryPlanConfig, compile_plan
     from repro_torch.core.zoo import transformer_mlp_stack
-    from repro_torch.optim.optimizers import adamw
 
     g = transformer_mlp_stack()
-    config = MemoryPlanConfig(optim_offload=True)
     t0 = time.perf_counter()
-    cp = compile_plan(g, config, batch=TRUNK_BATCH)
-    opt_plan = cp.optim_plan
-    flat_plan = plan_optim_offload(
-        g, cp.ordered, dataclasses.replace(config, optim_compress=False))
+    plans = {"compressed": compile_plan(
+        g, MemoryPlanConfig(optim_offload=True), batch=TRUNK_BATCH),
+        "uncompressed": compile_plan(
+            g, MemoryPlanConfig(optim_offload=True, optim_compress=False),
+            batch=TRUNK_BATCH)}
+    cp_res = compile_plan(g, MemoryPlanConfig(), batch=TRUNK_BATCH)
     compile_s = time.perf_counter() - t0
-    n_slots = len(opt_plan.slots)
-    params = cp.init_params(torch.Generator("cuda").manual_seed(5),
-                            device="cuda")
+    params = cp_res.init_params(torch.Generator("cuda").manual_seed(5),
+                                device="cuda")
     x, y = _graph_batch(torch, g, TRUNK_BATCH, 6)
     x = x * 2.0 ** (-(sum(l.kind == "linear" for l in g.layers) // 2) / 2)
-    param_bytes = sum(v.numel() * 4 for e in params.values()
-                      for v in e.values())
-    ref_loss, ref_grads = reference_loss_and_grads(g, params, x, y)
-
-    t0 = time.perf_counter()
-    runtimes = {"compressed": OptimRuntime(opt_plan, g, device="cuda"),
-                "uncompressed": OptimRuntime(flat_plan, g, device="cuda")}
-    runtime_init_s = time.perf_counter() - t0
-    opt = adamw()
+    ref = reference_loss_and_grads(g, params, x, y)
     backend = AsyncDeviceBackend()
+    rows, summary = [], {}
+    for lr in TRUNK_LRS:
+        summary[lr] = _optim_lr(torch, g, plans, cp_res, params, x, y, lr,
+                                backend, ref, rows)
+        ref = None
+    cp = plans["compressed"]
+    emit({"phase": "paper_optim", "ok": True, "gpu": gpu,
+          "batch": TRUNK_BATCH, "slots": len(cp.optim_plan.slots),
+          "compile_s": compile_s, "optim": cp.optim_plan.summary(),
+          "by_lr": {str(lr): v for lr, v in summary.items()}})
+    del params, x, y, backend
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
+              rows):
+    """TRUNK_STEPS steps at ``lr``, the three optimizers side by side, with
+    their gates; returns the summary.  ``ref`` (autograd's loss and grads
+    at ``params``) gates the first replay's grads when given."""
+    from repro_torch.core.optim_offload import OffloadedStep, OptimRuntime
+    from repro_torch.optim.optimizers import adamw
+
+    where = f"paper_optim lr {lr}"
+    opt_plan = plans["compressed"].optim_plan
+    n_slots = len(opt_plan.slots)
+    t0 = time.perf_counter()
+    runtimes = {kind: OptimRuntime(cp.optim_plan, g, lr=lr, device="cuda")
+                for kind, cp in plans.items()}
+    runtime_init_s = time.perf_counter() - t0
+    opt = adamw(lr=lr)
     res_p, state = params, None
     off_p = dict.fromkeys(runtimes, params)
-    del params
-    rows, updates = [], []
-    peaks = {}
+    updates = []
     for step in range(1, TRUNK_STEPS + 1):
-        loss, grads, stats, wall, act_peak = _timed_step(
-            torch, cp, res_p, x, y, backend)
-        where = f"optim step {step}"
-        check(stats.replayed_ops == cp.lowered.ops
-              and stats.late_swap_ins == 0, "paper_optim",
-              f"{where}: the replay left the compiled op list")
-        check(stats.opt_prefetches == stats.opt_swap_outs == n_slots
-              and stats.opt_fences == n_slots
-              and stats.opt_dma_bytes == opt_plan.dma_bytes_per_step,
-              "paper_optim", f"{where}: {stats.opt_prefetches} opt "
-              f"prefetches, {stats.opt_swap_outs} swap-outs, "
-              f"{stats.opt_dma_bytes} opt DMA bytes (planned "
-              f"{n_slots} slots, {opt_plan.dma_bytes_per_step} B)")
-        extra = {}
-        if step == 1:
-            ok, max_abs, max_rel = _grad_errs(torch, grads, ref_grads)
-            check(ok and max_rel <= GRAD_NORM_TOL
-                  and abs(loss.item() - ref_loss.item())
-                  <= 1e-4 * abs(ref_loss.item()), "paper_optim",
-                  f"step-1 grads max abs err {max_abs}, normwise {max_rel}")
-            extra = dict(grad_err=max_abs, grad_norm_err=max_rel)
-            del ref_grads
-            torch.cuda.empty_cache()
-        rows.append(_paper_row("transformer_mlp_stack", "async",
-                               "optim_offload", cp, stats, wall, loss,
-                               step=step, measured_peak_bytes=act_peak,
-                               opt_fences=stats.opt_fences,
-                               opt_stalled_fences=stats.opt_stalled_fences,
-                               opt_hidden_dma_s=stats.opt_hidden_dma_s,
-                               opt_exposed_dma_s=stats.opt_exposed_dma_s,
-                               **extra))
-
-        def resident():
-            nonlocal state
-            if state is None:
-                state = opt.init(res_p)
-            return opt.update(grads, state, res_p)
-        (new_res, state), res_s, res_peak = _update_peak(torch, resident)
-        update = {"step": step, "resident_s": res_s,
-                  "resident_opt_peak_bytes": res_peak - param_bytes}
+        update = {"phase": "paper_optim", "lr": lr, "step": step}
         for kind, rt in runtimes.items():
+            cp = plans[kind]
             before = dict(rt.timings)
-            new, s, peak = _update_peak(
-                torch, lambda: offloaded_update(rt, off_p[kind], grads))
-            off_p[kind] = new
-            update[kind] = {
-                "update_s": s, "opt_peak_bytes": peak - param_bytes,
-                **{k: rt.timings[k] - before[k] for k in rt.timings},
-                "err": _param_diff(new, new_res)}
+            ostep = OffloadedStep(rt, off_p[kind])
+            loss, grads, stats, wall, peak = _optim_step(
+                torch, cp, res_p, x, y, backend, ostep)
+            off_p[kind] = ostep.new_params
+            check(stats.replayed_ops == cp.lowered.ops
+                  and stats.late_swap_ins == 0, where,
+                  f"{kind} step {step}: the replay left the compiled op "
+                  "list")
+            check(stats.opt_prefetches == stats.opt_swap_outs == n_slots
+                  and stats.opt_fences == n_slots
+                  and stats.opt_dma_bytes
+                  == cp.optim_plan.dma_bytes_per_step, where,
+                  f"{kind} step {step}: {stats.opt_prefetches} opt "
+                  f"prefetches, {stats.opt_swap_outs} swap-outs, "
+                  f"{stats.opt_fences} fences, {stats.opt_dma_bytes} opt "
+                  f"DMA bytes (planned {n_slots} slots, "
+                  f"{cp.optim_plan.dma_bytes_per_step} B)")
+            extra = {}
+            if ref is not None and kind == "compressed" and step == 1:
+                ok, max_abs, max_rel = _grad_errs(torch, grads, ref[1])
+                check(ok and max_rel <= GRAD_NORM_TOL
+                      and abs(loss.item() - ref[0].item())
+                      <= 1e-4 * abs(ref[0].item()), where,
+                      f"step-1 grads max abs err {max_abs}, normwise "
+                      f"{max_rel}")
+                extra = dict(grad_err=max_abs, grad_norm_err=max_rel)
+            row = _paper_row(
+                "transformer_mlp_stack", "async", f"optim_offload_{kind}",
+                cp, stats, wall, loss, lr=lr, step=step,
+                measured_peak_bytes=peak, opt_fences=stats.opt_fences,
+                opt_stalled_fences=stats.opt_stalled_fences,
+                opt_hidden_dma_s=stats.opt_hidden_dma_s,
+                opt_exposed_dma_s=stats.opt_exposed_dma_s, **extra)
+            if kind == "compressed":
+                rows.append(row)
+            update[kind] = {"replay": row, "step_s": wall,
+                            "step_peak_bytes": peak,
+                            **{k: rt.timings[k] - before[k]
+                               for k in rt.timings}}
+            del grads, ostep
+        loss, grads, new_res, state, replay_s, res_s, res_peak = \
+            _resident_step(torch, cp_res, res_p, x, y, backend, opt, state)
+        del grads
+        update["resident"] = {"loss": loss.item(), "replay_s": replay_s,
+                              "update_s": res_s,
+                              "step_peak_bytes": res_peak}
+        for kind in runtimes:
+            update[kind]["err"] = _param_diff(off_p[kind], new_res)
         update["host_rss_bytes"] = _host_rss_bytes()
         # the resident step's own size, to weigh the drift against
         update["resident_step_max_abs"] = _param_diff(new_res, res_p)
         res_p = new_res
-        del grads, new, new_res
+        del new_res
         if step == 1:
-            peaks = {"resident": update["resident_opt_peak_bytes"],
-                     "offloaded": update["compressed"]["opt_peak_bytes"]}
-            check(update["compressed"]["err"] <= 1e-6, "paper_optim",
+            check(update["compressed"]["err"] <= 1e-6, where,
                   f"step 1 compressed update {update['compressed']['err']} "
                   "from the resident AdamW (exact zero state: 1e-6)")
         updates.append(update)
-        emit({"phase": "paper_optim", "step": step, **update})
+        emit(update)
     errs = {k: _param_diff(off_p[k], res_p) for k in runtimes}
-    step_size = updates[-1]["resident_step_max_abs"]
-    drift = {"max_abs": errs["compressed"],
-             "normwise_params": errs["compressed"] / _param_max(res_p),
-             "in_resident_steps": errs["compressed"] / step_size}
+    # the step's allocator peak, activations, grads and the new params in
+    # both: the resident one holds its moments throughout
+    peaks = {"resident": max(u["resident"]["step_peak_bytes"]
+                             for u in updates),
+             "offloaded": max(u["compressed"]["step_peak_bytes"]
+                              for u in updates)}
     saved = peaks["resident"] - peaks["offloaded"]
     want_saved = (opt_plan.resident_bytes - opt_plan.device_peak_bytes) / 2
     for kind in runtimes:
         rows.append({"graph": "transformer_mlp_stack", "backend": "async",
-                     "plan": f"adamw_{kind}", "steps": TRUNK_STEPS,
+                     "plan": f"adamw_{kind}", "lr": lr,
+                     "steps": TRUNK_STEPS,
                      "err_vs_resident": float(f"{errs[kind]:.4g}"),
-                     "update_s": [float(f"{u[kind]['update_s']:.4g}")
-                                  for u in updates]})
-    emit({"phase": "paper_optim", "ok": True, "gpu": gpu,
-          "batch": TRUNK_BATCH, "slots": n_slots, "compile_s": compile_s,
-          "runtime_init_s": runtime_init_s,
-          "optim": opt_plan.summary(),
-          "host_bytes": {k: rt.host_bytes for k, rt in runtimes.items()},
-          "opt_peak_bytes": peaks, "measured_saving_bytes": saved,
-          "gate_saving_bytes": want_saved, "errs_vs_resident": errs,
-          "drift": drift})
-    check(errs["uncompressed"] <= 1e-5, "paper_optim",
+                     "err_by_step": [float(f"{u[kind]['err']:.4g}")
+                                     for u in updates],
+                     "step_s": [float(f"{u[kind]['step_s']:.4g}")
+                                for u in updates],
+                     "resident_loss": [float(f"{u['resident']['loss']:.4g}")
+                                       for u in updates]})
+    out = {"runtime_init_s": runtime_init_s,
+           "host_bytes": {k: rt.host_bytes for k, rt in runtimes.items()},
+           "step_peak_bytes": peaks, "measured_saving_bytes": saved,
+           "gate_saving_bytes": want_saved, "errs_vs_resident": errs,
+           "drift_by_step": [u["compressed"]["err"] for u in updates],
+           "resident_loss": [u["resident"]["loss"] for u in updates],
+           "drift": {"max_abs": errs["compressed"],
+                     "normwise_params": errs["compressed"]
+                     / _param_max(res_p),
+                     "in_resident_steps": errs["compressed"]
+                     / updates[-1]["resident_step_max_abs"]}}
+    check(errs["uncompressed"] <= 1e-5, where,
           f"uncompressed offload {errs['uncompressed']} from the resident "
           f"AdamW after {TRUNK_STEPS} steps (gate 1e-5)")
-    check(errs["compressed"] <= 2e-2, "paper_optim",
+    check(errs["compressed"] <= 2e-2, where,
           f"compressed offload {errs['compressed']} from the resident "
           f"AdamW after {TRUNK_STEPS} steps (gate 2e-2)")
-    check(saved >= want_saved, "paper_optim",
-          f"the optimizer-state peak fell by {saved} bytes, under half the "
-          f"planned {2 * want_saved}")
-    del res_p, off_p, state, runtimes, backend, x, y
+    check(saved >= want_saved, where,
+          f"the step's allocator peak fell by {saved} bytes, under half "
+          f"the planned {2 * want_saved}")
+    del res_p, off_p, state, runtimes
     torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def _drive_service(torch, svc, g, traffic, kill=None):
@@ -2092,6 +2161,43 @@ def _drive_service(torch, svc, g, traffic, kill=None):
     return records, results, walls, waves, peak
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms, as the service's drains use them:
+    the default backward-filter algorithms may sum with atomics, so two
+    runs of one step differ by ~sqrt(N) ulps (N = 65536 terms a resnet18
+    weight at 64 rows of 32 x 32: ~1.5e-5 of the largest entry), where the
+    elementwise gate sits."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _timed_waves(torch, svcs, g, users, where):
+    """SERVE_TIMED_ROUNDS waves of ``users`` ((user, n) pairs) drained by
+    each service in ``svcs`` (mode -> service), in turns; the median wave
+    wall per mode, on the host clock after the card's work."""
+    from repro_torch.serve.buckets import dummy_batch
+    walls = {mode: [] for mode in svcs}
+    for r in range(SERVE_TIMED_ROUNDS):
+        for mode, svc in svcs.items():
+            for i, (user, n) in enumerate(users):
+                svc.enqueue(user, *dummy_batch(g, n, seed=1000 + i,
+                                               device="cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = svc.drain()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            check(all(res.ok for res in results), where,
+                  f"timed round {r}, interleave={mode}: "
+                  f"{[(res.user, res.status) for res in results]}")
+    return {mode: statistics.median(w) for mode, w in walls.items()}
+
+
 def _service_grads_gate(torch, phase, g, records):
     """Every applied step's grads against autograd over that session's
     merged params on its padded batch."""
@@ -2101,8 +2207,9 @@ def _service_grads_gate(torch, phase, g, records):
         if "grads" not in rec:
             continue
         xp, yp, mask = rec["batch"]
-        _, want = reference_loss_and_grads(g, rec["params"], xp, yp,
-                                           mask=mask)
+        with _cudnn_deterministic(torch):
+            _, want = reference_loss_and_grads(g, rec["params"], xp, yp,
+                                               mask=mask)
         ok, max_abs, max_rel = _grad_errs(torch, rec["grads"], want)
         check(ok and max_rel <= GRAD_NORM_TOL, phase,
               f"{user} step {step}: grads max abs err {max_abs}, "
@@ -2176,28 +2283,32 @@ def _service_case(torch, gpu, name, g, *, buckets, users, config, steps,
     fifo_peak = runs[False][-1]
     check(all(r.ok for r in fifo_results), where, "FIFO run failed")
     _service_grads_gate(torch, where + " FIFO", g, fifo_records)
-    # the same params and batches: the first wave.  Later waves train on
-    # params that one step of float noise apart has already moved, and
-    # resnet18 without normalisation amplifies that (a 1e-7 relative
-    # change of its step-1 params moves its grads by ~1e-2), so each run
-    # is held there to autograd on its own params instead
-    fifo_err = 0.0
+    # the same traffic drained both ways: every step's params and grads
+    fifo_err = fifo_param_err = 0.0
     for (user, step), rec in fifo_records.items():
-        if step:
-            continue
-        ok, max_abs, max_rel = _grad_errs(torch, records[user, step]["grads"],
+        mine = records.get((user, step), {})
+        check("grads" in rec and "grads" in mine, where,
+              f"{user} step {step}: applied in one drain only")
+        ok, max_abs, max_rel = _grad_errs(torch, mine["grads"],
                                           rec["grads"])
         check(ok and max_rel <= GRAD_NORM_TOL, where,
-              f"{user}: interleaved grads {max_abs} from FIFO's "
-              f"(normwise {max_rel})")
+              f"{user} step {step}: interleaved grads {max_abs} from "
+              f"FIFO's (normwise {max_rel})")
         fifo_err = max(fifo_err, max_abs)
+        fifo_param_err = max(fifo_param_err,
+                             _param_diff(mine["params"], rec["params"]))
+    check(len(fifo_records) == users * steps, where,
+          f"FIFO applied {len(fifo_records)} steps of {users * steps}")
     done = users * steps
     wall = sum(walls[:steps])
+    median = _timed_waves(torch, {m: run[0] for m, run in runs.items()}, g,
+                          traffic[0], where)
     row = {"graph": name, "backend": "interleaved", "plan": "serve",
            "users": users, "buckets": list(buckets), "steps": done,
-           "steps_per_s": done / wall, "wall_s": wall,
-           "fifo_steps_per_s": done / sum(fifo_walls),
-           "fifo_wall_s": sum(fifo_walls),
+           "steps_per_s": users / median[True],
+           "fifo_steps_per_s": users / median[False],
+           "wave_s_median": median[True], "fifo_wave_s_median":
+           median[False], "wall_s": wall, "fifo_wall_s": sum(fifo_walls),
            "p50_s": lat[len(lat) // 2],
            "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
            **dma, "measured_peak_bytes": peak, "fifo_measured_peak_bytes":
@@ -2205,7 +2316,7 @@ def _service_case(torch, gpu, name, g, *, buckets, users, config, steps,
                                                 for r in served),
            "share_bytes": svc.admission.arena_share_bytes,
            "grad_err": worst[0], "grad_norm_err": worst[1],
-           "fifo_grad_err": fifo_err}
+           "fifo_grad_err": fifo_err, "fifo_param_err": fifo_param_err}
     emit({"phase": "personalize", "case": name, "ok": True, "gpu": gpu,
           "warmup_s": warm_s, "plan_cache": rep["plan_cache"],
           "waves": waves, "optim_offload": rep.get("optim_offload"),
@@ -2217,21 +2328,9 @@ def _service_case(torch, gpu, name, g, *, buckets, users, config, steps,
 def phase_personalize(torch, gpu):
     """The multi-tenant service on the card: (a) the reference's
     acceptance shape on resnet18_transfer, (b) resnet18 fully trainable
-    with offloaded optimizer state."""
-    # cuDNN's default backward-filter algorithms may sum with atomics, so
-    # two runs of one step differ by ~sqrt(N) ulps (N = 65536 terms a
-    # resnet18 weight at 64 rows of 32 x 32: ~1.5e-5 of the largest
-    # entry), where the elementwise gate sits; deterministic algorithms
-    # make the replay and autograd sum alike, and the gate holds the rest
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        return _personalize_cases(torch, gpu)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-
-
-def _personalize_cases(torch, gpu):
+    with offloaded optimizer state.  The service runs its steps under
+    cuDNN's deterministic algorithms, and autograd's grads that gate them
+    are computed so too."""
     from repro_torch.core.plan import MemoryPlanConfig
     from repro_torch.core.zoo import ZOO
 

@@ -26,8 +26,12 @@ Optimizer-state transfers (``OptPrefetch`` / ``OptSwapOut``, from
 ``MemoryPlanConfig(optim_offload=True)``) are replayed by both backends:
 each prefetch is issued to the engine's optimizer lane at its EO and
 fenced at the first ``Compute`` of its read EO, and the working region's
-residency is held to the packed optimizer plan.  The numerical update
-itself runs in :mod:`repro_torch.core.optim_offload`.
+residency is held to the packed optimizer plan.  A replay given an
+:class:`repro_torch.core.optim_offload.OffloadedStep` (``optim=``)
+updates the optimizer state at those ops: the prefetch moves the slot's
+host copy, and at ``OptSwapOut``, once the layer's grads are final, the
+step runs the AdamW update and sends the new state back.  Without one
+the lane moves the planned bytes and updates nothing.
 
 Both backends replay the compiled op list *verbatim*:
 ``SwapExecStats.replayed_ops == lowered.ops`` is gated per backend, so a
@@ -284,12 +288,16 @@ class ScheduleCursor:
     ``stats.wall_time_s`` accumulates only the time spent *inside*
     ``advance``/``result`` (host clock): under interleaving, the time a
     session spends preempted is other tenants' work, not this step's.
+
+    ``optim`` (an :class:`~repro_torch.core.optim_offload.OffloadedStep`)
+    makes the optimizer ops update the optimizer state: the step's new
+    params are its ``new_params`` once the cursor finished.
     """
 
     def __init__(self, backend: "_ReplayBackend", graph: LayerGraph,
                  params, x, label, *, schedule: OffloadSchedule,
                  ordered: OrderedTensors, plan, lowered, mask,
-                 engine: TransferEngine, sanitizer):
+                 engine: TransferEngine, sanitizer, optim=None):
         self.backend = backend
         self.graph = graph
         self.schedule = schedule
@@ -298,6 +306,7 @@ class ScheduleCursor:
         self.lowered = lowered
         self.engine = engine
         self.sanitizer = sanitizer
+        self.optim = optim
         self.stats = SwapExecStats(backend=backend.name)
         self.stats.inplace_prefetches = sum(
             1 for d in schedule.decisions if d.inplace)
@@ -404,21 +413,29 @@ class ScheduleCursor:
         stats, store = self.stats, self.store
         if isinstance(op, OptPrefetch):
             # optimizer working state lands in its own device region; the
-            # numerical dance (dequantize, AdamW update, EF requantize)
-            # runs in repro_torch.core.optim_offload — the replay accounts
-            # residency and bus traffic, issues the H2D of the compressed
-            # host copy *now* and fences it at the first Compute of its
-            # read EO, so the copy hides behind the compute in between
+            # replay accounts residency and bus traffic, issues the H2D of
+            # the host copy *now* and fences it at the first Compute of
+            # its read EO, so the copy hides behind the compute in between
             self._opt_resident += op.nbytes
             stats.opt_device_high_water = max(
                 stats.opt_device_high_water, self._opt_resident)
             stats.opt_prefetches += 1
             stats.opt_dma_bytes += op.host_nbytes
-            self.engine.opt_swap_in(op.tensor, op.nbytes, op.host_nbytes,
+            if self.optim is not None:
+                self.optim.prefetch(self.engine, _slot_layer(op.tensor),
                                     stats, op.host_offset)
+            else:
+                self.engine.opt_swap_in(op.tensor, op.nbytes,
+                                        op.host_nbytes, stats,
+                                        op.host_offset)
             self._opt_fence_at.setdefault(op.read_eo, []).append(op.tensor)
             self._replayed.append(op)
         elif isinstance(op, OptSwapOut):
+            if self.optim is not None:
+                # the layer's CG phase is done: its grads are final
+                layer = _slot_layer(op.tensor)
+                self.optim.update(self.engine, layer,
+                                  self.env.grads.get(layer))
             self._opt_resident -= op.nbytes
             stats.opt_swap_outs += 1
             stats.opt_dma_bytes += op.nbytes
@@ -466,6 +483,8 @@ class ScheduleCursor:
         t0 = time.perf_counter()
         stats, plan = self.stats, self.plan
         self.engine.drain(stats)
+        if self.optim is not None:
+            self.optim.finish()
         stats.wall_time_s += time.perf_counter() - t0
         stats.hbm_high_water = self.hbm.high_water
         stats.host_high_water = self.store.host_pool.high_water
@@ -492,6 +511,11 @@ class ScheduleCursor:
         self._release()
 
 
+def _slot_layer(name: str) -> str:
+    """The layer of optimizer slot ``O:<layer>``."""
+    return name[len("O:"):]
+
+
 class _ReplayBackend:
     """Shared interpreter: walk the compiled op list, account residency.
 
@@ -516,14 +540,16 @@ class _ReplayBackend:
               schedule: OffloadSchedule,
               ordered: Optional[OrderedTensors] = None,
               plan=None, lowered=None, mask=None,
-              engine: Optional[TransferEngine] = None) -> ScheduleCursor:
+              engine: Optional[TransferEngine] = None,
+              optim=None) -> ScheduleCursor:
         """Admit a schedule and return a resumable :class:`ScheduleCursor`.
 
         The same verified admission as :meth:`run`, but the caller chooses
         when each phase executes (and may supply a shared ``engine``, e.g.
         a session-scoped view over one :class:`DeviceStreamEngine`, so
         several cursors' DMAs interleave on one copy stream).  The replay
-        runs on ``x``'s device.
+        runs on ``x``'s device.  ``optim`` (an ``OffloadedStep``) must
+        hold the slots the lowered optimizer ops name.
         """
         from repro_torch.core.plan import lower_schedule
         from repro_torch.core.verify import (StaticResidencyModel,
@@ -546,25 +572,35 @@ class _ReplayBackend:
         # the optimizer lane's host pool: the optimizer plan's packed
         # copies, wherever the lowered prefetches place them
         from repro_torch.core.plan import OptPrefetch
-        opt_pool = max((op.host_offset + op.host_nbytes for op in
-                        lowered.ops if isinstance(op, OptPrefetch)),
-                       default=0)
+        opt_ops = [op for op in lowered.ops if isinstance(op, OptPrefetch)]
+        if optim is not None:
+            want = {(op.tensor, op.host_nbytes) for op in opt_ops}
+            have = {(s.name, s.host_nbytes)
+                    for s in optim.runtime.plan.slots}
+            if want != have:
+                raise ValueError(
+                    "the optimizer step's slots are not the ones this "
+                    f"schedule moves: {sorted(have ^ want)[:4]}")
+            opt_pool = 0        # the step's host copies are what moves
+        else:
+            opt_pool = max((op.host_offset + op.host_nbytes
+                            for op in opt_ops), default=0)
         engine.reserve(plan.host_pool_bytes if plan is not None else 0,
                        opt_pool)
         return ScheduleCursor(self, graph, params, x, label,
                               schedule=schedule, ordered=ordered, plan=plan,
                               lowered=lowered, mask=mask, engine=engine,
-                              sanitizer=sanitizer)
+                              sanitizer=sanitizer, optim=optim)
 
     # ------------------------------------------------------------------ run
     def run(self, graph: LayerGraph, params, x, label, *,
             schedule: OffloadSchedule,
             ordered: Optional[OrderedTensors] = None,
             plan=None, lowered=None, mask=None,
-            engine: Optional[TransferEngine] = None):
+            engine: Optional[TransferEngine] = None, optim=None):
         cursor = self.start(graph, params, x, label, schedule=schedule,
                             ordered=ordered, plan=plan, lowered=lowered,
-                            mask=mask, engine=engine)
+                            mask=mask, engine=engine, optim=optim)
         while cursor.advance():
             pass
         return cursor.result()

@@ -17,8 +17,10 @@ bytes move.  Data movement is delegated to a :class:`TransferEngine`:
   fence stalled the compute stream, and the in-flight byte high-water
   mark to compare against the plan's ``peak_inflight_prefetch``.  Its
   optimizer lane issues each ``OptPrefetch``'s H2D of the slot's
-  compressed bytes from a second pinned pool at the planned host offset,
-  fenced at the first compute of the slot's read phase.
+  compressed host copy (the optimizer runtime's, or the planned bytes of
+  a second pinned pool when the replay updates no optimizer state),
+  fenced at the first compute of the slot's read phase, and the updated
+  state's D2H.
 
 An owner group (one planned ``X:`` tensor and the layer outputs merged
 into it) moves as the storages it holds: an in-place activation and a
@@ -82,7 +84,7 @@ class SwapExecStats:
     # the static verifier model (0 when the sanitizer is off)
     sanitizer_checks: int = 0
     # wall-clock seconds the backend spent replaying the op list, the
-    # end-of-step synchronisation included (0.0 until a run completes)
+    # end-of-step drain included (0.0 until a run completes)
     wall_time_s: float = 0.0
     # ---- optimizer-state offload ----
     opt_swap_outs: int = 0
@@ -222,9 +224,16 @@ class TransferEngine(Protocol):
     still outstanding at the end of an iteration, in both lanes.
 
     The optimizer lane: ``opt_swap_in`` issues the H2D copy of one slot's
-    compressed host bytes at its scheduled EO; ``opt_fence`` makes the
-    consuming compute wait for it.  Synchronous engines move nothing in
-    flight (a paced one charges the bus at the issue).
+    host copy at its scheduled EO and returns the device copies with the
+    copy's (start, end) events on the card (None elsewhere); ``srcs`` are
+    the optimizer runtime's host tensors of the slot, and without them the
+    lane moves the slot's ``host_nbytes`` from its own pool (the planned
+    transfer, for a replay that updates no optimizer state).
+    ``opt_fence`` makes the consuming compute wait for the copy.
+    ``opt_swap_out`` copies a slot's updated state into a host tensor and
+    returns the copy's events (None when the copy has already landed).
+    Synchronous engines move nothing in flight (a paced one charges the
+    bus at the issue).
     """
 
     name: str
@@ -246,10 +255,14 @@ class TransferEngine(Protocol):
     def begin_phase(self) -> None: ...
 
     def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
-                    stats: SwapExecStats, host_offset: int = -1
-                    ) -> None: ...
+                    stats: SwapExecStats, host_offset: int = -1,
+                    srcs: Optional[List[Tensor]] = None
+                    ) -> Tuple[List[Tensor], Any]: ...
 
     def opt_fence(self, owner: str, stats: SwapExecStats) -> None: ...
+
+    def opt_swap_out(self, owner: str, state: Tensor, dst: Tensor
+                     ) -> Any: ...
 
 
 def _check_bus(bus_gbps, bus_latency_s) -> None:
@@ -321,13 +334,22 @@ class SyncHostEngine:
         pass
 
     def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
-                    stats: SwapExecStats, host_offset: int = -1) -> None:
+                    stats: SwapExecStats, host_offset: int = -1,
+                    srcs: Optional[List[Tensor]] = None
+                    ) -> Tuple[List[Tensor], Any]:
         # nothing is ever in flight, but the blocking bus still carries
         # the compressed optimizer image synchronously when paced
+        out = [s.to(self.device, copy=True) for s in srcs or ()]
         self._bus_block(host_nbytes)
+        return out, None
 
     def opt_fence(self, owner: str, stats: SwapExecStats) -> None:
         pass
+
+    def opt_swap_out(self, owner: str, state: Tensor, dst: Tensor) -> Any:
+        dst.copy_(state)
+        self._bus_block(state.numel() * state.element_size())
+        return None
 
 
 # How many phases the host may run ahead of the card.  A swapped-out block
@@ -373,12 +395,16 @@ class DeviceStreamEngine:
       buffer is allocated on the copy stream, an event marks the copy's
       end, and ``record_stream`` on the compute stream keeps the buffer
       alive until the compute that reads it is done.
-    * **Optimizer prefetch (H2D).** ``opt_swap_in`` copies the slot's
-      ``host_nbytes`` from a second pinned pool (the optimizer plan's
-      host pool, at the slot's planned offset) to a device buffer on the
-      copy stream; ``opt_fence`` fences it like an activation prefetch.
-      The bytes are the transfer the plan prices; the optimizer's values
-      travel through :mod:`repro_torch.core.optim_offload`'s runtime.
+    * **Optimizer lane.** ``opt_swap_in`` copies a slot's host copy to
+      the device on the copy stream: the optimizer runtime's pinned int8
+      blocks and scales (or fp32 state) when it passes them, else the
+      slot's ``host_nbytes`` of a second pinned pool at its planned
+      offset (a replay that updates no optimizer state still moves the
+      planned bytes).  ``opt_fence`` fences it like an activation
+      prefetch.  ``opt_swap_out`` issues the updated state's D2H into a
+      pinned host tensor on the same stream, after the compute that
+      produced it, and returns the events the host waits on before it
+      reads the copy (:mod:`repro_torch.core.optim_offload`).
     * **Fence.** At the first read of the owner the compute stream waits
       on the copy's event.  CUDA events around that wait measure the stall
       (``exposed_dma_s``); the part of the copy that ran before the
@@ -511,7 +537,7 @@ class DeviceStreamEngine:
         return out
 
     def _h2d(self, bufs: List[Tensor]) -> Tuple[List[Tensor], Any, Any]:
-        """Device copies of host buffers issued on the copy stream (plain
+        """Device copies of host tensors issued on the copy stream (plain
         clones on the CPU), with the copy's start and end events."""
         if not self.cuda:
             return [b.clone() for b in bufs], None, None
@@ -521,7 +547,7 @@ class DeviceStreamEngine:
             start = self._event()
             start.record()
             for buf in bufs:
-                dst = torch.empty(buf.numel(), dtype=torch.uint8,
+                dst = torch.empty(buf.shape, dtype=buf.dtype,
                                   device=self.device)
                 dst.copy_(buf, non_blocking=True)
                 dst.record_stream(compute)
@@ -548,21 +574,45 @@ class DeviceStreamEngine:
         return arrays
 
     def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
-                    stats: SwapExecStats, host_offset: int = -1) -> None:
-        self.opt_swap_in_from(owner, host_nbytes, self.opt_pool.slot(
-            host_offset, max(1, host_nbytes)))
+                    stats: SwapExecStats, host_offset: int = -1,
+                    srcs: Optional[List[Tensor]] = None
+                    ) -> Tuple[List[Tensor], Any]:
+        if srcs is None:
+            srcs = [self.opt_pool.slot(host_offset, max(1, host_nbytes))]
+        return self.opt_swap_in_from(owner, host_nbytes, srcs)
 
     def opt_swap_in_from(self, owner: str, host_nbytes: int,
-                         src: Tensor) -> None:
+                         srcs: List[Tensor]) -> Tuple[List[Tensor], Any]:
         if owner in self._opt_inflight:      # already streaming this slot
-            return
-        _, start, done = self._h2d([src])
+            return [], None
+        out, start, done = self._h2d(srcs)
         self._opt_inflight[owner] = _Copy(host_nbytes, time.perf_counter(),
                                           self._bus_schedule(host_nbytes),
                                           start, done)
         self.opt_inflight_bytes += host_nbytes
         self.opt_inflight_high_water = max(self.opt_inflight_high_water,
                                            self.opt_inflight_bytes)
+        return out, (start, done) if self.cuda else None
+
+    def opt_swap_out(self, owner: str, state: Tensor, dst: Tensor) -> Any:
+        """D2H of a slot's updated ``state`` into the host tensor ``dst``,
+        issued on the copy stream after the compute that produced it;
+        returns its (start, end) events (None on the CPU, where the copy
+        is done on return)."""
+        self._bus_schedule(state.numel() * state.element_size())
+        if not self.cuda:
+            dst.copy_(state)
+            return None
+        produced = torch.cuda.Event()
+        produced.record(torch.cuda.current_stream(self.device))
+        self.copy_stream.wait_event(produced)
+        start, done = self._event(), self._event()
+        with torch.cuda.stream(self.copy_stream):
+            start.record()
+            dst.copy_(state, non_blocking=True)
+            done.record()
+        state.record_stream(self.copy_stream)
+        return start, done
 
     # ------------------------------------------------------------- fence
     def _fence(self, lane: str, owner: str, stats: SwapExecStats
@@ -681,6 +731,8 @@ class SessionScopedEngine:
     tracks which transfers belong to it, so ``drain`` (end of step, or an
     abort after a mid-step kill) fences only this session's copies.
     Per-session ``inflight_bytes`` / high-water marks are kept here.
+    On the card the measured split of the session's fences reaches its
+    stats record when the shared engine settles, after the wave.
     """
 
     name = "session_scoped"
@@ -728,16 +780,22 @@ class SessionScopedEngine:
             self.inflight_bytes -= nbytes
 
     def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
-                    stats: SwapExecStats, host_offset: int = -1) -> None:
+                    stats: SwapExecStats, host_offset: int = -1,
+                    srcs: Optional[List[Tensor]] = None
+                    ) -> Tuple[List[Tensor], Any]:
         if owner in self._opt_sizes:
-            return
-        self.inner.opt_swap_in_from(
-            self._k(owner), host_nbytes,
-            self.opt_pool.slot(host_offset, max(1, host_nbytes)))
+            return [], None
+        if srcs is None:
+            srcs = [self.opt_pool.slot(host_offset, max(1, host_nbytes))]
+        out = self.inner.opt_swap_in_from(self._k(owner), host_nbytes, srcs)
         self._opt_sizes[owner] = host_nbytes
         self.opt_inflight_bytes += host_nbytes
         self.opt_inflight_high_water = max(self.opt_inflight_high_water,
                                            self.opt_inflight_bytes)
+        return out
+
+    def opt_swap_out(self, owner: str, state: Tensor, dst: Tensor) -> Any:
+        return self.inner.opt_swap_out(self._k(owner), state, dst)
 
     def opt_fence(self, owner: str, stats: SwapExecStats) -> None:
         self.inner.opt_fence(self._k(owner), stats)
@@ -749,12 +807,16 @@ class SessionScopedEngine:
         self.inner.begin_phase(self.scope)
 
     def drain(self, stats: SwapExecStats) -> None:
-        """Fence everything *this session* still has in flight."""
+        """Fence everything *this session* still has in flight.  The host
+        waits for nothing here: the fences order the session's last reads
+        after its copies on the card, and the shared engine's
+        :meth:`DeviceStreamEngine.settle`, once the caller's wave is
+        done, waits for the card and credits every session's measured
+        split."""
         for owner in list(self._sizes):
             self.fence(owner, stats)
         for owner in list(self._opt_sizes):
             self.opt_fence(owner, stats)
-        self.inner.settle()
 
     @property
     def has_inflight(self) -> bool:

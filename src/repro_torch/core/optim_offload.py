@@ -50,12 +50,15 @@ compressed copies.
 
 On the card, :class:`OptimRuntime` keeps each slot's int8 blocks and fp32
 scales in ONE pinned host buffer, allocated at construction, and the EF
-residual in ordinary host memory.  :func:`offloaded_update` walks the
-slots in prefetch order: the compressed copy goes H2D on a copy stream,
-is dequantized and decoded on the card, the AdamW math runs there, and
-the updated fp32 state goes D2H into a pinned staging buffer of one
-slot's size, where the host re-quantizes it with error feedback — while
-the card already runs the next slot.  With ``optim_compress=False`` the
+residual in ordinary host memory.  :class:`OffloadedStep` is one update,
+slot by slot, on a transfer engine's optimizer lane: a replay drives it at
+the slot's planned ops (``OptPrefetch`` issues the H2D of the compressed
+copy on the copy stream, the layer's CG phase fences it, ``OptSwapOut``
+runs the update), and :func:`offloaded_update` drives it outside a
+replay.  The copy is dequantized and decoded on the card, the AdamW math
+runs there, and the updated fp32 state goes D2H into a pinned staging
+buffer of one slot's size, where the host re-quantizes it with error
+feedback — while the card already runs on.  With ``optim_compress=False`` the
 host copies are exact fp32 (pinned too) and the update matches the
 resident AdamW to float noise; with compression it matches within the
 error-feedback tolerance.  With ``device="cpu"`` the same code runs with
@@ -341,18 +344,20 @@ class OptimRuntime:
     layer's flattened ``m || v`` (or the exact fp32 copy when the plan is
     uncompressed) plus, under compression, the fp32 error-feedback residual
     that re-injects each re-quantization's rounding error into the next.
-    The residual never crosses the bus; only ``prefetch()``'s compressed
-    payload (H2D) and ``swap_out()``'s fp32 state (D2H) are DMA.
+    The residual never crosses the bus; only :meth:`prefetch`'s host copy
+    (H2D) and :meth:`swap_out`'s fp32 state (D2H) are DMA, both through a
+    transfer engine's optimizer lane
+    (:class:`repro_torch.core.exec.store.TransferEngine`).
 
     ``device`` is the working tier: the CUDA card when None (raises
     without one).  There the host copies are views of one pinned buffer
-    allocated here, the copies run on a dedicated copy stream, and D2H
-    lands in a pinned staging buffer of the largest slot's size, reused
-    by every slot and fenced before the host reads it.  ``timings``
-    accumulates the update's split: ``h2d_s``, ``device_s`` (dequantize,
-    decode and the AdamW math) and ``d2h_s`` from CUDA events on the
-    card's clock (the host clock on the CPU), and ``host_quantize_s``
-    (encode, error feedback, re-quantize) on the host clock.
+    allocated here, and D2H lands in a pinned staging buffer of the
+    largest slot's size, reused by every slot and fenced before the host
+    reads it.  ``timings`` accumulates the update's split: ``h2d_s``,
+    ``device_s`` (dequantize, decode and the AdamW math) and ``d2h_s``
+    from CUDA events on the card's clock (the host clock on the CPU), and
+    ``host_quantize_s`` (encode, error feedback, re-quantize) on the host
+    clock.
     """
 
     def __init__(self, plan: OptimPlan, graph: LayerGraph,
@@ -365,8 +370,6 @@ class OptimRuntime:
         self.count = 0
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
-        self.copy_stream = torch.cuda.Stream(self.device) if self.cuda \
-            else None
         # per-layer flat layout: (wname, shape, size) in weight_shapes order
         self.layouts: Dict[str, List[Tuple[str, Tuple[int, ...], int]]] = {}
         self.halves: Dict[str, int] = {}
@@ -375,6 +378,7 @@ class OptimRuntime:
         self.timings = dict.fromkeys(
             ("h2d_s", "device_s", "d2h_s", "host_quantize_s"), 0.0)
         self._events: List[Tuple[str, Any, Any]] = []
+        self._engine = None
         for s in plan.slots:
             l = graph.layer(s.layer)
             self.layouts[s.layer] = [
@@ -440,6 +444,16 @@ class OptimRuntime:
         return (self.host_buf.numel() + self.staging.numel() * 4
                 + sum(r.numel() * 4 for r in self.residual.values()))
 
+    @property
+    def engine(self):
+        """The transfer engine of updates run outside a replay: a
+        :class:`~repro_torch.core.exec.store.DeviceStreamEngine` on the
+        working device, made on first use."""
+        if self._engine is None:
+            from repro_torch.core.exec.store import DeviceStreamEngine
+            self._engine = DeviceStreamEngine(self.device)
+        return self._engine
+
     # --------------------------------------------------------- quant space
     # The m half quantizes linearly (signed, roughly normal — the int8
     # grid fits; a collapsed m merely zeroes one step's momentum, which
@@ -467,50 +481,37 @@ class OptimRuntime:
         return enc
 
     # ------------------------------------------------------------- transfers
-    def _timed(self, kind: str):
-        """(start, done) timing events whose span is credited to
-        ``timings[kind]`` after the update."""
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        self._events.append((kind, start, done))
-        return start, done
-
-    def _h2d(self, srcs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Copies of host tensors on the working device: issued on the copy
-        stream, the compute stream fenced on their end."""
-        if not self.cuda:
-            t0 = time.perf_counter()
-            out = [s.clone() for s in srcs]
-            self.timings["h2d_s"] += time.perf_counter() - t0
-            return out
-        compute = torch.cuda.current_stream(self.device)
-        start, done = self._timed("h2d_s")
-        with torch.cuda.stream(self.copy_stream):
-            start.record()
-            out = [torch.empty(s.shape, dtype=s.dtype, device=self.device)
-                   for s in srcs]
-            for o, s in zip(out, srcs):
-                o.copy_(s, non_blocking=True)
-            done.record()
-        compute.wait_event(done)
-        for o in out:
-            o.record_stream(compute)
-        return out
-
-    def prefetch(self, layer: str, stats=None) -> torch.Tensor:
-        """H2D: dequantize the host copy into the fp32 working state."""
-        s = self.plan.slot(f"O:{layer}")
-        if self.plan.compress:
-            hs = self.host_state[layer]
-            q, scale = self._h2d([hs["q"], hs["scale"]])
-            state = self._math(lambda: self._decode(
-                layer, _deq(q, scale, (s.n_elems,))))
+    def _timed(self, kind: str, t0: float, span) -> None:
+        """Credit a transfer to ``timings[kind]``: its (start, end) card
+        events once they are read, or the host clock since ``t0`` when
+        the engine finished the copy on return (``span`` None)."""
+        if span is None:
+            self.timings[kind] += time.perf_counter() - t0
         else:
-            state, = self._h2d([self.host_state[layer]])
-        if stats is not None:
-            stats.opt_prefetches += 1
-            stats.opt_dma_bytes += s.host_nbytes
-        return state
+            self._events.append((kind, *span))
+
+    def prefetch(self, layer: str, engine, stats, host_offset: int = -1
+                 ) -> List[torch.Tensor]:
+        """H2D: issue the copy of ``layer``'s host copy (int8 blocks and
+        scales, or the fp32 state) on ``engine``'s optimizer lane; returns
+        the device copies, readable after ``engine.opt_fence``."""
+        s = self.plan.slot(f"O:{layer}")
+        hs = self.host_state[layer]
+        t0 = time.perf_counter()
+        copies, span = engine.opt_swap_in(
+            s.name, s.nbytes, s.host_nbytes, stats, host_offset,
+            srcs=[hs["q"], hs["scale"]] if self.plan.compress else [hs])
+        self._timed("h2d_s", t0, span)
+        return copies
+
+    def load(self, layer: str, copies: List[torch.Tensor]) -> torch.Tensor:
+        """The fp32 working state from the landed copies: dequantized and
+        decoded on the working device when compressed."""
+        if not self.plan.compress:
+            return copies[0]
+        n = self.plan.slot(f"O:{layer}").n_elems
+        q, scale = copies
+        return self._math(lambda: self._decode(layer, _deq(q, scale, (n,))))
 
     def _math(self, fn):
         """Run ``fn`` on the working device, its time credited to
@@ -520,41 +521,27 @@ class OptimRuntime:
             out = fn()
             self.timings["device_s"] += time.perf_counter() - t0
             return out
-        start, done = self._timed("device_s")
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn()
         done.record()
+        self._events.append(("device_s", start, done))
         return out
 
-    def _issue_swap_out(self, layer: str, state: torch.Tensor, stats=None):
-        """D2H of the updated state: into the host copy when uncompressed,
-        into the staging buffer otherwise.  Returns what
-        :meth:`_settle` needs to finish it."""
+    def swap_out(self, layer: str, state: torch.Tensor, engine):
+        """D2H of the updated state on ``engine``'s optimizer lane: into
+        the host copy when uncompressed, into the staging buffer
+        otherwise.  Returns what :meth:`settle` needs to finish it."""
         s = self.plan.slot(f"O:{layer}")
         dst = (self.staging[:s.n_elems] if self.plan.compress
                else self.host_state[layer])
-        landed = None
-        if self.cuda:
-            produced = torch.cuda.Event()
-            produced.record(torch.cuda.current_stream(self.device))
-            self.copy_stream.wait_event(produced)
-            start, landed = self._timed("d2h_s")
-            with torch.cuda.stream(self.copy_stream):
-                start.record()
-                dst.copy_(state, non_blocking=True)
-                landed.record()
-            state.record_stream(self.copy_stream)
-        else:
-            t0 = time.perf_counter()
-            dst.copy_(state)
-            self.timings["d2h_s"] += time.perf_counter() - t0
-        if stats is not None:
-            stats.opt_swap_outs += 1
-            stats.opt_dma_bytes += s.nbytes
-            stats.opt_compressed_bytes += s.host_nbytes
-        return layer, dst, landed
+        t0 = time.perf_counter()
+        span = engine.opt_swap_out(s.name, state, dst)
+        self._timed("d2h_s", t0, span)
+        return layer, dst, None if span is None else span[1]
 
-    def _settle(self, owed) -> None:
+    def settle(self, owed) -> None:
         """Wait for an issued D2H, then (compressed) re-quantize it on the
         host with error feedback."""
         layer, dst, landed = owed
@@ -569,10 +556,6 @@ class OptimRuntime:
         hs = self.host_state[layer]
         _requantize_(total, hs["q"], hs["scale"], self.residual[layer])
         self.timings["host_quantize_s"] += time.perf_counter() - t0
-
-    def swap_out(self, layer: str, state, stats=None) -> None:
-        """D2H: re-quantize the updated fp32 state with error feedback."""
-        self._settle(self._issue_swap_out(layer, state, stats))
 
     def resolve_timings(self) -> None:
         """Credit the card's event spans to ``timings`` (after a
@@ -603,59 +586,119 @@ class OptimRuntime:
         return torch.cat(parts)
 
 
-def offloaded_update(runtime: OptimRuntime, params, grads, stats=None):
-    """One AdamW step through the offload dance; returns new params.
+class OffloadedStep:
+    """One AdamW step of ``runtime`` over ``params``, slot by slot.
 
-    Walks the slots in schedule (prefetch) order, per layer: prefetch +
-    dequantize the host state, apply the reference AdamW math
-    (``optim/optimizers.py:adamw`` — same bias correction, decoupled weight
-    decay), swap the updated state back out with EF re-quantization.  The
-    bias corrections are Python floats (fp32 when applied), as in the
-    reference's runtime.  The host re-quantizes one slot while the card
-    runs the next.  Layers without a slot (frozen, E-shared) keep their
-    params untouched.  ``stats`` (a ``SwapExecStats``) accumulates the
-    ``opt_*`` counters.
+    A replay drives it at the slot's planned ops
+    (``cp.loss_and_grads(..., optim=step)``): at ``OptPrefetch``
+    :meth:`prefetch` issues the H2D of the slot's host copy on the
+    replay's engine; after the fence at the layer's CG phase, at
+    ``OptSwapOut``, :meth:`update` decodes the landed state, applies the
+    AdamW math with the layer's final grads and issues the updated
+    state's D2H; :meth:`finish`, at the replay's end, settles the last
+    D2H and leaves the updated params in :attr:`new_params`.  The host
+    re-quantizes one slot while the card runs on.  The bias corrections
+    are Python floats (fp32 when applied), as in the reference's runtime.
+    ``params`` need not be the replay's own: the step updates them with
+    the grads the replay computes.  Layers without a slot (frozen,
+    E-shared) keep their params untouched.
     """
-    runtime.count += 1
-    t = float(runtime.count)
-    c1 = 1.0 - runtime.b1 ** t
-    c2 = 1.0 - runtime.b2 ** t
-    b1, b2, eps = runtime.b1, runtime.b2, runtime.eps
-    lr, wd = runtime.lr, runtime.weight_decay
-    new_params = {ln: dict(entry) for ln, entry in params.items()}
-    corr = None
-    owed = None
-    for s in sorted(runtime.plan.slots, key=lambda s: s.prefetch_eo):
-        layer = s.layer
-        if layer not in grads:
-            continue
-        flat = runtime.prefetch(layer, stats)
-        if corr is None:
+
+    def __init__(self, runtime: OptimRuntime, params):
+        runtime.count += 1
+        t = float(runtime.count)
+        self.runtime = runtime
+        self.params = params
+        self.new_params: Dict[str, Dict[str, torch.Tensor]] = {
+            ln: dict(entry) for ln, entry in params.items()}
+        self._c = (1.0 - runtime.b1 ** t, 1.0 - runtime.b2 ** t)
+        self._corr = None
+        self._landed: Dict[str, List[torch.Tensor]] = {}
+        self._owed = None
+
+    def prefetch(self, engine, layer: str, stats, host_offset: int = -1
+                 ) -> None:
+        self._landed[layer] = self.runtime.prefetch(layer, engine, stats,
+                                                    host_offset)
+
+    def update(self, engine, layer: str, grads) -> None:
+        """The slot's update, after its copy was fenced: ``grads`` are
+        the layer's final grads (None when no gradient reached it; the
+        layer's params and state then stay as they were)."""
+        rt = self.runtime
+        copies = self._landed.pop(layer)
+        if grads is None:
+            return
+        flat = rt.load(layer, copies)
+        del copies
+        if self._corr is None:
             # fp32 tensors on the device: a true division, as the
             # reference's (dividing by a Python scalar on the card
             # multiplies by its reciprocal)
-            corr = [torch.full((), c, dtype=torch.float32,
-                               device=flat.device) for c in (c1, c2)]
+            self._corr = [torch.full((), c, dtype=torch.float32,
+                                     device=flat.device) for c in self._c]
+        b1, b2, eps = rt.b1, rt.b2, rt.eps
+        lr, wd = rt.lr, rt.weight_decay
+        corr, params = self._corr, self.params
 
         def adamw_math():
-            ms, vs = runtime.unpack(layer, flat)
-            for wname, _, _ in runtime.layouts[layer]:
-                g = grads[layer][wname].to(torch.float32)
+            ms, vs = rt.unpack(layer, flat)
+            for wname, _, _ in rt.layouts[layer]:
+                g = grads[wname].to(torch.float32)
                 p = params[layer][wname]
                 m = b1 * ms[wname] + (1 - b1) * g
                 v = b2 * vs[wname] + (1 - b2) * g * g
                 upd = (m / corr[0]) / (torch.sqrt(v / corr[1]) + eps)
-                new_params[layer][wname] = (
+                self.new_params[layer][wname] = (
                     p - lr * (upd + wd * p.to(torch.float32))).to(p.dtype)
                 ms[wname], vs[wname] = m, v
-            return runtime.pack(layer, ms, vs)
+            return rt.pack(layer, ms, vs)
 
-        packed = runtime._math(adamw_math)
+        packed = rt._math(adamw_math)
         del flat
-        if owed is not None:
-            runtime._settle(owed)
-        owed = runtime._issue_swap_out(layer, packed, stats)
-    if owed is not None:
-        runtime._settle(owed)
-    runtime.resolve_timings()
-    return new_params
+        if self._owed is not None:
+            rt.settle(self._owed)
+        self._owed = rt.swap_out(layer, packed, engine)
+
+    def finish(self):
+        """Settle the last D2H and read the card's timings; returns
+        :attr:`new_params`."""
+        if self._owed is not None:
+            self.runtime.settle(self._owed)
+            self._owed = None
+        self._landed.clear()
+        self.runtime.resolve_timings()
+        return self.new_params
+
+
+def offloaded_update(runtime: OptimRuntime, params, grads, stats=None,
+                     engine=None):
+    """One AdamW step through the offload dance, outside a replay; returns
+    new params.
+
+    The same :class:`OffloadedStep` a replay drives, walked over the slots
+    in prefetch order on ``engine`` (the runtime's own
+    :attr:`OptimRuntime.engine` when None): each slot's H2D is issued one
+    slot ahead of its update.  ``stats`` (a ``SwapExecStats``) accumulates
+    the ``opt_*`` counters.
+    """
+    from repro_torch.core.exec.store import SwapExecStats
+    engine = engine if engine is not None else runtime.engine
+    stats = stats if stats is not None else SwapExecStats()
+    step = OffloadedStep(runtime, params)
+    slots = [s for s in sorted(runtime.plan.slots,
+                               key=lambda s: s.prefetch_eo)
+             if s.layer in grads]
+    for i, s in enumerate(slots):
+        if i == 0:
+            step.prefetch(engine, s.layer, stats)
+        if i + 1 < len(slots):
+            step.prefetch(engine, slots[i + 1].layer, stats)
+        engine.opt_fence(s.name, stats)
+        step.update(engine, s.layer, grads[s.layer])
+        stats.opt_prefetches += 1
+        stats.opt_swap_outs += 1
+        stats.opt_dma_bytes += s.host_nbytes + s.nbytes
+        stats.opt_compressed_bytes += s.host_nbytes
+    engine.drain(stats)
+    return step.finish()

@@ -589,7 +589,7 @@ class CompiledMemoryPlan:
         return init_params(self.graph, generator, device=device)
 
     def loss_and_grads(self, params, x, label, *, executor=None, mask=None,
-                       engine=None):
+                       engine=None, optim=None):
         """One layer-basis training iteration under this plan.
 
         Replays the lowered op list on the configured executor backend
@@ -610,12 +610,20 @@ class CompiledMemoryPlan:
         replay backends (``"sim"``/``"async"``) — e.g. a bus-paced engine
         for emulated-hardware benchmarks; the jit-fused backend manages
         its own engine and rejects the override.
+
+        ``optim`` (a :class:`repro_torch.core.optim_offload.OffloadedStep`
+        over this plan's optimizer slots) makes the replay's
+        ``OptPrefetch``/``OptSwapOut`` ops carry and update the offloaded
+        AdamW state: the updated params are ``optim.new_params`` after the
+        call.
         """
         self._require_graph("loss_and_grads")
         from repro_torch.core.exec.backends import get_backend
         backend = get_backend(
             executor if executor is not None else self.config.executor)
         extra = {} if engine is None else {"engine": engine}
+        if optim is not None:
+            extra["optim"] = optim
         out = backend.run(
             self.graph, params, x, label,
             schedule=self.schedule,

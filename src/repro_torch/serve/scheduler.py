@@ -18,9 +18,12 @@ compute.  That cross-session overlap is measured, not asserted, and
 credited to the waiting session's ``SwapExecStats.cross_hidden_dma_s``.
 On the card the host only queues work, so host time is not device time:
 the shared engine times every phase on the compute stream and every copy
-on the copy stream with CUDA events, and after each session's step
-intersects that session's hidden copy time with the *other* sessions'
-phases (the card's clock).  On the CPU, where the emulated bus runs on
+on the copy stream with CUDA events, and once the wave is done
+intersects each session's hidden copy time with the *other* sessions'
+phases (the card's clock).  A session's end makes the host wait for
+nothing: its grads and loss stay on the card, the caller's update is
+queued behind them, and the wave's one synchronisation reads the losses
+and the measured splits.  On the CPU, where the emulated bus runs on
 the host clock, every second one session spends computing while another
 session's transfers are in flight is credited to the waiting session, as
 the reference does.  ``report()["cross_hidden_clock"]`` names the clock.
@@ -99,7 +102,9 @@ class StepOutcome:
     qos: str
     status: str                  # "ok" | "killed"
     reason: str = ""
-    loss: float = float("nan")
+    # a 0-dim device tensor while the wave runs (``follow_up`` sees it
+    # so), a float once :meth:`StepScheduler.run` returns
+    loss: Any = float("nan")
     grads: Optional[Dict[str, Any]] = None
     stats: Any = None            # SwapExecStats, None when killed
     queue_wait_s: float = 0.0
@@ -283,7 +288,7 @@ class StepScheduler:
                 self._prove_replay(live, proved)
                 outcomes[w.arrival] = StepOutcome(
                     user=w.user, arrival=w.arrival, qos=w.qos, status="ok",
-                    loss=float(loss), grads=grads, stats=st,
+                    loss=loss, grads=grads, stats=st,
                     queue_wait_s=getattr(live, "queue_wait_s", 0.0))
             else:
                 outcomes[w.arrival] = StepOutcome(
@@ -356,9 +361,15 @@ class StepScheduler:
                         break
             active = [s for s in active if s.alive]
 
+        # the wave's one wait for the card: it credits every session's
+        # measured DMA split (cross-session overlap included) and makes
+        # the losses readable
+        self.engine.settle()
         done = [outcomes[w.arrival]
                 for w in sorted(all_works, key=lambda w: w.arrival)]
         ok = [o for o in done if o.ok]
+        for o in ok:
+            o.loss = float(o.loss)
         agg = {
             "sessions": len(all_works),
             "completed": len(ok),

@@ -48,6 +48,7 @@ opportunistic on-device training job.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -67,6 +68,21 @@ from repro_torch.serve.buckets import (PlanCache, choose_bucket, dummy_batch,
                                        pad_to_bucket)
 from repro_torch.serve.scheduler import SessionWork, StepScheduler
 from repro_torch.serve.servable import ServablePersonalizer
+
+
+@contextlib.contextmanager
+def _deterministic_steps():
+    """cuDNN's deterministic algorithms while a drain runs.  The default
+    backward-filter algorithms may sum with atomics, in another order on
+    every run, so a step's grads would depend on the run and not only on
+    its params and batch: an interleaved drain and a FIFO one of the same
+    traffic would drift apart step by step."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
 
 
 @dataclasses.dataclass(eq=False)
@@ -266,8 +282,14 @@ class PersonalizationService:
         user's step completes the scheduler's ``follow_up`` refill opens
         that user's next request (after the update is applied) — so
         concurrency never dwindles through an end-of-queue convoy.
-        Results come back in arrival order either way.
+        Results come back in arrival order either way.  The steps run
+        under cuDNN's deterministic algorithms, so the two modes give the
+        same grads for the same traffic.
         """
+        with _deterministic_steps():
+            return self._drain()
+
+    def _drain(self) -> List[StepResult]:
         if not self.interleave:
             out: List[StepResult] = []
             while self._queue:
@@ -476,6 +498,12 @@ class PersonalizationService:
         if works:
             self._get_scheduler().run(works, self.stats,
                                       follow_up=follow_up)
+        # the losses stayed on the card until the stream's end
+        for _, r in done:
+            if r.ok:
+                r.loss = float(r.loss)
+                ss = self.stats.sessions[r.user]
+                ss.last_loss = float(ss.last_loss)
         return done
 
     # -- reporting --------------------------------------------------------

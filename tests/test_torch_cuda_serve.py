@@ -1,8 +1,10 @@
 """The optimizer lane and the personalization service on the card: the
 optimizer prefetch as a real H2D copy from the pinned pool on the copy
 stream and its fence, ``offloaded_update`` on the card against the same
-code on the CPU, an interleaved drain of three sessions against
-autograd, and a kill that releases its reservation.
+code on the CPU, the replay's own update (its prefetches moving the
+runtime's pinned copies) against ``offloaded_update``, an interleaved
+drain of three sessions against autograd, and a kill that releases its
+reservation.
 
 Needs a CUDA card; every case skips without one.  This file imports no
 JAX, so it runs on the card's machine:
@@ -18,8 +20,8 @@ from repro_torch.core.exec import DeviceStreamEngine  # noqa: E402
 from repro_torch.core.exec.layers import reference_loss_and_grads  # noqa
 from repro_torch.core.exec.store import (HostPool, SessionScopedEngine,  # noqa
                                          SwapExecStats)
-from repro_torch.core.optim_offload import (OptimRuntime,  # noqa: E402
-                                            offloaded_update)
+from repro_torch.core.optim_offload import (OffloadedStep,  # noqa: E402
+                                            OptimRuntime, offloaded_update)
 from repro_torch.core.plan import MemoryPlanConfig, compile_plan  # noqa
 from repro_torch.core.zoo import ZOO  # noqa: E402
 from repro_torch.runtime.fault import FaultInjector  # noqa: E402
@@ -66,7 +68,8 @@ def test_opt_prefetch_is_a_real_h2d_fenced_on_the_card(cuda_device):
     eng.opt_fence("O:l", stats)
     scoped.drain(stats)
     assert stats.opt_fences == 2 and eng.opt_inflight_bytes == 0
-    # measured on the card's clock after the settle
+    # measured on the card's clock once the shared engine settles
+    eng.settle()
     assert stats.opt_hidden_dma_s + stats.opt_exposed_dma_s > 0.0
     assert stats.opt_stalled_fences <= 2
 
@@ -104,6 +107,37 @@ def test_offloaded_update_on_the_card_matches_the_cpu(cuda_device,
     # next update by less than lr (3e-4)
     assert err <= (1e-6 if not compress else rt_cpu.lr), err
     assert all(v > 0.0 for k, v in rt_gpu.timings.items()
+               if k != "host_quantize_s" or compress)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_replay_update_on_the_card_matches_offloaded_update(cuda_device,
+                                                           compress):
+    """The replay's optimizer ops move the runtime's pinned host copies
+    on the copy stream and update at ``OptSwapOut``: the params that
+    ``offloaded_update`` makes from the replay's grads, bit for bit."""
+    g = ZOO["lenet5"]()
+    cp = compile_plan(g, MemoryPlanConfig(optim_offload=True,
+                                          optim_compress=compress,
+                                          executor="async", **CFG_KW),
+                      batch=8)
+    params = cp.init_params(torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    a = OptimRuntime(cp.optim_plan, g, device=cuda_device)
+    b = OptimRuntime(cp.optim_plan, g, device=cuda_device)
+    pa = pb = params
+    for seed in range(3):
+        x, y = dummy_batch(g, 8, seed=seed, device=cuda_device)
+        step = OffloadedStep(a, pa)
+        _, grads, stats = cp.loss_and_grads(pa, x, y, optim=step)
+        pa = step.new_params
+        pb = offloaded_update(b, pb, grads)
+        assert stats.opt_fences == len(cp.optim_plan.slots)
+    for k in pb:
+        for n in pb[k]:
+            assert torch.equal(pa[k][n], pb[k][n]), (k, n)
+    assert all(v > 0.0 for k, v in a.timings.items()
                if k != "host_quantize_s" or compress)
 
 

@@ -365,6 +365,59 @@ def test_offloaded_update_counts_stats():
         s.host_nbytes for s in tcp.optim_plan.slots)
 
 
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("executor", ["sim", "async"])
+def test_replay_updates_the_state_like_offloaded_update(executor, compress):
+    """A replay given an ``OffloadedStep`` moves the runtime's own host
+    copies at its ``OptPrefetch`` ops and updates each slot at its
+    ``OptSwapOut``: bit for bit the params and host state that
+    ``offloaded_update`` makes from the replay's grads, with the counters
+    of the plain replay."""
+    _, tcp, params, _ = _lenet(compress)
+    a = too.OptimRuntime(tcp.optim_plan, tcp.graph, device="cpu")
+    b = too.OptimRuntime(tcp.optim_plan, tcp.graph, device="cpu")
+    pa = pb = _t(params)
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(3):
+        x = torch.randn((8, 3, 32, 32), generator=gen)
+        y = torch.nn.functional.one_hot(
+            torch.randint(0, 10, (8,), generator=gen), 10).float()
+        extra = {"engine": DeviceStreamEngine("cpu")} \
+            if executor == "async" else {}
+        step = too.OffloadedStep(a, pa)
+        _, grads, stats = tcp.loss_and_grads(pa, x, y, executor=executor,
+                                             optim=step, **extra)
+        pa = step.new_params
+        pb = too.offloaded_update(b, pb, grads)
+        assert stats.replayed_ops == tcp.lowered.ops
+        assert stats.opt_prefetches == stats.opt_swap_outs \
+            == len(tcp.optim_plan.slots)
+        assert stats.opt_dma_bytes == tcp.optim_plan.dma_bytes_per_step
+        for k in pb:
+            for n in pb[k]:
+                assert torch.equal(pa[k][n], pb[k][n]), (k, n)
+    assert a.count == b.count == 3
+    for layer, hs in b.host_state.items():
+        for part, want in (hs.items() if compress else [("state", hs)]):
+            got = a.host_state[layer] if not compress \
+                else a.host_state[layer][part]
+            assert torch.equal(got, want), (layer, part)
+    assert a.timings["h2d_s"] > 0.0 and a.timings["d2h_s"] > 0.0
+
+
+def test_replay_refuses_an_optimizer_step_of_another_plan():
+    """The step's slots must be the ones the schedule moves: an fp32
+    runtime cannot ride a compressed plan's optimizer ops."""
+    _, tcp, params, _ = _lenet(True)
+    _, flat, _, _ = _lenet(False)
+    rt = too.OptimRuntime(flat.optim_plan, flat.graph, device="cpu")
+    x = torch.zeros((8, 3, 32, 32))
+    y = torch.nn.functional.one_hot(torch.arange(8) % 10, 10).float()
+    with pytest.raises(ValueError, match="slots"):
+        tcp.loss_and_grads(_t(params), x, y, executor="sim",
+                           optim=too.OffloadedStep(rt, _t(params)))
+
+
 # ---------------------------------------------------------------------------
 # the replay's optimizer lane
 # ---------------------------------------------------------------------------

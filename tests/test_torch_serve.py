@@ -418,6 +418,33 @@ def test_interleaved_service_matches_fifo_numerics():
                     rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("interleave", [False, True])
+def test_drains_run_deterministic_cudnn_and_return_float_losses(
+        interleave):
+    """Both drains run their steps under cuDNN's deterministic algorithms
+    and put the caller's setting back; the results carry float losses."""
+    g = ZOO["lenet5"]()
+    svc = _service(g, buckets=(8,), max_live_sessions=2, config=CFG,
+                   interleave=interleave)
+    svc.warmup()
+    seen = []
+    apply = svc.servable.apply_update
+
+    def recording(sess, grads):
+        seen.append(torch.backends.cudnn.deterministic)
+        apply(sess, grads)
+    svc.servable.apply_update = recording
+    was = torch.backends.cudnn.deterministic
+    for u in range(2):
+        svc.enqueue(f"u{u}", *_dummy(g, 8, u))
+    results = svc.drain()
+    assert seen == [True, True]
+    assert torch.backends.cudnn.deterministic == was
+    assert all(r.ok and type(r.loss) is float for r in results)
+    assert all(type(s.last_loss) is float
+               for s in svc.stats.sessions.values())
+
+
 def test_service_queue_wait_and_deterministic_tie_break():
     g = ZOO["lenet5"]()
     svc = _service(g, buckets=(8,), max_live_sessions=4, config=CFG)

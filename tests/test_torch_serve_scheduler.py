@@ -115,6 +115,30 @@ def test_scheduler_interleaves_sessions_with_correct_grads():
     assert not sched.engine._inflight and not sched.engine._opt_inflight
 
 
+def test_a_wave_waits_for_the_card_once():
+    """A session's end makes the host wait for nothing: its losses stay
+    tensors while the wave runs (what ``follow_up`` sees), and the shared
+    engine settles once, after the wave, when the losses become floats."""
+    cp = compile_plan(ZOO["lenet5"](), CFG, batch=8)
+
+    class Counting(DeviceStreamEngine):
+        settles = 0
+
+        def settle(self):
+            Counting.settles += 1
+            super().settle()
+
+    seen = []
+    sched = StepScheduler(engine=Counting("cpu", bus_gbps=8.0,
+                                          bus_latency_s=1e-5))
+    outs = sched.run(_works(cp, ["a", "b", "c"]),
+                     follow_up=lambda o: seen.append(
+                         (type(o.loss), Counting.settles)))
+    assert Counting.settles == 1
+    assert seen == [(torch.Tensor, 0)] * 3
+    assert all(type(o.loss) is float for o in outs)
+
+
 def test_scheduler_rejects_overlapping_shares_and_duplicate_users():
     cp = compile_plan(ZOO["lenet5"](), CFG, batch=8)
     works = _works(cp, ["a", "b"])
