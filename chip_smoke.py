@@ -132,6 +132,34 @@ them:
    reports steps/s, p50/p99
    request latency, the DMA hidden under other sessions' phases (on the
    card's clock) and the allocator peak beside the planned one.
+19. train: llama3.2-3b trained at full width and depth (28 layers, fp32
+   parameters and AdamW state, bf16 compute): (a) ``python -m
+   repro_torch.launch.train --arch llama3.2-3b --shape train_4k --steps 3
+   --batch 2 --microbatches 2`` in-process (``launch.train.main``), the
+   default keep-all checkpoint plan, every loss finite, step 1 within 0.5
+   of ln(128256), 168 flash and 168 SwiGLU launches (28 x 2 micro-batches
+   x 3 steps, all wgmma, none in the replays), no forward through a
+   plain twin (the SwiGLU twin runs once in each backward), each block
+   holding exactly its tagged q, attention output and SwiGLU hidden, the
+   peak within 80 GB and printed beside the reckoned parts, tokens/s and
+   6NT against the bf16 peak; (b) the same with mlp_hidden offloaded
+   (``offload=True``, a 100 MB budget, DMA priced at 10 TB/s; at the
+   default prices the plan recomputes every eviction): first one
+   micro-batch's loss and every grad against the keep-all plan's from the
+   same parameters, normwise within 1e-4, with NaN written over the
+   released device copies between forward and backward; then 3 steps:
+   the bytes moved to pinned host memory per block equal h's, one fetch
+   fence per block, the peak falls by at least half of them x 28, each
+   loss equals (a)'s to 1e-6, the step times and fence waits printed; (c)
+   fp32 at full width and depth 4, every tag recomputed (each kernel
+   launched again in the replays), flash and SwiGLU simt against the
+   twins on the card, loss and every grad normwise within 1e-4, for
+   llama3.2-3b and granite-moe-1b-a400m (expert choices equal); (d) depth
+   2 (vocabulary 4096, to keep the checkpoints small), 4 steps straight
+   against 2 steps, a checkpoint and a restart, under deterministic
+   algorithms: steps 3-4 bit for bit, the data state restored as saved.
+   The two kernels are timed at the train step's shape (one sequence of
+   4096) for their rows in the kernel table.
 
 The bf16 prefill steps (3, 5, 8, 11) and generate's SwiGLU launches must
 count under the wgmma variants only; in the fp32 parity phases (7, 10,
@@ -153,10 +181,12 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -268,6 +298,8 @@ def check(ok: bool, phase: str, what: str) -> None:
 
 
 def main() -> int:
+    # cuBLAS is deterministic only with a fixed workspace (train (d))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -330,17 +362,33 @@ def main() -> int:
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
     check(all(m.LAUNCHES == 0 for m in (fa, ssd, ml, sw)), "paper_path",
           "the paper's path launched a kernel of the transformer path")
+    train_rows = _train_rows(torch, fa, sw, gpu)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
     print(json.dumps({"paper_path": paper_rows}), flush=True)
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
                                   mlstm_row, *sw_rows,
-                                  granite_flash_row]}), flush=True)
+                                  granite_flash_row, *train_rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _train_rows(torch, fa, sw, gpu):
+    """The train phase, then its two kernel rows: each kernel timed at the
+    train step's shape (one sequence of 4096), with the launches of (a)."""
+    flash_row = _flash_times(torch, fa, gpu, TRAIN_FLASH_SHAPE, "llama3.2-3b")
+    sw_row = _swiglu_times(torch, sw, gpu, TRAIN_SWIGLU_SHAPE,
+                           "llama3.2-3b MLP")
+    launches = phase_train(torch, fa, sw, gpu)
+    flash_row.update(path="llama3.2-3b train step (forward and replays)",
+                     launches=launches["flash"])
+    sw_row.update(path="llama3.2-3b MLP, train step (forward and replays)",
+                  launches=launches["swiglu"])
+    return [flash_row, sw_row]
 
 
 # ---------------------------------------------------------------------------
@@ -2381,6 +2429,427 @@ def _xlstm_layer_rels(torch, xlstm, cfg, params, params_cpu):
         rels.append(((got.float().cpu() - want).abs().max()
                      / want.abs().max()).item())
     return rels
+
+
+# ---------------------------------------------------------------------------
+# 19. train: llama3.2-3b trained at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", "llama3.2-3b", "--shape", "train_4k", "--steps", "3",
+              "--batch", "2", "--microbatches", "2"]
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 3
+# (b): the per-layer budget (bytes) and DMA price under which the plan
+# offloads mlp_hidden at 4096 tokens and keeps the other three tags (the
+# default prices, 32 GB/s against 200 TFLOP/s, recompute every eviction)
+OFFLOAD_BUDGET, OFFLOAD_DMA_GBPS = 100_000_000, 1e4
+TRAIN_FP32_DEPTH, TRAIN_FP32_SEQ = 4, 1024
+TRAIN_FLASH_SHAPE = (1, 24, 8, 4096, 4096, 128, True, 512, 1024)
+TRAIN_SWIGLU_SHAPE = (1, 4096, 3072, 8192)
+GRAD_REL_TOL = 1e-4            # the paper's commit gate, normwise
+RESUME_DEPTH, RESUME_VOCAB, RESUME_SEQ = 2, 4096, 1024
+
+
+class _Counted:
+    """A twin that counts its calls (the chip gates that no forward takes
+    it; the SwiGLU backward recomputes through it)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+def _tagged_bytes(cfg, tokens, itemsize):
+    """Bytes of each tensor the port tags in one dense block at ``tokens``
+    tokens: q (the reference tags q alone as qkv), the attention output,
+    the SwiGLU hidden h (one d_ff; the plan prices gate + up)."""
+    return {"qkv": tokens * cfg.n_heads * cfg.head_dim * itemsize,
+            "attn_out": tokens * cfg.n_heads * cfg.head_dim * itemsize,
+            "mlp_hidden": tokens * cfg.d_ff * itemsize}
+
+
+def _expected_launches(plan, layers, runs):
+    """Per kernel: a forward launch in each block of each micro-batch run,
+    and one more in the replay when the plan recomputes its output."""
+    d = plan.remat_plan.decisions() if plan.remat_plan else {}
+    again = {"flash": d.get("attn_out") == "recompute",
+             "swiglu": d.get("mlp_hidden") == "recompute"}
+    if plan.remat_plan is None:
+        again = {"flash": False, "swiglu": False}
+    return {k: layers * runs * (1 + int(v)) for k, v in again.items()}
+
+
+def _region_gate(stats, kept, offloaded, input_bytes):
+    """Every block saved exactly these tagged bytes and this input."""
+    return all(s.kept == kept and s.offloaded == offloaded
+               and s.input_bytes == input_bytes and s.replays == 1
+               for s in stats)
+
+
+def phase_train(torch, fa, sw, gpu):
+    """(a)-(d) of the train phase; returns the (flash, SwiGLU) launches of
+    (a), the main path."""
+    import gc
+
+    from repro_torch.core import remat
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.empty_cache()
+    twins = {"flash": _Counted(fa.flash_attention_fwd_plain),
+             "swiglu": _Counted(sw.fused_swiglu_plain)}
+    saved = fa.flash_attention_fwd_plain, sw.fused_swiglu_plain
+    fa.flash_attention_fwd_plain = twins["flash"]
+    sw.fused_swiglu_plain = twins["swiglu"]
+    try:
+        launches = _train_full(torch, fa, sw, gpu, launch_train, remat, twins)
+    finally:
+        fa.flash_attention_fwd_plain, sw.fused_swiglu_plain = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_fp32_parity(torch, fa, sw, flash_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_resume(torch)
+    return launches
+
+
+def _train_full(torch, fa, sw, gpu, launch_train, remat, twins):
+    """(a) ``launch.train`` at full width and depth, keep-all plan; (b) the
+    same with mlp_hidden offloaded."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.configs.base import SHAPES
+
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas")
+    micro_tokens = TRAIN_SEQ * TRAIN_BATCH // TRAIN_MICRO
+    runs = TRAIN_STEPS * TRAIN_MICRO
+    plan = compile_plan(cfg, batch_tokens=micro_tokens)
+    tagged = _tagged_bytes(cfg, micro_tokens, 2)
+    x_bytes = micro_tokens * cfg.d_model * 2
+
+    # ---- (a) -----------------------------------------------------------
+    _zero(fa, sw)
+    twins["flash"].calls = twins["swiglu"].calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with remat.observe_regions() as stats:
+        out = launch_train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"flash": fa.LAUNCHES, "swiglu": sw.LAUNCHES}
+    twin_calls = {k: t.calls for k, t in twins.items()}
+    variants = _only(fa, "wgmma", fa.LAUNCHES) and \
+        _only(sw, "wgmma", sw.LAUNCHES)
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    losses = [h["loss"] for h in out["history"]]
+    times = [h["time_s"] for h in out["history"]]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    expected = _expected_launches(plan, cfg.n_layers, runs)
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    vocab_bytes = micro_tokens * cfg.vocab * (2 + 4)
+    reckoned = {"params": 4 * n_params, "grads": 4 * n_params,
+                "adamw_moments": 8 * n_params,
+                "plan_saved_bytes_x_layers":
+                    plan.remat_plan.saved_bytes_per_layer * cfg.n_layers,
+                "measured_saved_bytes_x_layers":
+                    (sum(tagged.values()) + x_bytes) * cfg.n_layers,
+                "loss_logits_bf16_and_fp32": vocab_bytes}
+    kept_ok = _region_gate(stats, tagged, {}, x_bytes) and \
+        len(stats) == cfg.n_layers * runs
+    ok = (all(math.isfinite(v) for v in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) <= 0.5
+          and launches == expected and variants
+          and twin_calls == {"flash": 0, "swiglu": cfg.n_layers * runs}
+          and peak <= 80e9 and kept_ok)
+    emit({"phase": "train", "part": "a", "ok": ok, "gpu": gpu,
+          "command": "python -m repro_torch.launch.train "
+                     + " ".join(TRAIN_ARGS),
+          "layers": cfg.n_layers, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+          "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+          "params": n_params, "losses": losses, "ln_vocab": math.log(cfg.vocab),
+          "step_s": times, "step_s_median_2_3": step_s,
+          "tokens_per_s": tokens / step_s,
+          "mfu_6nt": 6 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+          "peak_source": "NVIDIA H100 SXM data sheet, dense bf16, 989 "
+                         "TFLOP/s at 700 W",
+          "wall_s": wall, "peak_bytes": peak, "reckoned_bytes": reckoned,
+          "plan_decisions": plan.remat_plan.decisions(),
+          "plan_bytes_per_layer": {
+              i.name: i.bytes_per_layer for i in _intermediates(cfg,
+                                                                micro_tokens)},
+          "measured_kept_bytes_per_layer": stats[0].kept if stats else None,
+          "measured_input_bytes_per_layer":
+              stats[0].input_bytes if stats else None,
+          "kernel_launches": launches, "expected_launches": expected,
+          "all_wgmma": variants, "twin_calls": twin_calls})
+    check(ok, "train", f"(a) losses {losses}, launches {launches} vs "
+          f"{expected}, twins {twin_calls}, peak {peak}, kept ok {kept_ok}")
+
+    # ---- (b) -----------------------------------------------------------
+    cfg_b = dataclasses.replace(cfg, offload=True,
+                                remat_budget_bytes=OFFLOAD_BUDGET,
+                                dma_gbps=OFFLOAD_DMA_GBPS)
+    plan_b = compile_plan(cfg_b, batch_tokens=micro_tokens)
+    decisions = plan_b.remat_plan.decisions()
+    off_names = [n for n, d in decisions.items() if d == "offload"]
+    check(bool(off_names), "train", f"(b) the plan offloads nothing: "
+          f"{decisions}")
+    grad_rel, worst = _offload_grads_gate(torch, cfg, cfg_b, micro_tokens,
+                                          remat)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    _zero(fa, sw)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with remat.observe_regions() as stats_b:
+        out = Trainer(build_model(cfg_b), make_optimizer("adamw"), shape,
+                      TrainerConfig(steps=TRAIN_STEPS, log_every=1),
+                      microbatches=TRAIN_MICRO).run()
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated() - base
+    losses_b = [h["loss"] for h in out["history"]]
+    times_b = [h["time_s"] for h in out["history"]]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = cfg.n_layers * TRAIN_MICRO
+    fence_ms = [remat.fence_wait_ms(stats_b[i:i + per_step])
+                for i in range(0, len(stats_b), per_step)]
+    kept_b = {n: b for n, b in tagged.items() if decisions[n] == "keep"}
+    off_b = {n: b for n, b in tagged.items() if decisions[n] == "offload"}
+    off_layer = sum(off_b.values())
+    moved_ok = _region_gate(stats_b, kept_b, off_b, x_bytes) and \
+        len(stats_b) == cfg.n_layers * runs and \
+        all(len(s.fences) == len(off_b) for s in stats_b)
+    rels = [abs(b_ - a_) / abs(a_) for a_, b_ in zip(losses, losses_b)]
+    expected_b = _expected_launches(plan_b, cfg.n_layers, runs)
+    launches_b = {"flash": fa.LAUNCHES, "swiglu": sw.LAUNCHES}
+    step_s_b = statistics.median(times_b[1:])
+    ok = (moved_ok and len(rels) == TRAIN_STEPS and max(rels) <= 1e-6
+          and grad_rel <= GRAD_REL_TOL and launches_b == expected_b
+          and peak - peak_b >= 0.5 * off_layer * cfg.n_layers)
+    emit({"phase": "train", "part": "b", "ok": ok, "gpu": gpu,
+          "remat_budget_bytes": OFFLOAD_BUDGET, "dma_gbps": OFFLOAD_DMA_GBPS,
+          "plan_decisions": decisions, "offload_lowering":
+              plan_b.report().get("offload_lowering"),
+          "measured_offloaded_bytes_per_layer":
+              stats_b[0].offloaded if stats_b else None,
+          "measured_kept_bytes_per_layer":
+              stats_b[0].kept if stats_b else None,
+          "plan_offload_dma_bytes_per_layer":
+              plan_b.remat_plan.offload_dma_bytes_per_layer,
+          "peak_bytes": peak_b, "peak_bytes_a": peak,
+          "peak_drop_bytes": peak - peak_b,
+          "offloaded_bytes_x_layers": off_layer * cfg.n_layers,
+          "losses": losses_b, "losses_a": losses, "loss_rels": rels,
+          "max_grad_rel_vs_keep_all": grad_rel, "worst_grad": worst,
+          "grad_tol": GRAD_REL_TOL,
+          "step_s": times_b, "step_s_median_2_3": step_s_b,
+          "step_s_median_2_3_a": step_s, "step_ratio_b_over_a":
+              step_s_b / step_s,
+          "fence_wait_ms_per_step": fence_ms,
+          "kernel_launches": launches_b, "expected_launches": expected_b})
+    check(ok, "train", f"(b) moved ok {moved_ok}, loss rels {rels}, grad "
+          f"{worst} {grad_rel}, peak {peak_b} vs {peak}, launches "
+          f"{launches_b} vs {expected_b}")
+    return launches
+
+
+def _offload_grads_gate(torch, cfg, cfg_b, tokens, remat):
+    """(b)'s gradient check: one micro-batch of ``tokens`` tokens through
+    ``loss_fn`` under the keep-all plan and under the offloading plan, from
+    the same parameters; between the forward and the backward of the
+    offloading run, the memory the offloaded copies left is filled with
+    NaN, so a fetch that read it, or a copy that raced it, shows.  Returns
+    the largest normwise difference over the grads and the loss, and the
+    name where it was."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    params = model.init(0, trainable=True)
+    g = torch.Generator("cuda").manual_seed(43)
+    toks = torch.randint(0, cfg.vocab, (1, tokens + 1), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def grads_under(c, scribble):
+        with remat.observe_regions() as stats:
+            loss = build_model(c).loss_fn(params, batch)
+        if scribble:      # blocks of the released copies' sizes
+            junk = [torch.full((n // 4,), float("nan"), device="cuda")
+                    for s in stats for n in s.offloaded.values()]
+            del junk
+        loss.backward()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return loss.detach(), grads
+
+    want_loss, want = grads_under(cfg, False)
+    loss, got = grads_under(cfg_b, True)
+    rels = {n: ((got[n] - w).abs().max() / w.abs().max()).item()
+            for n, w in want.items()}
+    rels["loss"] = abs((loss - want_loss) / want_loss).item()
+    worst = max(rels, key=rels.get)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return rels[worst], worst
+
+
+def _intermediates(cfg, tokens):
+    from repro_torch.core.remat_policy import transformer_intermediates
+    return transformer_intermediates(
+        batch_tokens=tokens, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        n_q_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim)
+
+
+def _loss_and_grads(torch, model, params, batch):
+    for p in params.parameters():
+        p.grad = None
+    loss = model.loss_fn(params, batch)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in params.named_parameters()}
+
+
+def _train_fp32_parity(torch, fa, sw, flash_ops):
+    """(c) fp32, full width, depth 4, every tag recomputed (so each kernel
+    also launches in the replays): the kernel path (flash and SwiGLU simt)
+    against the plain path (the twins in the wrappers' place) on the card,
+    loss and every grad normwise; then granite-moe the same way with every
+    expert choice compared."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    for arch in ("llama3.2-3b", "granite-moe-1b-a400m"):
+        cfg = dataclasses.replace(
+            ARCHS[arch], attention_impl="pallas", dtype="float32",
+            n_layers=TRAIN_FP32_DEPTH, remat_budget_bytes=0)
+        model = build_model(cfg)
+        params = model.init(0, trainable=True)
+        g = torch.Generator("cuda").manual_seed(41)
+        toks = torch.randint(0, cfg.vocab, (1, TRAIN_FP32_SEQ + 1),
+                             generator=g, device="cuda")
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        masks = []
+        top_k_mask = moe._top_k_mask
+
+        def recorded(probs, k):
+            mask, weights = top_k_mask(probs, k)
+            masks.append(mask.cpu())
+            return mask, weights
+
+        moe._top_k_mask = recorded
+        flash_fwd, swiglu_fwd = flash_ops.flash_attention_fwd, sw._forward
+        try:
+            _zero(fa, sw)
+            loss, grads = _loss_and_grads(torch, model, params, batch)
+            launches = {"flash": fa.LAUNCHES, "swiglu": sw.LAUNCHES}
+            simt = _only(fa, "simt", fa.LAUNCHES) and \
+                _only(sw, "simt", sw.LAUNCHES)
+            card_masks, masks[:] = list(masks), []
+            flash_ops.flash_attention_fwd = fa.flash_attention_fwd_plain
+            sw._forward = sw.fused_swiglu_plain
+            _zero(fa, sw)
+            want_loss, want = _loss_and_grads(torch, model, params, batch)
+            plain_launches = fa.LAUNCHES + sw.LAUNCHES
+        finally:
+            moe._top_k_mask = top_k_mask
+            flash_ops.flash_attention_fwd, sw._forward = flash_fwd, \
+                swiglu_fwd
+        plan = compile_plan(cfg, batch_tokens=TRAIN_FP32_SEQ)
+        expected = _expected_launches(plan, cfg.n_layers, 1)
+        errs = {n: ((grads[n] - w).abs().max() / w.abs().max()).item()
+                for n, w in want.items()}
+        loss_rel = abs((loss - want_loss) / want_loss).item()
+        flipped = [int((a != b).any(-1).sum())
+                   for a, b in zip(card_masks, masks)]
+        ok = (loss_rel <= GRAD_REL_TOL and max(errs.values()) <= GRAD_REL_TOL
+              and launches == expected and simt and plain_launches == 0
+              and len(card_masks) == len(masks) and not any(flipped))
+        worst = max(errs, key=errs.get)
+        emit({"phase": "train", "part": "c", "arch": arch, "ok": ok,
+              "layers": cfg.n_layers, "seq": TRAIN_FP32_SEQ,
+              "plan_decisions": plan.remat_plan.decisions(),
+              "loss": loss.item(), "loss_rel": loss_rel,
+              "max_grad_rel": errs[worst], "worst_grad": worst,
+              "tol": GRAD_REL_TOL, "kernel_launches": launches,
+              "expected_launches": expected, "all_simt": simt,
+              "expert_choices_compared": len(card_masks),
+              "tokens_with_flipped_experts": flipped})
+        check(ok, "train", f"(c) {arch}: loss rel {loss_rel}, grad "
+              f"{worst} {errs[worst]}, launches {launches} vs {expected}, "
+              f"flipped {flipped}")
+        del params, grads, want
+        torch.cuda.empty_cache()
+
+
+def _train_resume(torch):
+    """(d) reduced depth (and vocabulary, to keep the checkpoints small):
+    4 steps straight, then 2 steps with a checkpoint and a restart from it
+    for steps 3-4, under deterministic algorithms; losses bit for bit and
+    the data state restored as saved."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas",
+                              n_layers=RESUME_DEPTH, vocab=RESUME_VOCAB)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=RESUME_SEQ,
+                                global_batch=2)
+    ckpt_dir = ROOT / "build" / "chip_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def run(steps, ckpt):
+        trainer = Trainer(build_model(cfg), make_optimizer("adamw"), shape,
+                          TrainerConfig(steps=steps, log_every=1,
+                                        ckpt_every=2, ckpt_dir=ckpt))
+        out = trainer.run()
+        return [h["loss"] for h in out["history"]], trainer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight, _ = run(4, None)
+            first, _ = run(2, str(ckpt_dir))
+            saved = json.loads(
+                (ckpt_dir / "step_2" / "data_state.json").read_text())
+            resumed, trainer = run(4, str(ckpt_dir))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    restored = trainer.restored_data_state.as_dict()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    nondeterministic = sorted({str(w.message)[:120] for w in caught
+                               if "deterministic" in str(w.message)})
+    ok = (first == straight[:2] and resumed == straight[2:]
+          and restored == saved)
+    emit({"phase": "train", "part": "d", "ok": ok, "layers": cfg.n_layers,
+          "vocab": cfg.vocab, "seq": RESUME_SEQ, "straight": straight,
+          "first_two": first, "resumed": resumed, "saved_data_state": saved,
+          "restored_data_state": restored,
+          "nondeterministic_warnings": nondeterministic})
+    check(ok, "train", f"(d) straight {straight}, resumed {resumed}, data "
+          f"state {restored} vs {saved}")
 
 
 if __name__ == "__main__":

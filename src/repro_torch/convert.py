@@ -23,6 +23,12 @@ array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
 array, leaves as numpy) and returns the same tree of float32 tensors, the
 layout ``repro_torch.core.exec.layers`` uses.
 
+``adamw_state_from_numpy`` turns the reference's AdamW state for an LM
+(``optimizer.init`` / ``update`` of ``repro.optim.adamw``: per parameter
+leaf ``{"m", "v"}`` in fp32, bf16 or int8 ``{"q", "scale"}`` blocks, and
+``count``) into the port's state over the same model's
+``named_parameters()``, so the two can continue from one state.
+
 ``optim_state_from_numpy`` carries a reference ``OptimRuntime``'s host
 state (``repro.core.optim_offload``: per layer the int8 blocks and fp32
 scales, or the fp32 state when uncompressed, the EF residual and the step
@@ -38,9 +44,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import layers
+from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.models.transformer import (TransformerLM, XLSTMLM,
-                                            xlstm_layout)
+                                            weight_dtype, xlstm_layout)
 from repro_torch.models.zamba import ZambaLM, layout
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -76,12 +82,17 @@ def optim_state_from_numpy(runtime, host_state, residual, count: int
     runtime.count = int(count)
 
 
-def params_from_numpy(tree, cfg: ModelConfig,
-                      device: DeviceLike = None) -> nn.Module:
+def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
+                      *, trainable: bool = False) -> nn.Module:
+    """The port's model holding ``tree``'s values; ``trainable=True`` (the
+    dense and moe families) holds every leaf in float32 with gradients."""
     if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if trainable and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet")
     dev = resolve_device(device)
-    dt = layers.dtype_of(cfg.dtype)
+    dt = weight_dtype(cfg, trainable)
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
@@ -118,7 +129,7 @@ def params_from_numpy(tree, cfg: ModelConfig,
     if cfg.family in ("dense", "moe"):
         port["blocks"] = [block(tree["blocks"], i)
                           for i in range(cfg.n_layers)]
-        return TransformerLM(cfg, port)
+        return TransformerLM(cfg, port, trainable=trainable)
     if cfg.family == "ssm":
         def xblock(p, kind, names, i):
             """Layer ``i`` of a stacked mLSTM or sLSTM tree."""
@@ -141,3 +152,95 @@ def params_from_numpy(tree, cfg: ModelConfig,
     port["tail"] = [mamba(tree["tail"], i) for i in range(tail)]
     port["shared"] = block(tree["shared"])
     return ZambaLM(cfg, port)
+
+
+def lm_leaf_paths(cfg: ModelConfig, tree):
+    """(port parameter name, reference tree path, stacked layer or None)
+    of every leaf of a dense or moe LM, in ``named_parameters()`` order."""
+    yield "embed", ("embed", "table"), None
+    for i in range(cfg.n_layers):
+        b = f"blocks.{i}"
+        yield f"{b}.ln1", ("blocks", "ln1", "scale"), i
+        for n in _ATTN:
+            yield f"{b}.attn.{n}", ("blocks", "attn", n, "kernel"), i
+        yield f"{b}.ln2", ("blocks", "ln2", "scale"), i
+        if cfg.is_moe:
+            yield f"{b}.moe.router", ("blocks", "moe", "router", "kernel"), i
+            for n in _MLP:
+                yield f"{b}.moe.{n}", ("blocks", "moe", n), i
+        else:
+            for n in _MLP:
+                yield f"{b}.mlp.{n}", ("blocks", "mlp", n, "kernel"), i
+    yield "ln_f", ("ln_f", "scale"), None
+    if "unembed" in tree:
+        yield "unembed", ("unembed", "kernel"), None
+
+
+def adamw_state_from_numpy(state, cfg: ModelConfig,
+                           device: DeviceLike = None):
+    """The port's AdamW state (``{"mu": {name: {"m", "v"}}, "count"}``)
+    holding a reference AdamW state whose leaves are numpy arrays.
+
+    fp32 and bf16 moments are sliced per layer.  An int8 moment is one
+    quantised leaf over all layers of a stacked parameter; its blocks are
+    split between the layers, which is exact when a layer's element count
+    is a whole number of blocks and raises otherwise."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet")
+    dev = resolve_device(device)
+    mu = state["mu"]
+
+    def leaf(path):
+        node = mu
+        for k in path:
+            node = node[k]
+        return node
+
+    def moment(a, i, n_layer):
+        if isinstance(a, dict):                        # int8 {"q", "scale"}
+            q, scale = np.asarray(a["q"]), np.asarray(a["scale"])
+            if i is not None:
+                if n_layer % QBLOCK:
+                    raise ValueError(
+                        f"a layer of {n_layer} elements is not a whole "
+                        f"number of {QBLOCK}-element blocks: the int8 "
+                        "state does not split between the layers")
+                rows = n_layer // QBLOCK
+                q, scale = q[i * rows:(i + 1) * rows], \
+                    scale[i * rows:(i + 1) * rows]
+            return {"q": torch.from_numpy(np.array(q)).to(dev),
+                    "scale": torch.from_numpy(
+                        np.array(scale, np.float32)).to(dev)}
+        a = np.asarray(a) if i is None else np.asarray(a)[i]
+        dt = torch.bfloat16 if str(a.dtype) == "bfloat16" else torch.float32
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+
+    out = {}
+    for name, path, i in lm_leaf_paths(cfg, mu):
+        mv = leaf(path)
+        shape = np.shape(mv["m"]) if not isinstance(mv["m"], dict) else None
+        n_layer = None
+        if i is not None and shape is None:
+            n_layer = int(np.prod(_param_shape(cfg, path)))
+        out[name] = {k: moment(mv[k], i, n_layer) for k in ("m", "v")}
+    count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                         device=dev)
+    return {"mu": out, "count": count}
+
+
+def _param_shape(cfg: ModelConfig, path):
+    """One layer's shape of the stacked parameter at ``path``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    name = path[-2] if path[-1] in ("kernel", "scale") else path[-1]
+    if path[1] in ("ln1", "ln2"):
+        return (d,)
+    if path[1] == "attn":
+        heads = cfg.n_heads if name in ("wq", "wo") else cfg.n_kv_heads
+        return (heads * hd, d) if name == "wo" else (d, heads * hd)
+    if path[1] == "moe":
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        return {"router": (d, e), "gate": (e, d, f), "up": (e, d, f),
+                "down": (e, f, d)}[name]
+    return {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff),
+            "down": (cfg.d_ff, d)}[name]

@@ -31,11 +31,13 @@ The schedule produced here is consumed in two places:
   host-pool high-water trackers proving the planned bounds are
   respected.
 
-The reference also lowers the decisions to ``jax.checkpoint`` offload
-policies (``offload_policy``, ``offload_lowering``) for the model-config
-path.  The port leaves those out until training is ported (ROADMAP item
-8); here the decisions reach the card through the lowered schedule and
-the CUDA copy stream of :mod:`repro_torch.core.exec.store`.
+On the model-config path the decisions lower to a checkpoint policy
+(:func:`offload_policy`) that :mod:`repro_torch.core.remat` realises
+around each transformer block: offloaded intermediates go to pinned host
+memory through saved-tensor hooks and a CUDA copy stream
+(:func:`offload_lowering` says so in ``report()``).  On the graph path
+they reach the card through the lowered schedule and the copy stream of
+:mod:`repro_torch.core.exec.store`.
 
 Knobs (all on :func:`plan_offload`):
 
@@ -200,3 +202,24 @@ def plan_offload(ordered: OrderedTensors, *, min_idle_phases: int = 4,
             break
 
     return make_schedule(chosen)
+
+
+def offload_lowering() -> str:
+    """How offload decisions lower in the port: always ``"native"``.
+
+    The reference returns ``"fallback_save"`` when its JAX lacks
+    ``save_and_offload_only_these_names`` and the policy degrades to
+    device saves.  The port has no such fallback: an offloaded residual is
+    copied to host memory (pinned, on a CUDA copy stream, for a tensor on
+    the card) and its device bytes are released
+    (:mod:`repro_torch.core.remat`).
+    """
+    return "native"
+
+
+def offload_policy(names: Sequence[str], *, saved: Sequence[str] = ()):
+    """Checkpoint policy offloading ``names`` to host memory and keeping
+    ``saved`` on the device; every other intermediate is recomputed (the
+    reference's ``save_and_offload_only_these_names``)."""
+    from repro_torch.core.remat_policy import CheckpointPolicy
+    return CheckpointPolicy(saved=tuple(saved), offloaded=tuple(names))

@@ -20,8 +20,8 @@ Two input kinds are accepted:
   analysis, proactive-swap scheduling, swap-aware arena packing and the
   phase-ticked swap executor;
 * a transformer-shaped ``ModelConfig`` — the model path: the joint
-  keep/recompute/offload planner over tagged intermediates (its
-  checkpoint-policy realisation comes with training, ROADMAP item 8).
+  keep/recompute/offload planner over tagged intermediates, realised
+  around each block by :mod:`repro_torch.core.remat`.
 
 Schedule/planner co-optimisation (ROADMAP item, now a behaviour of this
 API): ``plan_offload`` picks swap candidates by byte-phase product *before*
@@ -131,7 +131,7 @@ from repro_torch.core.execution_order import (OrderedTensors,
                                               compute_execution_order)
 from repro_torch.core.graph import LayerGraph
 from repro_torch.core.offload import (OffloadSchedule, make_schedule,
-                                      plan_offload)
+                                      offload_lowering, plan_offload)
 from repro_torch.core.planner import (Plan, SwapAwarePlan, get_planner,
                                       plan_memory_swapped)
 from repro_torch.core.remat_policy import (RematPlan, plan_joint_policy,
@@ -569,12 +569,12 @@ class CompiledMemoryPlan:
     @property
     def offload_policy(self):
         """The checkpoint policy realising this plan's keep/offload
-        decisions, or None when no policy applies.
+        decisions (a :class:`repro_torch.core.remat_policy.
+        CheckpointPolicy`), or None when no policy applies.
 
-        Only model-config plans have one, and the port has not realised it
-        yet: :meth:`RematPlan.policy` raises ``NotImplementedError``
-        (ROADMAP item 8).  Graph plans execute their swap schedule through
-        the layer-basis executor (``loss_and_grads``) instead."""
+        Only model-config plans with remat on have one; graph plans
+        execute their swap schedule through the layer-basis executor
+        (``loss_and_grads``) instead."""
         if self.remat_plan is not None:
             return self.remat_plan.policy()
         return None
@@ -696,6 +696,8 @@ class CompiledMemoryPlan:
             out["recompute_flops_per_layer"] = rp.recompute_flops_per_layer
             out["offload_dma_bytes_per_layer"] = rp.offload_dma_bytes_per_layer
             out["est_step_time_s_per_layer"] = rp.est_step_time_s_per_layer
+            if rp.offloaded:
+                out["offload_lowering"] = offload_lowering()
         return out
 
 

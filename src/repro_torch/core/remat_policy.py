@@ -26,12 +26,13 @@ eviction lane — recompute or offload — is cheaper under the
 :class:`RematPlan` with honest accounting (``recompute_flops_per_layer``,
 ``offload_dma_bytes_per_layer``).
 
-This is the pure planning half of the reference module.  The reference
-also turns a plan into a ``jax.checkpoint`` policy (``RematPlan.policy``)
-and tags intermediates by name (``tag``); in the port both raise
-``NotImplementedError`` until training is ported (ROADMAP item 8).  The
-deprecated two-knob ``plan_checkpoint_policy`` and ``plan_for_config``
-shims are not carried over.
+The reference turns a plan into a ``jax.checkpoint`` policy
+(``RematPlan.policy``) and names intermediates with ``tag``; here the
+policy is a :class:`CheckpointPolicy` (which names to keep, which to
+offload, the rest recomputed) and :mod:`repro_torch.core.remat` realises
+it around each block with saved-tensor hooks.  The deprecated two-knob
+``plan_checkpoint_policy`` and ``plan_for_config`` shims are not carried
+over.
 
 Tag names used across the models:
 
@@ -110,16 +111,29 @@ class RematPlan:
         out.update({n: OFFLOAD for n in self.offloaded})
         return out
 
-    def policy(self):
-        """The checkpoint policy realising these decisions: not ported yet.
+    def policy(self) -> "CheckpointPolicy":
+        """The checkpoint policy saving (and offloading) the planned names:
+        the reference's ``save_only_these_names`` /
+        ``save_and_offload_only_these_names``."""
+        return CheckpointPolicy(saved=self.saved, offloaded=self.offloaded)
 
-        The reference returns a ``jax.checkpoint`` policy; the port's
-        counterpart (``torch.utils.checkpoint`` with saved-tensor hooks to
-        pinned host) comes with training, ROADMAP item 8.
-        """
-        raise NotImplementedError(
-            "RematPlan.policy is not ported yet: its torch.utils.checkpoint "
-            "realisation comes with training (ROADMAP item 8)")
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """Which tagged intermediates a checkpointed block keeps on the device
+    (``saved``) and which it offloads to host memory (``offloaded``);
+    every other intermediate, tagged or not, is recomputed in the
+    backward."""
+
+    saved: Tuple[str, ...] = ()
+    offloaded: Tuple[str, ...] = ()
+
+    def decision(self, name: str) -> str:
+        if name in self.offloaded:
+            return OFFLOAD
+        if name in self.saved:
+            return KEEP
+        return RECOMPUTE
 
 
 def _lane_costs_s(i: Intermediate, dma_gbps: float,
@@ -287,14 +301,10 @@ def plan_step_time_s(plan: RematPlan, intermediates: Sequence[Intermediate],
 
 
 def tag(name: str, x):
-    """Tag an intermediate for the checkpoint policy: not ported yet.
-
-    The reference names ``x`` with ``jax.ad_checkpoint.checkpoint_name``;
-    the port's counterpart comes with training, ROADMAP item 8.
-    """
-    raise NotImplementedError(
-        f"tag({name!r}) is not ported yet: checkpoint names come with "
-        "training (ROADMAP item 8)")
+    """Tag an intermediate for the checkpoint policy (the identity outside
+    a checkpointed block; see :mod:`repro_torch.core.remat`)."""
+    from repro_torch.core import remat   # torch; this module stays pure
+    return remat.tag(name, x)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@ Each source's header says what bounds it on the H100 and how its design
 answers that.  :func:`choose_variant` is the one routing rule;
 :func:`fused_swiglu` applies it and launches, and raises on what no
 kernel takes; for CPU tensors it runs :func:`fused_swiglu_plain`, the
-kernels' plain PyTorch twin.  All take an optional leading batch (one MoE
-layer's experts: x (E, M, K), wg and wu (E, K, F)), run in one launch.
+kernels' plain PyTorch twin; its backward recomputes the twin under
+autograd.  All take an optional leading batch (one MoE layer's experts:
+x (E, M, K), wg and wu (E, K, F)), run in one launch.
 ``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_VARIANT`` splits them
 by variant, so a run can show that its main path went through the kernel
 it should.
@@ -26,6 +27,7 @@ it should.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
 from typing import Dict, Sequence
@@ -33,6 +35,7 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.remat import produce
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}    # the C entry point's codes
@@ -141,26 +144,64 @@ def _check(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> None:
 
 def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor
                  ) -> torch.Tensor:
-    """h = silu(x wg) * (x wu), rounded once to x's dtype.
+    """h = silu(x wg) * (x wu), rounded once to x's dtype, differentiable.
 
     x: (M, K), wg, wu: (K, F) -> (M, F); or x: (E, M, K), wg, wu:
     (E, K, F) -> (E, M, F).  Contiguous, all float32 or all bfloat16.
-    CUDA tensors go to the sm_90a kernel :func:`choose_variant` names, CPU
-    tensors to the plain twin.  The kernels have no backward yet, so a
-    CUDA call that would need a gradient raises rather than return an
-    output the gradient cannot flow through.
+    The forward goes to the sm_90a kernel :func:`choose_variant` names for
+    CUDA tensors and to the plain twin for CPU tensors; the backward
+    recomputes the twin under autograd (:class:`_FusedSwiGLU`).
     """
     _check(x, wg, wu)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wg, wu)):
+        return _FusedSwiGLU.apply(x, wg, wu)
+    return _forward(x, wg, wu)
+
+
+def _forward(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor
+             ) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_swiglu_plain(x, wg, wu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, wg, wu)):
-        raise NotImplementedError(
-            "fused_swiglu is forward-only on the card; its backward comes "
-            "with the training slice")
     return _launch(x, wg, wu, variant_for(x, wg, wu))
+
+
+class _FusedSwiGLU(torch.autograd.Function):
+    """Forward by the kernel; backward by the plain twin's autograd, as the
+    reference's models differentiate the plain ``layers.swiglu``.  It saves
+    only x, wg and wu, so a checkpoint replay that kept h skips the kernel
+    (:func:`repro_torch.core.remat.produce`).  For bf16 inputs on the card
+    the twin's fp32 products may run on tf32 tensor cores: a bf16 operand
+    is exact in tf32, and the gradients are rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu):
+        ctx.save_for_backward(x, wg, wu)
+        return produce(lambda: _forward(x, wg, wu))
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, wg, wu = ctx.saved_tensors
+        inputs = tuple(t.detach().requires_grad_(t.requires_grad)
+                       for t in (x, wg, wu))
+        need = [t for t in inputs if t.requires_grad]
+        tf32 = x.device.type == "cuda" and x.dtype == torch.bfloat16
+        with torch.enable_grad(), _allow_tf32(tf32):
+            h = fused_swiglu_plain(*inputs)
+            got = iter(torch.autograd.grad(h, need, dh))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+@contextlib.contextmanager
+def _allow_tf32(on: bool):
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    flags.allow_tf32 = before or on
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = before
 
 
 def _launch(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -1,0 +1,92 @@
+"""Training launcher, on one CUDA card.
+
+    python -m repro_torch.launch.train --arch llama3.2-3b --shape train_4k \
+        --steps 3 --batch 2 --microbatches 2 [--ckpt-dir D] \
+        [--heartbeat-dir H] [--device cpu] [--test-mesh]
+
+Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
+``model.loss_fn`` with AdamW (the reference's defaults, fp32 state) on
+``synthetic_lm_producer``, each block checkpointed under the memory
+plan's policy.  Weights are random from seed 0.  It runs on the card;
+``--device cpu`` runs the plain PyTorch path on the host.  Attention goes
+through the flash kernel (``attention_impl="pallas"``; the config's own
+default is the blockwise formulation).
+
+``--test-mesh`` keeps its reference meaning: the reduced config at
+sequence 64, batch 8.  The pod layer is not ported (ROADMAP item 11):
+``--dry-run``, ``--multi-pod`` and ``--distributed`` raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default: the shape's; train_4k's "
+                         "256 sequences of 4096 tokens do not fit one card "
+                         "with llama3.2-3b's fp32 AdamW state: use 2)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--heartbeat-dir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--test-mesh", action="store_true",
+                    help="reduced config at sequence 64, batch 8")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported (ROADMAP item 11)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="not ported (ROADMAP item 11)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="not ported (ROADMAP item 11)")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    args = parser().parse_args(argv)
+    for flag in ("dry_run", "multi_pod", "distributed"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} needs the pod layer (mesh, "
+                "sharding, multi-host), which is not ported yet (ROADMAP "
+                "item 11)")
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.models.model import build_model, reduce_config
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ARCHS[args.arch]
+    shape = SHAPES[args.shape]
+    if shape.kind != "train":
+        raise SystemExit("use repro_torch.launch.serve for serving shapes")
+    if args.test_mesh:
+        cfg = reduce_config(cfg)
+        shape = dataclasses.replace(shape, seq_len=64, global_batch=8)
+    else:
+        cfg = dataclasses.replace(cfg, attention_impl="pallas")
+    if args.batch is not None:
+        shape = dataclasses.replace(shape, global_batch=args.batch)
+    if shape.global_batch % args.microbatches:
+        raise SystemExit(f"batch {shape.global_batch} does not split into "
+                         f"{args.microbatches} micro-batches")
+
+    tcfg = TrainerConfig(steps=args.steps, log_every=1,
+                         ckpt_dir=args.ckpt_dir,
+                         heartbeat_dir=args.heartbeat_dir)
+    trainer = Trainer(build_model(cfg), make_optimizer("adamw"), shape, tcfg,
+                      microbatches=args.microbatches, device=args.device)
+    out = trainer.run()
+    print(f"final loss: {out['final_loss']:.4f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,12 @@ kernel for ``attention_impl="pallas"`` and blockwise for "blockwise".
 The kernel takes GQA natively, so it gets the un-repeated K/V (same
 function, less memory).
 
+Under autograd the rotary q and k projections are one Function each
+(:class:`_RotaryProjection`, saving only its inputs and computing its own
+backward), and q and the attention output are tagged ``qkv`` and
+``attn_out`` where the reference tags them, so a checkpointed block's
+replay skips what its policy kept (``repro_torch.core.remat``).
+
 The KV cache is updated in place: ``prefill_attention`` and
 ``decode_attention`` write into the cache slices they are given and
 return them.  The decode write at ``cache_len`` is an indexed store where
@@ -23,6 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import produce
+from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers
 
@@ -118,6 +126,48 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+class _RotaryProjection(torch.autograd.Function):
+    """rope((x @ w).view(B, S, heads, hd)) in the compute dtype ``dt``:
+    the op-by-op value, with the vjp written out (rotate back in fp32,
+    round to ``dt``, then the matmul's two products) so that the Function
+    saves only x, w and the positions."""
+
+    @staticmethod
+    def forward(ctx, x, w, positions, theta, heads, dt):
+        ctx.save_for_backward(x, w, positions)
+        ctx.cfg = (theta, heads, dt)
+        return produce(lambda: _project(x, w, positions, theta, heads, dt))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, positions = ctx.saved_tensors
+        theta, heads, dt = ctx.cfg
+        b, s, d = x.shape
+        cos, sin = layers.rope_cos_sin(positions, g.shape[-1], theta)
+        g1, g2 = g.float().chunk(2, dim=-1)
+        dy = torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin], dim=-1)
+        dy = dy.to(dt).reshape(b * s, -1)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy @ w.to(dt).T).view(b, s, d).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.to(dt).reshape(b * s, d).T @ dy).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+def _project(x, w, positions, theta, heads, dt):
+    b, s, _ = x.shape
+    return layers.apply_rope(layers.dense(w, x, dt).view(b, s, heads, -1),
+                             positions, theta)
+
+
+def _rotary_projection(x, w, positions, theta, heads, dt):
+    """The Function under autograd; outside it (serving) the plain ops."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RotaryProjection.apply(x, w, positions, theta, heads, dt)
+    return _project(x, w, positions, theta, heads, dt)
+
+
 def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
                       positions: torch.Tensor, causal: bool = True
                       ) -> torch.Tensor:
@@ -125,11 +175,12 @@ def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
     dt = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = layers.dense(params["wq"], x, dt).view(b, s, h, hd)
-    k = layers.dense(params["wk"], x, dt).view(b, s, kv, hd)
+    q = _rotary_projection(x, params["wq"], positions, cfg.rope_theta, h,
+                           dt)
+    k = _rotary_projection(x, params["wk"], positions, cfg.rope_theta, kv,
+                           dt)
     v = layers.dense(params["wv"], x, dt).view(b, s, kv, hd)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q = tag("qkv", q)
     impl = cfg.attention_impl
     if impl not in ("naive", "pallas", "blockwise"):
         # "skip" is the reference's cost-probe mode (launch/probe.py)
@@ -144,7 +195,8 @@ def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
     else:
         o = naive_attention(q, _repeat_kv(k, h // kv),
                             _repeat_kv(v, h // kv), causal=causal)
-    return layers.dense(params["wo"], o.reshape(b, s, h * hd), dt)
+    o = tag("attn_out", o.contiguous())
+    return layers.dense(params["wo"], o.view(b, s, h * hd), dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Shared neural-net layers as plain functions on tensors.
 
 Port of ``repro/models/layers.py``.  Every matmul casts to the config's
-compute dtype, as the reference does at each use; the port may hold matmul
-weights in that dtype already, which makes the cast a no-op.  Norm scales
-stay float32.  The reference's ``tag``/``constrain`` annotations are the
-identity on one device outside autodiff and are dropped.
+compute dtype, as the reference does at each use; a served model may hold
+matmul weights in that dtype already, which makes the cast a no-op (a
+trained one holds them in float32).  Norm scales stay float32.  ``tag``
+names an intermediate for a checkpointed block's policy
+(``repro_torch.core.remat``), as the reference's does; its ``constrain``
+annotations are the identity on one device and are dropped.
 
 Every random draw takes a ``torch.Generator``; the tensor lands on the
 generator's device.
@@ -18,6 +20,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -95,13 +98,17 @@ def rope_frequencies(head_dim: int, theta: float, *, device=None
     return 1.0 / (theta ** exps)
 
 
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles, (..., seq, 1, head_dim / 2) fp32."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = positions[..., :, None].float() * freqs       # (..., s, hd/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
-    angles = positions[..., :, None].float() * freqs       # (..., s, hd/2)
-    cos = torch.cos(angles)[..., None, :]                   # (..., s, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos, sin = rope_cos_sin(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -149,4 +156,5 @@ def swiglu(params, x: torch.Tensor,
     down projection stays a matmul, as the reference leaves it to XLA."""
     dt = compute_dtype
     h = fused_swiglu(x.to(dt), params["gate"].to(dt), params["up"].to(dt))
+    h = tag("mlp_hidden", h)
     return dense(params["down"], h, dt)

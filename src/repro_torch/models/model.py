@@ -4,7 +4,8 @@ Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
 "hybrid" and "ssm" (xLSTM).
 ``Model`` bundles the functions for one config:
 
-    model.init(seed, device=None)              -> params (an nn.Module)
+    model.init(seed, device=None, trainable=False) -> params (an nn.Module)
+    model.loss_fn(params, batch)               -> scalar loss   (train)
     model.forward(params, batch)               -> logits        (prefill)
     model.decode_init(batch, max_seq, device=None) -> decode state
     model.decode_fn(params, state, tokens, cache_len) -> (logits, state)
@@ -12,6 +13,10 @@ Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
 
 ``prefill_fn`` is None for the hybrid and ssm families, whose decode
 state is recurrent: servers fill it token by token through ``decode_fn``.
+Training (``loss_fn``, ``init(..., trainable=True)``: float32 parameters
+with gradients) is ported for the dense and moe families; the hybrid and
+ssm families raise until their slice (ROADMAP.md queue A, item 12) brings
+gradients through the SSD and mLSTM kernels.
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).
@@ -39,12 +44,32 @@ class Model:
     decode_init: Callable
     decode_fn: Callable
     prefill_fn: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
 
 
 def _init(init_fn: Callable, cfg: ModelConfig, seed: int, *,
-          device: DeviceLike = None) -> nn.Module:
+          device: DeviceLike = None, trainable: bool = False) -> nn.Module:
     gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+    if trainable:
+        return init_fn(gen, cfg, trainable=True)
     return init_fn(gen, cfg)
+
+
+def _untrainable(cfg: ModelConfig) -> Callable:
+    def refuse(*_, **__):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet: it "
+            "needs gradients through the SSD and mLSTM kernels (ROADMAP.md "
+            "queue A, item 12)")
+    return refuse
+
+
+def _init_serving(init_fn: Callable, cfg: ModelConfig, seed: int, *,
+                  device: DeviceLike = None, trainable: bool = False
+                  ) -> nn.Module:
+    if trainable:
+        _untrainable(cfg)()
+    return _init(init_fn, cfg, seed, device=device)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -53,6 +78,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, t.lm_init, cfg),
+            loss_fn=lambda p, b: t.lm_loss(cfg, p, b),
             forward=lambda p, b: t.lm_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None: t.lm_decode_init(
                 cfg, batch, max_seq, device=resolve_device(device)),
@@ -64,7 +90,8 @@ def build_model(cfg: ModelConfig) -> Model:
         z = zamba
         return Model(
             cfg=cfg,
-            init=functools.partial(_init, z.zamba_init, cfg),
+            init=functools.partial(_init_serving, z.zamba_init, cfg),
+            loss_fn=_untrainable(cfg),
             forward=lambda p, b: z.zamba_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
                 z.zamba_decode_init(cfg, batch, max_seq,
@@ -76,7 +103,8 @@ def build_model(cfg: ModelConfig) -> Model:
         t = transformer
         return Model(
             cfg=cfg,
-            init=functools.partial(_init, t.xlstm_init, cfg),
+            init=functools.partial(_init_serving, t.xlstm_init, cfg),
+            loss_fn=_untrainable(cfg),
             forward=lambda p, b: t.xlstm_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
                 t.xlstm_decode_init(cfg, batch, max_seq,

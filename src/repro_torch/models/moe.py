@@ -14,9 +14,10 @@ expert's gate/up half, ``silu(x_e gate_e) * (x_e up_e)``, is the fused
 SwiGLU kernel's function, and all experts of a layer go through
 ``kernels/fused_swiglu`` as one batched launch (x (E, G·C, d), gate and up
 (E, d, f)); the down projection and the dispatch/combine products stay
-matmuls, as the reference leaves them to XLA.  The reference's
-``tag``/``constrain`` annotations are the identity on one device and are
-dropped; its cost-probe ``moe_ffn_skip`` mode is not ported.
+matmuls, as the reference leaves them to XLA.  ``expert_in`` and
+``mlp_hidden`` are tagged where the reference tags them; its
+``constrain`` annotations are the identity on one device and are dropped,
+and its cost-probe ``moe_ffn_skip`` mode is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
 from repro_torch.models import layers
 
@@ -65,6 +67,7 @@ def _expert_ffn(params, expert_in: torch.Tensor, dt: torch.dtype
     e, g, c, d = expert_in.shape
     hidden = fused_swiglu(expert_in.reshape(e, g * c, d),
                           params["gate"].to(dt), params["up"].to(dt))
+    hidden = tag("mlp_hidden", hidden)
     return torch.bmm(hidden, params["down"].to(dt)).reshape(e, g, c, d)
 
 
@@ -122,6 +125,7 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
         groups = torch.arange(g, device=x.device)
         expert_in = xs[groups[None, :, None], slot_token] \
             * token_valid[..., None].to(dt)                     # (E,G,C,d)
+        expert_in = tag("expert_in", expert_in)
         expert_out = _expert_ffn(params, expert_in, dt)         # (E,G,C,d)
 
         # combine: for each token, gather its top-k expert outputs
@@ -141,6 +145,7 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     combine = dispatch * weights[..., None].to(dt)
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xs)    # (E,G,C,d)
+    expert_in = tag("expert_in", expert_in)
     expert_out = _expert_ffn(params, expert_in, dt)             # (E,G,C,d)
     out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
     return out.reshape(b0, s0, d).to(dt), aux_loss.float()

@@ -6,10 +6,18 @@ Port of the LM and xLSTM parts of ``repro/models/transformer.py``.
 Parameters are built as plain nested dicts (``lm_init``, or ``convert.py``
 from the reference's tree) and held by the ``TransformerLM`` module: the
 reference's stacked ``blocks`` axis becomes a ``ModuleList`` of ``Block``s.
-Matmul weights and the embedding table are held in the compute dtype;
-norm scales stay float32.  The parameters are frozen: this slice serves,
-and training comes with a later slice (with the reference's planner-driven
-remat policy, which matters only under autodiff).
+A served LM holds its matmul weights and embedding table in the compute
+dtype and its parameters frozen; a trainable one (``trainable=True``)
+holds every parameter in float32 (``param_dtype``) with gradients, and
+each matmul casts to the compute dtype at use, as the reference does.
+Norm scales are float32 either way.
+
+Under autograd with ``cfg.remat`` each block runs checkpointed under the
+memory plan's policy (``compile_plan(cfg, batch_tokens=B * S)``, the
+reference's ``_remat_policy``): ``repro_torch.core.remat`` keeps,
+offloads or recomputes each tagged intermediate as the plan decides.  The
+LM loss (``lm_loss``) carries the MoE auxiliary loss through the stack as
+the reference's ``_scan_blocks`` does; serving discards it.
 
 The functions keep the reference's ``(cfg, params, ...)`` signatures.
 The KV cache and the xLSTM decode state are updated in place.
@@ -17,12 +25,16 @@ The KV cache and the xLSTM decode state are updated in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import remat
+from repro_torch.core.plan import CompiledMemoryPlan, compile_plan
+from repro_torch.core.remat_policy import tag
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, xlstm
 
@@ -35,22 +47,39 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // VOCAB_PAD) * VOCAB_PAD
 
 
+def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
+
+
+def _param_dict(tree: Dict[str, torch.Tensor], trainable: bool
+                ) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(v, trainable)
+                             for k, v in tree.items()})
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return _param(t, False)
 
 
 def _frozen_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in tree.items()})
+    return _param_dict(tree, False)
+
+
+def weight_dtype(cfg: ModelConfig, trainable: bool) -> torch.dtype:
+    """The dtype matmul weights and the embedding are held in: the
+    compute dtype to serve, ``param_dtype`` (float32) to train."""
+    return layers.dtype_of(cfg.param_dtype if trainable else cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Decoder block
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+def block_init(gen: torch.Generator, cfg: ModelConfig, *,
+               trainable: bool = False) -> Tree:
     """An MoE config's block holds ``moe`` (router and experts), any other
     ``mlp``, as the reference's does."""
-    dt = layers.dtype_of(cfg.dtype)
+    dt = weight_dtype(cfg, trainable)
     tree = {
         "ln1": layers.rmsnorm_init(cfg.d_model, device=gen.device),
         "attn": attn.attention_init(gen, cfg, dtype=dt),
@@ -68,70 +97,117 @@ class Block(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then + swiglu(norm(.)) or, for an
     MoE config, + moe(norm(.))."""
 
-    def __init__(self, cfg: ModelConfig, tree: Tree):
+    def __init__(self, cfg: ModelConfig, tree: Tree, *,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = _frozen(tree["ln1"])
-        self.attn = _frozen_dict(tree["attn"])
-        self.ln2 = _frozen(tree["ln2"])
+        self.ln1 = _param(tree["ln1"], trainable)
+        self.attn = _param_dict(tree["attn"], trainable)
+        self.ln2 = _param(tree["ln2"], trainable)
         if cfg.is_moe:
-            self.moe = _frozen_dict(tree["moe"])
+            self.moe = _param_dict(tree["moe"], trainable)
         else:
-            self.mlp = _frozen_dict(tree["mlp"])
+            self.mlp = _param_dict(tree["mlp"], trainable)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         return block_forward(self.cfg, self, x, positions)
 
 
-def block_forward(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+def block_forward_aux(cfg: ModelConfig, p: Block, x: torch.Tensor,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``block_forward``: (y, the MoE auxiliary loss, 0 for
+    a dense block), with its tags."""
     h = x + attn.attention_forward(
         cfg, p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
         positions=positions)
     return _mlp_residual(cfg, p, h)
 
 
-def _mlp_residual(cfg: ModelConfig, p: Block, h: torch.Tensor
-                  ) -> torch.Tensor:
-    """h + ffn(norm(h)).  An MoE block's auxiliary loss is dropped: it
+def block_forward(cfg: ModelConfig, p: Block, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """The block's output; an MoE block's auxiliary loss is dropped: it
     matters only to training."""
+    return block_forward_aux(cfg, p, x, positions)[0]
+
+
+def _mlp_residual(cfg: ModelConfig, p: Block, h: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h + ffn(norm(h)), the MoE auxiliary loss or 0)."""
     hn = layers.rmsnorm(p.ln2, h, cfg.norm_eps)
     if cfg.is_moe:
-        return h + moe.moe_forward(cfg, p.moe, hn)[0]
-    return h + layers.swiglu(p.mlp, hn, layers.dtype_of(cfg.dtype))
+        mo, aux = moe.moe_forward(cfg, p.moe, hn)
+    else:
+        mo = layers.swiglu(p.mlp, hn, layers.dtype_of(cfg.dtype))
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return tag("block_out", h + tag("mlp_out", mo)), aux
+
+
+@functools.lru_cache(maxsize=64)
+def memory_plan(cfg: ModelConfig, batch_tokens: int) -> CompiledMemoryPlan:
+    """The default memory plan of ``cfg`` at this token count, whose
+    checkpoint policy (None when ``cfg.remat`` is off) :func:`scan_blocks`
+    installs: the reference's ``_remat_policy``."""
+    return compile_plan(cfg, batch_tokens=batch_tokens)
+
+
+def scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_scan_blocks``: every block in turn, the auxiliary
+    losses summed; each block checkpointed under the plan's policy when
+    ``cfg.remat`` and autograd are on."""
+    policy = memory_plan(cfg, x.shape[0] * x.shape[1]).offload_policy \
+        if torch.is_grad_enabled() else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    region = None
+    for blk in blocks:
+        if policy is None:
+            x, a = block_forward_aux(cfg, blk, x, positions)
+        else:
+            (x, a), region = remat.checkpoint(
+                policy, functools.partial(block_forward_aux, cfg, blk),
+                x, positions, prev=region)
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
 # Decoder-only LM
 # ---------------------------------------------------------------------------
 
-def lm_init(gen: torch.Generator, cfg: ModelConfig) -> "TransformerLM":
+def lm_init(gen: torch.Generator, cfg: ModelConfig, *,
+            trainable: bool = False) -> "TransformerLM":
     """Random init with the reference's distributions, on ``gen.device``."""
-    dt = layers.dtype_of(cfg.dtype)
+    dt = weight_dtype(cfg, trainable)
     pv = padded_vocab(cfg)
     tree: Tree = {
         "embed": layers.embedding_init(gen, pv, cfg.d_model, dtype=dt),
-        "blocks": [block_init(gen, cfg) for _ in range(cfg.n_layers)],
+        "blocks": [block_init(gen, cfg, trainable=trainable)
+                   for _ in range(cfg.n_layers)],
         "ln_f": layers.rmsnorm_init(cfg.d_model, device=gen.device),
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = layers.dense_init(gen, cfg.d_model, pv, dtype=dt)
-    return TransformerLM(cfg, tree)
+    return TransformerLM(cfg, tree, trainable=trainable)
 
 
 class TransformerLM(nn.Module):
     """Parameters of the decoder-only LM (dense or MoE);
     ``forward(tokens)`` gives all logits."""
 
-    def __init__(self, cfg: ModelConfig, tree: Tree):
+    def __init__(self, cfg: ModelConfig, tree: Tree, *,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
+        self.embed = _param(tree["embed"], trainable)
         blocks: List[Tree] = tree["blocks"]
-        self.blocks = nn.ModuleList(Block(cfg, b) for b in blocks)
-        self.ln_f = _frozen(tree["ln_f"])
-        self.unembed = _frozen(tree["unembed"]) if "unembed" in tree else None
+        self.blocks = nn.ModuleList(Block(cfg, b, trainable=trainable)
+                                    for b in blocks)
+        self.ln_f = _param(tree["ln_f"], trainable)
+        self.unembed = _param(tree["unembed"], trainable) \
+            if "unembed" in tree else None
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return lm_forward(self.cfg, self, tokens)
@@ -146,15 +222,71 @@ def lm_logits(cfg: ModelConfig, params: TransformerLM,
     return layers.dense(params.unembed, x, dt)
 
 
-def lm_forward(cfg: ModelConfig, params: TransformerLM,
-               tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, padded_vocab)."""
+def lm_forward_aux(cfg: ModelConfig, params: TransformerLM,
+                   tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``lm_forward``: tokens (B, S) -> (logits (B, S,
+    padded_vocab), the summed MoE auxiliary loss)."""
     b, s = tokens.shape
     x = layers.embed(params.embed, tokens, layers.dtype_of(cfg.dtype))
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    for blk in params.blocks:
-        x = block_forward(cfg, blk, x, positions)
-    return lm_logits(cfg, params, x)
+    x, aux = scan_blocks(cfg, params.blocks, x, positions)
+    return lm_logits(cfg, params, x), aux
+
+
+def lm_forward(cfg: ModelConfig, params: TransformerLM,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, padded_vocab)."""
+    return lm_forward_aux(cfg, params, tokens)[0]
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """mean(logsumexp(l) - l[target]) over fp32 logits with the padded ids
+    masked at -1e30; the backward forms (softmax - onehot) / N in one fp32
+    buffer instead of autograd's chain of full-vocabulary tensors."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, vocab):
+        lf = _masked_fp32(logits, vocab)
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None])[..., 0]
+        ctx.save_for_backward(logits, targets, logz)
+        ctx.vocab = vocab
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, logz = ctx.saved_tensors
+        p = _masked_fp32(logits, ctx.vocab).sub_(logz[..., None]).exp_()
+        idx = targets[..., None]
+        p.scatter_(-1, idx, torch.gather(p, -1, idx) - 1.0)
+        p.mul_(g / targets.numel())
+        return p.to(logits.dtype), None, None
+
+
+def _masked_fp32(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    lf = logits.float()
+    if lf is logits:
+        lf = lf.clone()
+    if lf.shape[-1] > vocab:
+        lf[..., vocab:] = -1e30                # mask padded ids
+    return lf
+
+
+def softmax_xent(cfg: ModelConfig, logits: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with padded-vocab masking, fp32 accumulation."""
+    return _SoftmaxXent.apply(logits, targets.long(), cfg.vocab)
+
+
+def lm_loss(cfg: ModelConfig, params: TransformerLM, batch) -> torch.Tensor:
+    """Next-token cross-entropy; an MoE config adds 0.01 x its auxiliary
+    load-balancing loss."""
+    logits, aux = lm_forward_aux(cfg, params, batch["tokens"])
+    loss = softmax_xent(cfg, logits, batch["targets"])
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ---- decode ----------------------------------------------------------------
@@ -179,7 +311,7 @@ def lm_decode_step(cfg: ModelConfig, params: TransformerLM,
         hn = layers.rmsnorm(p.ln1, x, cfg.norm_eps)
         ao, _, _ = attn.decode_attention(cfg, p.attn, hn, cache["k"][i],
                                          cache["v"][i], cache_len=cache_len)
-        x = _mlp_residual(cfg, p, x + ao)
+        x = _mlp_residual(cfg, p, x + ao)[0]
     return lm_logits(cfg, params, x)[:, 0], cache
 
 
@@ -196,7 +328,7 @@ def lm_prefill(cfg: ModelConfig, params: TransformerLM,
         hn = layers.rmsnorm(p.ln1, x, cfg.norm_eps)
         ao, _, _ = attn.prefill_attention(cfg, p.attn, hn, cache["k"][i],
                                           cache["v"][i])
-        x = _mlp_residual(cfg, p, x + ao)
+        x = _mlp_residual(cfg, p, x + ao)[0]
     return lm_logits(cfg, params, x[:, -1:])[:, 0], cache
 
 

@@ -155,7 +155,7 @@ def zamba_decode_step(cfg: ModelConfig, params: ZambaLM, state,
         ao, _, _ = attn.decode_attention(
             cfg, sh.attn, hn, state["attn"]["k"][g], state["attn"]["v"][g],
             cache_len=cache_len)
-        x = _mlp_residual(cfg, sh, x + ao)
+        x = _mlp_residual(cfg, sh, x + ao)[0]
     for i, p in enumerate(params.tail):
         x = _mamba_step(cfg, p, x, state["tail"], i)
     return lm_logits(cfg, params, x)[:, 0], state

@@ -1,9 +1,12 @@
 """AdamW and momentum SGD over parameter trees, in PyTorch.
 
-Port of ``repro/optim/optimizers.py`` with the same defaults and the same
-functional interface: ``init(params) -> state`` and ``update(grads, state,
-params) -> (new_params, new_state)``, both building new tensors.  AdamW
-keeps its moments in fp32, bf16, or int8 blocks with fp32 scales
+Port of ``repro/optim/optimizers.py`` with the same defaults.  Each
+optimizer has one body, ``update_(grads, state, params)``, which writes
+the new parameters and state into ``params`` and ``state`` leaf by leaf,
+so old and new state never coexist (the train step's update); the
+reference's functional interface, ``update(grads, state, params) ->
+(new_params, new_state)``, runs that body on copies.  AdamW keeps its
+moments in fp32, bf16, or int8 blocks with fp32 scales
 (``compression._q``: absmax / 127 per 256 elements, the reference's
 ``_quantize``); the bias corrections are computed in fp32 from an int32
 step count, as the reference computes them.  This is the resident
@@ -27,8 +30,21 @@ QBLOCK = 256  # quantisation block (elements) for int8 moment storage
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[..., Tuple[Any, Any]]
+    # update_(grads, state, params): the step, written into ``params`` and
+    # ``state`` leaf by leaf
+    update_: Callable[..., None]
     name: str = "opt"
+
+    def update(self, grads, state, params, *_) -> Tuple[Any, Any]:
+        """The step on copies: (new_params, new_state), the arguments
+        untouched."""
+        params, state = _clone(params), _clone(state)
+        self.update_(grads, state, params)
+        return params, state
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
 
 
 def _quantize(x: torch.Tensor):
@@ -38,12 +54,6 @@ def _quantize(x: torch.Tensor):
 
 def _dequantize(qs, shape) -> torch.Tensor:
     return _deq(qs["q"], qs["scale"], shape)
-
-
-def _split(like, outs):
-    """A tree of pairs (shaped like ``like``) as two trees."""
-    return (tree_map(lambda _, o: o[0], like, outs),
-            tree_map(lambda _, o: o[1], like, outs))
 
 
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -67,9 +77,12 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"mu": tree_map(one, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params, *_):
-        count = state["count"] + 1
-        t = count.to(torch.float32)
+    @torch.no_grad()
+    def update_(grads, state, params, *_):
+        """One AdamW step in place; one leaf's temporaries live at a
+        time."""
+        state["count"].add_(1)
+        t = state["count"].to(torch.float32)
         c1 = 1.0 - torch.pow(b1, t)
         c2 = 1.0 - torch.pow(b2, t)
 
@@ -78,25 +91,27 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
             if state_dtype == "int8":
                 m = _dequantize(mv["m"], p.shape)
                 v = _dequantize(mv["v"], p.shape)
-            else:
+            elif state_dtype == "bfloat16":
                 m = mv["m"].to(torch.float32)
                 v = mv["v"].to(torch.float32)
-            m = b1 * m + (1 - b1) * gf
-            v = b2 * v + (1 - b2) * gf * gf
-            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
-            new_p = p - lr * (upd + weight_decay * p.to(torch.float32))
-            if state_dtype == "int8":
-                new_mv = {"m": _quantize(m), "v": _quantize(v)}
             else:
-                dt = mv["m"].dtype
-                new_mv = {"m": m.to(dt), "v": v.to(dt)}
-            return new_p.to(p.dtype), new_mv
+                m, v = mv["m"], mv["v"]
+            m.mul_(b1).add_((1 - b1) * gf)
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            p.copy_(p - lr * (upd + weight_decay * p.to(torch.float32)))
+            if state_dtype == "int8":
+                for name, moment in (("m", m), ("v", v)):
+                    q = _quantize(moment)
+                    mv[name]["q"].copy_(q["q"])
+                    mv[name]["scale"].copy_(q["scale"])
+            elif state_dtype == "bfloat16":
+                mv["m"].copy_(m)
+                mv["v"].copy_(v)
 
-        new_p, new_mu = _split(grads, tree_map(one, grads, state["mu"],
-                                               params))
-        return new_p, {"mu": new_mu, "count": count}
+        tree_map(one, grads, state["mu"], params)
 
-    return Optimizer(init=init, update=update, name=f"adamw_{state_dtype}")
+    return Optimizer(init=init, update_=update_, name=f"adamw_{state_dtype}")
 
 
 def sgd_momentum(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
@@ -105,14 +120,14 @@ def sgd_momentum(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), params)}
 
-    def update(grads, state, params, *_):
+    @torch.no_grad()
+    def update_(grads, state, params, *_):
         def one(g, m, p):
-            m = momentum * m + g.to(torch.float32)
-            return (p - lr * m).to(p.dtype), m
-        new_p, mom = _split(grads, tree_map(one, grads, state["mom"], params))
-        return new_p, {"mom": mom}
+            m.mul_(momentum).add_(g.to(torch.float32))
+            p.copy_(p - lr * m)
+        tree_map(one, grads, state["mom"], params)
 
-    return Optimizer(init=init, update=update, name="sgd_momentum")
+    return Optimizer(init=init, update_=update_, name="sgd_momentum")
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

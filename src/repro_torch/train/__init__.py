@@ -1,1 +1,1 @@
-"""Prefill and decode steps."""
+"""Train, prefill and decode steps, and the training loop."""

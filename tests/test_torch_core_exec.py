@@ -310,11 +310,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="CUDA-graph"):
         cp.loss_and_grads({}, torch.zeros(1), torch.zeros(1),
                           executor="jit_blocks")
+    # ROADMAP item 8 is done: the policy and the tag no longer raise
     from repro_torch.core.remat_policy import RematPlan, tag
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RematPlan(("qkv",), (), 0, 0.0).policy()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tag("qkv", torch.zeros(1))
+    policy = RematPlan(("qkv",), (), 0, 0.0, offloaded=("mlp_hidden",)
+                       ).policy()
+    assert [policy.decision(n) for n in ("qkv", "mlp_hidden", "attn_out")] \
+        == ["keep", "offload", "recompute"]
+    x = torch.zeros(1)
+    assert tag("qkv", x) is x
 
 
 @pytest.fixture

@@ -170,8 +170,12 @@ def test_unported_policy_and_optimizer_offload_raise():
     cp = tplan.compile_plan(ARCHS["llama3.2-3b"],
                             tplan.MemoryPlanConfig(remat_budget_bytes=1 << 22),
                             batch_tokens=4096)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cp.offload_policy
+    # ROADMAP item 8 is done: the plan's policy is the one it decided
+    policy = cp.offload_policy
+    assert policy.saved == cp.remat_plan.saved
+    assert policy.offloaded == cp.remat_plan.offloaded
+    assert {n: policy.decision(n) for n in cp.remat_plan.decisions()} \
+        == cp.remat_plan.decisions()
     with pytest.raises(NotImplementedError, match="CUDA-graph"):
         tplan.compile_plan(tzoo.ZOO["lenet5"](),
                            tplan.MemoryPlanConfig(executor="jit_blocks"),

@@ -471,12 +471,21 @@ def _needs_grad(t):
 
 @pytest.mark.cuda
 def test_swiglu_refuses_a_gradient_on_the_card(cuda_device):
-    """The kernel has no backward: under grad with an input that requires
-    one it raises instead of returning an output without a grad_fn; under
-    no_grad it runs."""
+    """The kernel used to refuse a gradient; it now has a backward (the
+    plain twin's autograd): under grad its output carries a grad_fn whose
+    grads equal the twin's, the forward launched once; under no_grad it
+    runs too."""
     x, wg, wu = _swiglu_inputs((1, 64, 64, 64), "float32", cuda_device)
-    with pytest.raises(NotImplementedError):
-        W.fused_swiglu(_needs_grad(x[0]), wg[0], wu[0])
+    ins = [_needs_grad(t[0]) for t in (x, wg, wu)]
+    before = W.LAUNCHES
+    h = W.fused_swiglu(*ins)
+    assert h.grad_fn is not None and W.LAUNCHES == before + 1
+    dh = torch.randn_like(h)
+    got = torch.autograd.grad(h, ins, dh)
+    twins = [_needs_grad(t[0]) for t in (x, wg, wu)]
+    want = torch.autograd.grad(W.fused_swiglu_plain(*twins), twins, dh)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
         W.fused_swiglu(_needs_grad(x[0]), wg[0], wu[0])
 

@@ -126,12 +126,19 @@ def test_causal_mask_is_top_left_when_sq_ne_skv():
 
 
 def test_ops_is_forward_only():
+    """The wrapper used to refuse a gradient; it now carries one (the
+    reference's recompute backward, held to ``jax.vjp`` in
+    ``tests/test_torch_train.py``): under grad its output has a grad_fn
+    and backward fills q's grad; under no_grad it has none."""
     q = torch.zeros(1, 8, 2, 32, requires_grad=True)
     k = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, k)
+    out = flash_attention(q, k, k)
+    assert out.shape == (1, 8, 2, 32) and out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
     with torch.no_grad():
-        assert flash_attention(q, k, k).shape == (1, 8, 2, 32)
+        out = flash_attention(q, k, k)
+    assert out.shape == (1, 8, 2, 32) and out.grad_fn is None
 
 
 @pytest.mark.parametrize("shapes", [

@@ -4,6 +4,7 @@
     python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b |
                                           granite-moe-1b-a400m]
     python3 tools/profile_torch_serve.py --paper-trunk
+    python3 tools/profile_torch_serve.py --train
 
 Profiles, with ``torch.profiler``, one model at full width (default
 llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
@@ -37,6 +38,14 @@ relu -> 3072), MSE head; He-init weights from seed 5, inputs at std
 ``async`` over the default plan (54 swap-outs and 54 prefetches on the
 CUDA copy stream, its pinned pool reserved first) and on the no-swap
 plan, each after a warm-up step.
+
+``--train`` profiles one training step of llama3.2-3b at full width and
+depth (``make_train_step``: 2 sequences of 4096 in 2 micro-batches, AdamW
+with fp32 state, the default keep-all checkpoint plan, random weights from
+seed 0) after a warm-up step, with the host time inside the flash
+backward's blockwise recompute, the SwiGLU backward's twin recompute, the
+blocks' replays, the loss and the AdamW update (each wrapped in a profiler
+range here).
 """
 
 from __future__ import annotations
@@ -149,16 +158,67 @@ def profile_paper_trunk() -> None:
         profiled(f"transformer_mlp_stack_b{batch}_{label}", step)
 
 
+def annotate(targets) -> None:
+    """Wrap each (owner, attribute) callable in a named profiler range;
+    the range's host time lands in the profile's ``mixers_host``."""
+    for owner, name in targets:
+        def ranged(*args, _fn=getattr(owner, name), _label=RANGE + name,
+                   **kw):
+            with record_function(_label):
+                return _fn(*args, **kw)
+        setattr(owner, name, ranged)
+
+
+def profile_train() -> None:
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import remat
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_swiglu import kernel as swiglu
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    annotate([(flash_ops, "flash_attention_bwd"),
+              (swiglu, "fused_swiglu_plain"), (remat.Region, "_replay"),
+              (transformer, "softmax_xent")])
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"], attention_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(0, trainable=True)
+    opt = make_optimizer("adamw")
+    update_ = opt.update_
+
+    def ranged_update(*args):
+        with record_function(RANGE + "adamw_update_"):
+            return update_(*args)
+
+    opt = dataclasses.replace(opt, update_=ranged_update)
+    state = opt.init(dict(params.named_parameters()))
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=2)
+    step = make_train_step(model, opt, shape, microbatches=2).fn
+    g = torch.Generator("cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, 4097), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step(params, state, batch)                           # warm-up
+    profiled(f"{cfg.name}_train_step_b2_s4096_mb2",
+             lambda: step(params, state, batch))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llama3.2-3b", choices=sorted(ARCHS))
     ap.add_argument("--paper-trunk", action="store_true",
                     help="profile a training step of the paper's path")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step of llama3.2-3b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
     if args.paper_trunk:
         profile_paper_trunk()
+        return 0
+    if args.train:
+        profile_train()
         return 0
     annotate_mixers()
     cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
