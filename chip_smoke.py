@@ -90,7 +90,16 @@ them:
    transfer accounting, and to ``reference_loss_and_grads`` (autograd) on
    the card, elementwise (rtol 1e-4, atol 1e-5 per unit of the tensor's
    largest entry) and normwise (1e-4); each row also gives how far the
-   port's and autograd's fp32 grads lie from an fp64 autograd run;
+   port's and autograd's fp32 grads lie from an fp64 autograd run.  Then
+   on ``jit_blocks`` (each proven block one CUDA-graph replay over the
+   plan's packed device arena), cuDNN deterministic: step 1 captures
+   every block, step 2 captures none and equals step 1 bit for bit, a
+   third step after SGD in place replays over the new values; each held
+   to autograd under the same cuDNN algorithms, the replay to the op
+   list's ops in an order the dependence prover signed (exactly the
+   fusion plan's stream, in fewer dispatches than ops), its transfer
+   accounting to async's.  resnet18_transfer's async and jit_blocks steps
+   are timed in turns;
 16. paper_trunk: the llama3.2-3b MLP trunk (``transformer_mlp_stack()``: 28
    x (3072 -> 8192 relu -> 3072), MSE head) at batch 4096 rows in fp32,
    planned with the default config (swaps) and with ``swap=False``: three
@@ -99,9 +108,14 @@ them:
    a warm-up step); step-1 grads against autograd elementwise and
    normwise, and the allocator's measured peak during each replay
    (parameters and inputs subtracted), which must fall by at least half
-   the planned saving against the no-swap replay.  Then five rounds of one
+   the planned saving against the no-swap replay.  The same on
+   ``jit_blocks``, both plans, three steps each with SGD in place (steps 2
+   and 3 replay; their losses follow async's), the device memory counted
+   by ``memory_reserved`` from before the backend's first run (the arena,
+   the gradient buffers and the graphs' pool).  Then five rounds of one
    swapped and one no-swap step in turns (ABBA), whose median step times
-   are the phase's comparison of the two plans.
+   are the phase's comparison of the two plans, and five of async and
+   jit_blocks on the swapped plan.
 17. paper_optim: the same trunk fine-tuned with AdamW three ways from
    the same params and the same grads (the async replay of
    ``MemoryPlanConfig(optim_offload=True)`` at each step, its 56
@@ -113,7 +127,9 @@ them:
    compressed equal to resident within 1e-6, three steps uncompressed
    within 1e-5 and compressed within 2e-2, the step-1 grads against
    autograd, and the allocator peak of optimizer state (parameters
-   subtracted) falling by at least half the planned saving.  Each step
+   subtracted) falling by at least half the planned saving.  At lr 1e-5
+   the fp32 offload also runs on ``jit_blocks``, held to the same
+   counters and to 1e-5 from the resident AdamW.  Each step
    reports the update's split (H2D, card math, D2H, host re-quantize) and
    the host's resident memory; the normwise drift is reported, not gated;
 18. personalize: the multi-tenant service (``serve``) on the card, the
@@ -269,6 +285,8 @@ TRUNK_TIMED_ROUNDS = 5
 # personalize: after the gated runs, waves of the same traffic drained
 # interleaved and FIFO in turns, for the medians of their wall times
 SERVE_TIMED_ROUNDS = 7
+# paper_zoo: resnet18_transfer's async and jit_blocks steps in turns
+JIT_TIMED_ROUNDS = 7
 # grads against autograd on the card: elementwise rtol 1e-4 with atol 1e-5
 # per unit of the tensor's largest entry, and normwise max|a-b| <= 1e-4
 # max|b|.  The port's backward (layer by layer, from the lowered schedule)
@@ -1741,6 +1759,7 @@ def phase_paper_zoo(torch, gpu):
     from repro_torch.core.zoo import ZOO
 
     rows = []
+    timed = None
     t_phase = time.perf_counter()
     for i, name in enumerate(sorted(ZOO)):
         g = ZOO[name]()
@@ -1786,18 +1805,247 @@ def phase_paper_zoo(torch, gpu):
                   "paper_zoo", f"{name}: {field} differs between sim "
                   f"({getattr(got['sim'], field)}) and async "
                   f"({getattr(got['async'], field)})")
-        del params, ref_grads, grads, exact
+        del grads
+        backend = _zoo_jit(torch, name, cp, params, x, y, exact,
+                           got["async"], rows)
+        if name == "resnet18_transfer":
+            timed = _zoo_in_turns(torch, cp, params, x, y, backend)
+        del params, ref_grads, exact, backend
         torch.cuda.empty_cache()
     emit({"phase": "paper_zoo", "ok": True, "gpu": gpu,
           "graphs": len(ZOO), "batch": PAPER_ZOO_BATCH,
           "transfers": sum(2 * r["swap_outs"] for r in rows
                            if r["backend"] == "async"),
+          "dispatch_calls": {r["graph"]: [r["dispatch_calls"],
+                                          r["lowered_ops"]]
+                             for r in rows if r["backend"] == "jit_blocks"},
+          "resnet18_transfer_in_turns": timed,
           "wall_s": time.perf_counter() - t_phase})
     return rows
 
 
-def phase_paper_trunk(torch, gpu):
+def _jit_checks(torch, phase, where, cp, stats):
+    """What a jit_blocks replay answers for beside the replay's own gates:
+    the op list's ops, in an order the dependence prover signed, exactly
+    the fused stream of the fusion plan, in fewer dispatches than ops."""
+    from collections import Counter
+
+    from repro_torch.core.planner import SwapAwarePlan
+    from repro_torch.core.verify import (plan_fusion, replay_stream,
+                                         schedules_equivalent)
+    plan = cp.plan if isinstance(cp.plan, SwapAwarePlan) else None
+    fusion = plan_fusion(cp.lowered, cp.ordered, plan)
+    check(Counter(stats.replayed_ops) == Counter(cp.lowered.ops), phase,
+          f"{where}: the replayed ops are not the op list's")
+    proof = schedules_equivalent(cp.lowered, stats.replayed_ops,
+                                 ordered=cp.ordered, plan=plan)
+    check(proof.ok, phase, f"{where}: the replay breaks a dependence edge")
+    check(stats.replayed_ops == replay_stream(cp.lowered, fusion), phase,
+          f"{where}: the replay is not the fusion plan's stream")
+    check(stats.dispatch_calls == fusion.dispatch_calls()
+          < len(cp.lowered.ops), phase,
+          f"{where}: {stats.dispatch_calls} dispatches for "
+          f"{len(cp.lowered.ops)} ops (fusion plan "
+          f"{fusion.dispatch_calls()})")
+    check(stats.late_swap_ins == 0, phase,
+          f"{where}: {stats.late_swap_ins} late swap-ins")
+    return fusion
+
+
+def _clone_grads(grads):
+    return {k: {n: t.clone() for n, t in e.items()} for k, e in grads.items()}
+
+
+def _zoo_jit(torch, name, cp, params, x, y, exact, async_stats, rows):
+    """Two jit_blocks steps from the same params, cuDNN deterministic:
+    step 1 captures every block, step 2 captures none and gives step 1's
+    loss and grads bit for bit.  Then SGD in place and a third step, which
+    replays over the new values.  Each is held to autograd under the same
+    cuDNN algorithms (the default backward-filter algorithms sum in
+    another order, which moves resnet18's weight grads past the
+    elementwise gate, though not the normwise one).  Returns the backend
+    (its graphs kept)."""
+    from repro_torch.core.exec.backends import JitBlocksBackend
+    from repro_torch.core.exec.layers import (reference_loss_and_grads,
+                                              sgd_update_)
+
+    backend = JitBlocksBackend()
+    where = f"{name} on jit_blocks"
+    runs = []
+    with _cudnn_deterministic(torch):
+        ref_loss, ref_grads = reference_loss_and_grads(cp.graph, params, x,
+                                                       y)
+        for step in (1, 2):
+            loss, grads, stats, wall, _ = _timed_step(
+                torch, cp, params, x, y, backend)
+            fusion = _jit_checks(torch, "paper_zoo", f"{where} step {step}",
+                                 cp, stats)
+            n_blocks = len(fusion.blocks)
+            check(stats.graph_captures == (n_blocks if step == 1 else 0)
+                  and stats.graph_replays == n_blocks, "paper_zoo",
+                  f"{where} step {step}: {stats.graph_captures} captures, "
+                  f"{stats.graph_replays} replays of {n_blocks} blocks")
+            runs.append((loss.clone(), _clone_grads(grads), stats, wall))
+    (loss, grads, stats, wall), (loss2, grads2, stats2, wall2) = runs
+    ok, max_abs, max_rel = _grad_errs(torch, grads, ref_grads)
+    loss_err = abs(loss.item() - ref_loss.item())
+    check(ok and max_rel <= GRAD_NORM_TOL
+          and loss_err <= 1e-4 * abs(ref_loss.item()) + 1e-5, "paper_zoo",
+          f"{where}: grads max abs err {max_abs} (normwise {max_rel}), "
+          f"loss err {loss_err}")
+    check(stats.hbm_high_water <= cp.plan.activation_residency_peak(),
+          "paper_zoo", f"{where}: high water {stats.hbm_high_water} over "
+          "the planned residency peak")
+    lowered_dma = sum(op.nbytes for op in cp.lowered.transfers())
+    check(stats.dma_bytes == lowered_dma, "paper_zoo",
+          f"{where}: {stats.dma_bytes} DMA bytes, lowered {lowered_dma}")
+    check(torch.equal(loss, loss2) and all(
+        torch.equal(grads[k][n], grads2[k][n]) for k in grads
+        for n in grads[k]), "paper_zoo",
+        f"{where}: the replayed step 2 differs from step 1")
+    for field in PAIRED_STATS:
+        check(getattr(stats, field) == getattr(async_stats, field),
+              "paper_zoo", f"{where}: {field} {getattr(stats, field)}, "
+              f"async {getattr(async_stats, field)}")
+    sgd_update_(params, grads2, lr=1e-3)
+    with _cudnn_deterministic(torch):
+        loss3, grads3, stats3, _, _ = _timed_step(torch, cp, params, x, y,
+                                                  backend)
+        want_loss, want = reference_loss_and_grads(cp.graph, params, x, y)
+    ok3, abs3, rel3 = _grad_errs(torch, grads3, want)
+    check(stats3.graph_captures == 0 and ok3 and rel3 <= GRAD_NORM_TOL
+          and abs(loss3.item() - want_loss.item())
+          <= 1e-4 * abs(want_loss.item()) + 1e-5, "paper_zoo",
+          f"{where} step 3 (params moved in place): "
+          f"{stats3.graph_captures} captures, grads max abs err {abs3} "
+          f"(normwise {rel3})")
+    report = backend.report()
+    rows.append(_paper_row(
+        name, "jit_blocks", "swap", cp, stats, wall, loss, grad_err=max_abs,
+        grad_norm_err=max_rel, grad_err_fp64=_max_abs_err(grads, exact),
+        dispatch_calls=stats.dispatch_calls,
+        lowered_ops=len(cp.lowered.ops),
+        graph_captures=stats.graph_captures, replay_step_s=wall2,
+        arena_bytes=report["arena_bytes"],
+        graph_pool_bytes=backend.graph_pool_bytes(),
+        arena_copy_bytes=stats.arena_copy_bytes, step3_grad_err=abs3,
+        arena_write_wait_s=stats2.arena_write_wait_s))
+    return backend
+
+
+def _steps_in_turns(torch, runs, rounds):
+    """``rounds`` rounds of one step of each entry of ``runs`` (name ->
+    (compiled plan, params, x, y, executor)), in turns (ABBA); the step
+    walls by name, each after the card's work."""
+    names = list(runs)
+    walls = {k: [] for k in names}
+    for i in range(rounds):
+        for k in names[::(-1) ** i]:
+            cp, params, x, y, executor = runs[k]
+            *_, wall, _ = _timed_step(torch, cp, params, x, y, executor)
+            walls[k].append(wall)
+    return walls
+
+
+def _zoo_in_turns(torch, cp, params, x, y, jit):
+    """resnet18_transfer's async and jit_blocks (graphs captured) steps in
+    turns: the walls and their medians."""
     from repro_torch.core.exec.backends import AsyncDeviceBackend
+
+    asy = AsyncDeviceBackend()
+    _timed_step(torch, cp, params, x, y, asy)      # pins its host pool
+    walls = _steps_in_turns(torch, {"async": (cp, params, x, y, asy),
+                                    "jit_blocks": (cp, params, x, y, jit)},
+                            JIT_TIMED_ROUNDS)
+    med = {k: statistics.median(w) for k, w in walls.items()}
+    return {"step_s": walls, "median_step_s": med,
+            "jit_over_async": med["jit_blocks"] / med["async"]}
+
+
+def _trunk_jit(torch, plan, cp, params, x, y, ref_loss, ref_grads, rows):
+    """TRUNK_STEPS jit_blocks steps of the trunk under ``cp`` with in-place
+    SGD from a copy of ``params`` (so steps 2+ replay): step 1's grads and
+    loss against autograd, the jit gates at every step, no capture after
+    step 1.  The device memory is counted from before the backend's first
+    allocation, by ``memory_reserved``: the arena and the gradient buffers
+    are allocated once and the graphs' private pool keeps its segments
+    reserved, where ``memory_allocated`` loses the pool's transients once
+    their capture ends.  ``steady_reserved_bytes`` is the peak over steps
+    2+, after the cache emptied of step 1's warm-ups."""
+    from repro_torch.core.exec.backends import JitBlocksBackend
+    from repro_torch.core.exec.layers import sgd_update_
+
+    where = f"jit_blocks, {plan} plan"
+    p = {k: {n: w.clone() for n, w in e.items()} for k, e in params.items()}
+    backend = JitBlocksBackend()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, out = [], [], {}
+    for step in range(1, TRUNK_STEPS + 1):
+        t0 = time.perf_counter()
+        loss, grads, stats = cp.loss_and_grads(p, x, y, executor=backend)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fusion = _jit_checks(torch, "paper_trunk", f"{where} step {step}",
+                             cp, stats)
+        n_blocks = len(fusion.blocks)
+        check(stats.graph_captures == (n_blocks if step == 1 else 0)
+              and stats.graph_replays == n_blocks, "paper_trunk",
+              f"{where} step {step}: {stats.graph_captures} captures, "
+              f"{stats.graph_replays} replays of {n_blocks} blocks")
+        extra = {}
+        if step == 1:
+            ok, max_abs, max_rel = _grad_errs(torch, grads, ref_grads)
+            check(ok and max_rel <= GRAD_NORM_TOL
+                  and abs(loss.item() - ref_loss.item())
+                  <= 1e-4 * abs(ref_loss.item()), "paper_trunk",
+                  f"{where}: step-1 grads max abs err {max_abs}, normwise "
+                  f"{max_rel}, loss {loss.item()} against "
+                  f"{ref_loss.item()}")
+            extra = dict(grad_err=max_abs, grad_norm_err=max_rel)
+            out.update(
+                step1_reserved_bytes=torch.cuda.max_memory_reserved() - base,
+                step1_allocated_bytes=torch.cuda.max_memory_allocated()
+                - base_alloc,
+                graph_pool_bytes=backend.graph_pool_bytes(),
+                blocks=n_blocks, dispatch_calls=stats.dispatch_calls,
+                lowered_ops=len(cp.lowered.ops),
+                arena_bytes=backend.report()["arena_bytes"],
+                planned_peak_bytes=cp.peak_bytes,
+                arena_copy_bytes=stats.arena_copy_bytes)
+        losses.append(loss.item())
+        rows.append(_paper_row("transformer_mlp_stack", "jit_blocks", plan,
+                               cp, stats, walls[-1], loss, step=step,
+                               dispatch_calls=stats.dispatch_calls,
+                               graph_captures=stats.graph_captures,
+                               arena_write_wait_s=stats.arena_write_wait_s,
+                               **extra))
+        out.setdefault("arena_write_wait_s", []).append(
+            stats.arena_write_wait_s)
+        sgd_update_(p, grads)
+        del grads
+        if step == 1:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    out.update(steady_reserved_bytes=torch.cuda.max_memory_reserved() - base,
+               steady_allocated_bytes=torch.cuda.max_memory_allocated()
+               - base_alloc,
+               losses=losses, step_s=walls)
+    check(all(math.isfinite(v) for v in losses), "paper_trunk",
+          f"{where}: SGD losses {losses}")
+    del backend, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paper_trunk(torch, gpu):
+    from repro_torch.core.exec.backends import (AsyncDeviceBackend,
+                                                JitBlocksBackend)
     from repro_torch.core.exec.layers import (reference_loss_and_grads,
                                               sgd_update)
     from repro_torch.core.plan import MemoryPlanConfig, compile_plan
@@ -1851,6 +2099,12 @@ def phase_paper_trunk(torch, gpu):
                            **errs))
     del grads
     torch.cuda.empty_cache()
+    # jit_blocks from the same params: the no-swap plan, then the swapped
+    jit = {plan: _trunk_jit(torch, plan, plan_cp, params, x, y, ref_loss,
+                            ref_grads, rows)
+           for plan, plan_cp in (("no_swap", cp_flat), ("swap", cp))}
+    jit_saved = jit["no_swap"]["steady_reserved_bytes"] \
+        - jit["swap"]["steady_reserved_bytes"]
 
     backend = AsyncDeviceBackend()     # keeps its pinned pool across steps
     t0 = time.perf_counter()
@@ -1896,8 +2150,25 @@ def phase_paper_trunk(torch, gpu):
         rows.append(_paper_row("transformer_mlp_stack", "async", plan,
                                plan_cp, stats, medians[plan], loss,
                                step=f"median of {TRUNK_TIMED_ROUNDS}"))
+    # the swapped plan on async and on jit_blocks (its graphs captured by
+    # one untimed step at these params), in turns
+    jit_backend = JitBlocksBackend()
+    _timed_step(torch, cp, params, x, y, jit_backend)
+    jit_walls = _steps_in_turns(
+        torch, {"async": (cp, params, x, y, backend),
+                "jit_blocks": (cp, params, x, y, jit_backend)},
+        TRUNK_TIMED_ROUNDS)
+    jit_medians = {k: statistics.median(w) for k, w in jit_walls.items()}
+    del jit_backend
+    # the replays recompute: jit_blocks' in-place SGD losses follow async's
+    for plan in jit:
+        check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in
+                  zip(jit[plan]["losses"], losses, strict=True)),
+              "paper_trunk", f"jit_blocks {plan} plan SGD losses "
+              f"{jit[plan]['losses']}, async {losses}")
     saved = flat_peak - swap_peak
     ok = saved >= cp.hbm_bytes_saved / 2 \
+        and jit_saved >= cp.hbm_bytes_saved / 2 \
         and all(math.isfinite(v) for v in losses)
     emit({"phase": "paper_trunk", "ok": ok, "gpu": gpu,
           "batch": TRUNK_BATCH,
@@ -1914,12 +2185,16 @@ def phase_paper_trunk(torch, gpu):
           "measured_bytes_saved": saved, "pool_pin_s": pin_s,
           "losses": losses, "timed_step_s": walls,
           "median_step_s": medians,
-          "swap_over_no_swap": medians["swap"] / medians["no_swap"]})
+          "swap_over_no_swap": medians["swap"] / medians["no_swap"],
+          "jit_blocks": jit, "jit_measured_bytes_saved": jit_saved,
+          "jit_timed_step_s": jit_walls, "jit_median_step_s": jit_medians,
+          "jit_over_async": jit_medians["jit_blocks"]
+          / jit_medians["async"]})
     check(all(math.isfinite(v) for v in losses), "paper_trunk",
           f"SGD losses {losses}")
     check(ok, "paper_trunk",
-          f"measured peak fell by {saved} bytes, under half the planned "
-          f"{cp.hbm_bytes_saved}")
+          f"measured peak fell by {saved} bytes on async, {jit_saved} on "
+          f"jit_blocks, under half the planned {cp.hbm_bytes_saved}")
     del params, x, y
     torch.cuda.empty_cache()
     return rows
@@ -1996,8 +2271,10 @@ def phase_paper_optim(torch, gpu):
     host copies, updated inside the replay at the plan's optimizer ops (the
     replay moves the runtime's own host copies).  At the reference's lr
     the trunk diverges, so a second lr, at which the resident loss falls,
-    gives the drift in fine-tuning."""
-    from repro_torch.core.exec.backends import AsyncDeviceBackend
+    gives the drift in fine-tuning.  At that lr the fp32 offload also runs
+    on jit_blocks, held to the same gates."""
+    from repro_torch.core.exec.backends import (AsyncDeviceBackend,
+                                                JitBlocksBackend)
     from repro_torch.core.exec.layers import reference_loss_and_grads
     from repro_torch.core.plan import MemoryPlanConfig, compile_plan
     from repro_torch.core.zoo import transformer_mlp_stack
@@ -2019,9 +2296,12 @@ def phase_paper_optim(torch, gpu):
     backend = AsyncDeviceBackend()
     rows, summary = [], {}
     for lr in TRUNK_LRS:
+        # the last lr runs the fp32 offload on jit_blocks too
+        jit = JitBlocksBackend() if lr == TRUNK_LRS[-1] else None
         summary[lr] = _optim_lr(torch, g, plans, cp_res, params, x, y, lr,
-                                backend, ref, rows)
+                                backend, ref, rows, jit=jit)
         ref = None
+        del jit
     cp = plans["compressed"]
     emit({"phase": "paper_optim", "ok": True, "gpu": gpu,
           "batch": TRUNK_BATCH, "slots": len(cp.optim_plan.slots),
@@ -2033,10 +2313,11 @@ def phase_paper_optim(torch, gpu):
 
 
 def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
-              rows):
+              rows, jit=None):
     """TRUNK_STEPS steps at ``lr``, the three optimizers side by side, with
     their gates; returns the summary.  ``ref`` (autograd's loss and grads
-    at ``params``) gates the first replay's grads when given."""
+    at ``params``) gates the first replay's grads when given.  ``jit`` (a
+    jit_blocks backend) adds a fourth: the fp32 offload replayed there."""
     from repro_torch.core.optim_offload import OffloadedStep, OptimRuntime
     from repro_torch.optim.optimizers import adamw
 
@@ -2044,8 +2325,13 @@ def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
     opt_plan = plans["compressed"].optim_plan
     n_slots = len(opt_plan.slots)
     t0 = time.perf_counter()
+    plan_of = dict(plans)
+    backend_of = dict.fromkeys(plans, backend)
+    if jit is not None:
+        plan_of["jit_uncompressed"] = plans["uncompressed"]
+        backend_of["jit_uncompressed"] = jit
     runtimes = {kind: OptimRuntime(cp.optim_plan, g, lr=lr, device="cuda")
-                for kind, cp in plans.items()}
+                for kind, cp in plan_of.items()}
     runtime_init_s = time.perf_counter() - t0
     opt = adamw(lr=lr)
     res_p, state = params, None
@@ -2054,16 +2340,19 @@ def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
     for step in range(1, TRUNK_STEPS + 1):
         update = {"phase": "paper_optim", "lr": lr, "step": step}
         for kind, rt in runtimes.items():
-            cp = plans[kind]
+            cp = plan_of[kind]
             before = dict(rt.timings)
             ostep = OffloadedStep(rt, off_p[kind])
             loss, grads, stats, wall, peak = _optim_step(
-                torch, cp, res_p, x, y, backend, ostep)
+                torch, cp, res_p, x, y, backend_of[kind], ostep)
             off_p[kind] = ostep.new_params
-            check(stats.replayed_ops == cp.lowered.ops
-                  and stats.late_swap_ins == 0, where,
-                  f"{kind} step {step}: the replay left the compiled op "
-                  "list")
+            if backend_of[kind] is jit:
+                _jit_checks(torch, where, f"{kind} step {step}", cp, stats)
+            else:
+                check(stats.replayed_ops == cp.lowered.ops
+                      and stats.late_swap_ins == 0, where,
+                      f"{kind} step {step}: the replay left the compiled "
+                      "op list")
             check(stats.opt_prefetches == stats.opt_swap_outs == n_slots
                   and stats.opt_fences == n_slots
                   and stats.opt_dma_bytes
@@ -2083,13 +2372,14 @@ def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
                       f"{max_rel}")
                 extra = dict(grad_err=max_abs, grad_norm_err=max_rel)
             row = _paper_row(
-                "transformer_mlp_stack", "async", f"optim_offload_{kind}",
+                "transformer_mlp_stack", backend_of[kind].name,
+                f"optim_offload_{kind}",
                 cp, stats, wall, loss, lr=lr, step=step,
                 measured_peak_bytes=peak, opt_fences=stats.opt_fences,
                 opt_stalled_fences=stats.opt_stalled_fences,
                 opt_hidden_dma_s=stats.opt_hidden_dma_s,
                 opt_exposed_dma_s=stats.opt_exposed_dma_s, **extra)
-            if kind == "compressed":
+            if kind in ("compressed", "jit_uncompressed"):
                 rows.append(row)
             update[kind] = {"replay": row, "step_s": wall,
                             "step_peak_bytes": peak,
@@ -2125,7 +2415,8 @@ def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
     saved = peaks["resident"] - peaks["offloaded"]
     want_saved = (opt_plan.resident_bytes - opt_plan.device_peak_bytes) / 2
     for kind in runtimes:
-        rows.append({"graph": "transformer_mlp_stack", "backend": "async",
+        rows.append({"graph": "transformer_mlp_stack",
+                     "backend": backend_of[kind].name,
                      "plan": f"adamw_{kind}", "lr": lr,
                      "steps": TRUNK_STEPS,
                      "err_vs_resident": float(f"{errs[kind]:.4g}"),
@@ -2146,9 +2437,11 @@ def _optim_lr(torch, g, plans, cp_res, params, x, y, lr, backend, ref,
                      / _param_max(res_p),
                      "in_resident_steps": errs["compressed"]
                      / updates[-1]["resident_step_max_abs"]}}
-    check(errs["uncompressed"] <= 1e-5, where,
-          f"uncompressed offload {errs['uncompressed']} from the resident "
-          f"AdamW after {TRUNK_STEPS} steps (gate 1e-5)")
+    for kind in ("uncompressed", "jit_uncompressed"):
+        if kind in errs:
+            check(errs[kind] <= 1e-5, where,
+                  f"{kind} offload {errs[kind]} from the resident AdamW "
+                  f"after {TRUNK_STEPS} steps (gate 1e-5)")
     check(errs["compressed"] <= 2e-2, where,
           f"compressed offload {errs['compressed']} from the resident "
           f"AdamW after {TRUNK_STEPS} steps (gate 2e-2)")

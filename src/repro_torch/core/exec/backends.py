@@ -1,6 +1,6 @@
 """Pluggable executor backends replaying the lowered ExecutionSchedule.
 
-One interpreter, two realisations of its transfer ops:
+One interpreter, three backends:
 
 * :class:`SimulatedBackend` (``"sim"``, the default) — synchronous host
   round trips through :class:`repro_torch.core.exec.store.SyncHostEngine`;
@@ -15,15 +15,18 @@ One interpreter, two realisations of its transfer ops:
   the hidden/exposed DMA time against the plan's
   ``peak_inflight_prefetch`` — see :meth:`AsyncDeviceBackend.report`.
 
-The reference's third backend, ``"jit_blocks"`` (each proven-fusable
-``Compute`` run dispatched as one compiled call), is not ported yet: its
-counterpart replays each ``FusedBlock`` as one CUDA-graph replay over a
-packed device arena, so that every tensor sits at a fixed address (the
-next item of the ROADMAP's queue A).  Asking for it raises
-``NotImplementedError``.
+* :class:`JitBlocksBackend` (``"jit_blocks"``) — the async transfers
+  plus fused compute dispatch: the static dependence prover
+  (:mod:`repro_torch.core.verify.deps`) partitions the op list into
+  fusion-legal ``Compute`` runs, and each run replays as ONE dispatch —
+  on the card one ``torch.cuda.CUDAGraph`` replay, captured once, over the
+  plan's packed device arena (:class:`repro_torch.core.exec.store.DeviceArena`),
+  where every activation sits at its planned offset and so at one address
+  in every step; on the CPU one call of the interpreter per block.
 
 Optimizer-state transfers (``OptPrefetch`` / ``OptSwapOut``, from
-``MemoryPlanConfig(optim_offload=True)``) are replayed by both backends:
+``MemoryPlanConfig(optim_offload=True)``) are replayed by every backend
+(never fused):
 each prefetch is issued to the engine's optimizer lane at its EO and
 fenced at the first ``Compute`` of its read EO, and the working region's
 residency is held to the packed optimizer plan.  A replay given an
@@ -33,9 +36,12 @@ host copy, and at ``OptSwapOut``, once the layer's grads are final, the
 step runs the AdamW update and sends the new state back.  Without one
 the lane moves the planned bytes and updates nothing.
 
-Both backends replay the compiled op list *verbatim*:
+``sim`` and ``async`` replay the compiled op list *verbatim*:
 ``SwapExecStats.replayed_ops == lowered.ops`` is gated per backend, so a
-backend cannot silently skip or reorder a planned transfer.
+backend cannot silently skip or reorder a planned transfer.  ``jit_blocks``
+replays a *proven-equivalent permutation* instead (each block's frees
+deferred to its end): the same op multiset, admitted only after
+:func:`repro_torch.core.verify.schedules_equivalent` signs off on it.
 
 Backends only replay *verified* schedules: a plan-backed schedule that has
 not passed the static verifier (:mod:`repro_torch.core.verify`) is
@@ -56,7 +62,10 @@ fixed block, not a staircase rising under the activations.
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import warnings
+import weakref
 from typing import (Any, Callable, Dict, List, Optional, Protocol, Tuple,
                     Union, runtime_checkable)
 
@@ -67,8 +76,10 @@ from repro_torch.core.exec.layers import (_needs_deriv, _param_owner,
                                           layer_calc_derivative,
                                           layer_calc_gradient, layer_forward,
                                           loss_derivative, loss_forward)
-from repro_torch.core.exec.store import (ActivationStore, DeviceStreamEngine,
-                                         HbmTracker, HostPool, SwapExecStats,
+from repro_torch.core.exec.store import (ActivationStore,
+                                         ArenaActivationStore, DeviceArena,
+                                         DeviceStreamEngine, HbmTracker,
+                                         HostPool, SwapExecStats,
                                          SyncHostEngine, TransferEngine)
 from repro_torch.core.execution_order import (OrderedTensors,
                                               compute_execution_order)
@@ -119,7 +130,8 @@ class _ComputeEnv:
     def __init__(self, graph: LayerGraph, params, label, mask, *,
                  get: Callable[[str], Tensor],
                  put: Callable[[str, Tensor], None],
-                 aliased: Callable[[str, str], bool]):
+                 aliased: Callable[[str, str], bool],
+                 grad_bufs: Optional[Dict[str, Dict[str, Tensor]]] = None):
         self.graph = graph
         self.params = params
         self.label = label
@@ -132,10 +144,9 @@ class _ComputeEnv:
         self.pending_dxs: Dict[str, List[Tuple[str, Tensor]]] = {}
         self.pending_cd: Dict[str, Tuple[Tensor, List[str]]] = {}
         # one zeroed buffer per trainable parameter, filled by the CG phases
-        self._grad_bufs = {
-            owner: {k: torch.zeros_like(w) for k, w in params[owner].items()}
-            for owner in {_param_owner(graph, l) for l in graph.layers
-                          if l.trainable and l.weight_shapes()}}
+        # (``grad_bufs``: the caller's, already zeroed)
+        self._grad_bufs = grad_bufs if grad_bufs is not None \
+            else _zero_grads(graph, params)
         self._grad_owners: List[str] = []
         self.loss_val = None
 
@@ -143,6 +154,33 @@ class _ComputeEnv:
     def grads(self) -> Dict[str, Dict[str, Tensor]]:
         """The gradients of every owner a CG phase reached."""
         return {o: self._grad_bufs[o] for o in self._grad_owners}
+
+    def state(self) -> Dict[str, Any]:
+        """The backward state a phase reads and writes, in containers of
+        its own (the tensors are shared)."""
+        return {"ctxs": dict(self.ctxs), "derivs": dict(self.derivs),
+                "pending_dxs": {k: list(v)
+                                for k, v in self.pending_dxs.items()},
+                "pending_cd": dict(self.pending_cd),
+                "grad_owners": list(self._grad_owners),
+                "loss": self.loss_val}
+
+    def load(self, state: Dict[str, Any]) -> None:
+        """Take ``state`` as the backward state; its ``ctxs`` may hold some
+        layers' only, and are merged into the saved contexts."""
+        self.ctxs.update(state["ctxs"])
+        self.derivs = dict(state["derivs"])
+        self.pending_dxs = {k: list(v)
+                            for k, v in state["pending_dxs"].items()}
+        self.pending_cd = dict(state["pending_cd"])
+        self._grad_owners = list(state["grad_owners"])
+        self.loss_val = state["loss"]
+
+    def read_names(self, op) -> List[str]:
+        """Activation names this Compute may read — the consumer-fence set
+        (its layer inputs plus its own output, which backward ctxs
+        reference)."""
+        return list(self.graph.layer(op.layer).inputs) + [op.layer]
 
     def resolve_ctx(self, ctx: Any) -> Any:
         return tuple(
@@ -254,6 +292,16 @@ class _ComputeEnv:
                     self.derivs[inp] = dx
 
 
+def _trainable_owners(graph: LayerGraph) -> List[str]:
+    return sorted({_param_owner(graph, l) for l in graph.layers
+                   if l.trainable and l.weight_shapes()})
+
+
+def _zero_grads(graph: LayerGraph, params) -> Dict[str, Dict[str, Tensor]]:
+    return {owner: {k: torch.zeros_like(w) for k, w in params[owner].items()}
+            for owner in _trainable_owners(graph)}
+
+
 def _check_opt_high_water(plan, stats: SwapExecStats) -> None:
     """Assert the replayed optimizer residency against the packed region
     (the optimizer-lane analogue of the activation residency-peak gate)."""
@@ -297,7 +345,8 @@ class ScheduleCursor:
     def __init__(self, backend: "_ReplayBackend", graph: LayerGraph,
                  params, x, label, *, schedule: OffloadSchedule,
                  ordered: OrderedTensors, plan, lowered, mask,
-                 engine: TransferEngine, sanitizer, optim=None):
+                 engine: TransferEngine, sanitizer, optim=None,
+                 store: Optional[ActivationStore] = None, grad_bufs=None):
         self.backend = backend
         self.graph = graph
         self.schedule = schedule
@@ -310,19 +359,22 @@ class ScheduleCursor:
         self.stats = SwapExecStats(backend=backend.name)
         self.stats.inplace_prefetches = sum(
             1 for d in schedule.decisions if d.inplace)
-        self.hbm = HbmTracker()
-        self.store = ActivationStore(ordered, self.hbm, engine=engine)
-        self.store.device["__input__"] = x
-        store = self.store
+        if store is None:
+            store = ActivationStore(ordered, HbmTracker(), engine=engine)
+        self.store = store
+        self.hbm = store.hbm
+        store.device["__input__"] = x
 
         def aliased(a: str, b: str) -> bool:
             owner = store.owner_of(a)
             return owner is not None and owner == store.owner_of(b)
 
         self.env = _ComputeEnv(graph, params, label, mask,
-                               get=lambda n: store.get(n, self.stats),
-                               put=store.put, aliased=aliased)
+                               get=self.fenced_get, put=store.put,
+                               aliased=aliased, grad_bufs=grad_bufs)
         self._replayed: List[Any] = []
+        # replayed ops that took no dispatch of their own (fused blocks)
+        self.fused_away = 0
         self._inflight = 0
         self._opt_resident = 0
         self._done_at: Dict[int, int] = {}
@@ -405,7 +457,25 @@ class ScheduleCursor:
         self.store.alive.clear()
         self.env = None
 
+    def fenced_get(self, name: str) -> Tensor:
+        return self.store.get(name, self.stats)
+
     # ----------------------------------------------------------- op body
+    def _retire(self, eo: int) -> None:
+        """Prefetches issued at earlier phases complete by their read EO:
+        retire their double-buffer slots at the phase boundary, and fence
+        the optimizer slots whose read EO has arrived."""
+        if eo <= self._retired_eo:
+            return
+        for e in list(self._done_at):
+            if e <= eo:
+                self._inflight -= self._done_at.pop(e)
+        for e in list(self._opt_fence_at):
+            if e <= eo:
+                for owner in self._opt_fence_at.pop(e):
+                    self.engine.opt_fence(owner, self.stats)
+        self._retired_eo = eo
+
     def _exec_op(self, op, op_index: int) -> None:
         from repro_torch.core.plan import (Compute, Free, OptPrefetch,
                                            OptSwapOut, Prefetch, SwapOut)
@@ -452,18 +522,7 @@ class ScheduleCursor:
                 stats.peak_inflight_prefetch, self._inflight)
             self._replayed.append(op)
         elif isinstance(op, Compute):
-            # prefetches issued at earlier phases complete by their read
-            # EO: retire their double-buffer slots at the phase boundary,
-            # and fence optimizer slots whose read EO has arrived
-            if op.eo > self._retired_eo:
-                for eo in list(self._done_at):
-                    if eo <= op.eo:
-                        self._inflight -= self._done_at.pop(eo)
-                for eo in list(self._opt_fence_at):
-                    if eo <= op.eo:
-                        for owner in self._opt_fence_at.pop(eo):
-                            self.engine.opt_fence(owner, stats)
-                self._retired_eo = op.eo
+            self._retire(op.eo)
             self.env.step(op)
             self._replayed.append(op)
         elif isinstance(op, SwapOut):
@@ -489,7 +548,7 @@ class ScheduleCursor:
         stats.hbm_high_water = self.hbm.high_water
         stats.host_high_water = self.store.host_pool.high_water
         stats.replayed_ops = tuple(self._replayed)
-        stats.dispatch_calls = len(self._replayed)
+        stats.dispatch_calls = len(self._replayed) - self.fused_away
         self.backend._finalize_stats(stats, self.engine)
         self.backend._last_stats = stats
         self.backend._planned_inflight = self.schedule.peak_inflight_prefetch
@@ -551,27 +610,47 @@ class _ReplayBackend:
         runs on ``x``'s device.  ``optim`` (an ``OffloadedStep``) must
         hold the slots the lowered optimizer ops name.
         """
+        ordered, lowered = self._admit(graph, x, schedule, ordered, plan,
+                                       lowered)
+        sanitizer = self._sanitizer(ordered)
+        engine = self._engine_for(x, plan, lowered, engine, optim)
+        return ScheduleCursor(self, graph, params, x, label,
+                              schedule=schedule, ordered=ordered, plan=plan,
+                              lowered=lowered, mask=mask, engine=engine,
+                              sanitizer=sanitizer, optim=optim)
+
+    def _admit(self, graph: LayerGraph, x, schedule: OffloadSchedule,
+               ordered: Optional[OrderedTensors], plan, lowered):
+        """``(ordered, lowered)``, derived where not given, after the
+        admission check: a plan-backed schedule must have passed static
+        verification before any transfer op reaches a copy stream —
+        verified on the spot if compile-time verification was skipped."""
         from repro_torch.core.plan import lower_schedule
-        from repro_torch.core.verify import (StaticResidencyModel,
-                                             is_verified, mark_verified,
+        from repro_torch.core.verify import (is_verified, mark_verified,
                                              verify_schedule)
         if ordered is None:
             ordered = compute_execution_order(graph, int(x.shape[0]))
         if lowered is None:
             lowered = lower_schedule(ordered, schedule, plan)
-        # admission check: a plan-backed schedule must have passed static
-        # verification before any transfer op reaches a copy stream —
-        # verify on the spot if compile-time verification was skipped
         if plan is not None and not is_verified(lowered):
             verify_schedule(ordered, schedule, plan,
                             lowered).raise_if_errors()
             mark_verified(lowered)
-        sanitizer = StaticResidencyModel(ordered) if self.sanitize else None
+        return ordered, lowered
+
+    def _sanitizer(self, ordered: OrderedTensors):
+        from repro_torch.core.verify import StaticResidencyModel
+        return StaticResidencyModel(ordered) if self.sanitize else None
+
+    def _engine_for(self, x, plan, lowered, engine: Optional[TransferEngine],
+                    optim) -> TransferEngine:
+        """The replay's engine (``engine``, else the backend's own), its
+        host pools reserved for the plan."""
+        from repro_torch.core.plan import OptPrefetch
         if engine is None:
             engine = self.make_engine(x.device)
         # the optimizer lane's host pool: the optimizer plan's packed
         # copies, wherever the lowered prefetches place them
-        from repro_torch.core.plan import OptPrefetch
         opt_ops = [op for op in lowered.ops if isinstance(op, OptPrefetch)]
         if optim is not None:
             want = {(op.tensor, op.host_nbytes) for op in opt_ops}
@@ -587,10 +666,7 @@ class _ReplayBackend:
                             for op in opt_ops), default=0)
         engine.reserve(plan.host_pool_bytes if plan is not None else 0,
                        opt_pool)
-        return ScheduleCursor(self, graph, params, x, label,
-                              schedule=schedule, ordered=ordered, plan=plan,
-                              lowered=lowered, mask=mask, engine=engine,
-                              sanitizer=sanitizer, optim=optim)
+        return engine
 
     # ------------------------------------------------------------------ run
     def run(self, graph: LayerGraph, params, x, label, *,
@@ -723,25 +799,618 @@ class AsyncDeviceBackend(_ReplayBackend):
         return out
 
 
-class _NotPorted:
-    """A registry entry for a backend the port does not have yet."""
+# ---------------------------------------------------------------------------
+# jit_blocks: each proven FusedBlock as one CUDA-graph replay over the arena
+# ---------------------------------------------------------------------------
 
-    def __init__(self, name: str, why: str):
-        self.name, self.why = name, why
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    """Skeleton placeholder for one tensor leaf of a flattened state."""
 
-    def __call__(self):
+    index: int
+
+
+def _flatten_state(obj, leaves: List[Tensor]):
+    """Split an interpreter state into (skeleton, tensor leaves): saved
+    contexts mix tensors with strings, shapes and ``("@act", name)``
+    references, so tensors are the leaves and everything else is
+    skeleton, which compares with ``==``."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return _Slot(len(leaves) - 1)
+    if isinstance(obj, dict):
+        return {k: _flatten_state(v, leaves) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(_flatten_state(v, leaves) for v in obj)
+    if isinstance(obj, list):
+        return [_flatten_state(v, leaves) for v in obj]
+    return obj
+
+
+def _unflatten_state(skel, leaves: List[Tensor]):
+    if isinstance(skel, _Slot):
+        return leaves[skel.index]
+    if isinstance(skel, dict):
+        return {k: _unflatten_state(v, leaves) for k, v in skel.items()}
+    if isinstance(skel, tuple):
+        return tuple(_unflatten_state(v, leaves) for v in skel)
+    if isinstance(skel, list):
+        return [_unflatten_state(v, leaves) for v in skel]
+    return skel
+
+
+def _alias(desc) -> Tensor:
+    """A tensor over memory it does not own: a block graph's output in the
+    chain's private pool, which every replay rewrites in capture order.
+    Holding the capture's own tensor instead would keep each block's
+    outputs allocated for good, and the pool would grow to their sum."""
+    ptr, nbytes, device, dtype, offset, shape, stride = desc
+    st = torch._C._construct_storage_from_data_pointer(ptr, device, nbytes)
+    return torch.empty(0, dtype=dtype, device=device).set_(
+        st, offset, shape, stride)
+
+
+def _tensor_key(t: Optional[Tensor]):
+    if t is None:
+        return None
+    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+
+
+class _LazyClones(dict):
+    """Gradient buffers for a warm-up: each owner's cloned at first use,
+    so the warm-up's accumulation lands in copies."""
+
+    def __init__(self, src):
+        super().__init__()
+        self.src = src
+
+    def __missing__(self, owner):
+        out = self[owner] = {k: t.clone() for k, t in self.src[owner].items()}
+        return out
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One block captured as a CUDA graph, and how to replay it: the
+    interpreter state it was captured from (skeleton and each tensor
+    leaf's address), the static copies it reads in place of leaves an
+    eager op makes anew every step, the state it leaves (each output leaf
+    an input passed through or an alias of the memory it was written to)
+    and the arena puts to redo in the store's books."""
+
+    graph: Any
+    in_skel: Any
+    in_ptrs: Tuple[int, ...]
+    statics: Dict[int, Tensor]
+    out_skel: Any
+    outs: Tuple[Any, ...]
+    puts: Tuple[Tuple[str, Any, int], ...]
+
+
+class _Chain:
+    """The blocks of one lowered schedule captured over one private pool,
+    in replay order, and the addresses they were captured against.
+
+    Blocks share the pool: each capture may reuse memory whose tensors the
+    earlier blocks' consumers have dropped, which is sound only while the
+    graphs replay in the order they were captured, one at a time.  So the
+    chain is keyed as a whole, by the addresses of every tensor a block
+    may read in place (the arena, the run's inputs, the parameters and the
+    gradient buffers), and captured again from its first block when any
+    of them moved."""
+
+    def __init__(self, key, storages):
+        self.key = key
+        self.pool = torch.cuda.graph_pool_handle()
+        self.blocks: Dict[int, _Captured] = {}
+        # storages a block reads in place: the key's, static copies, and
+        # the outputs of the blocks captured before it
+        self.baked = set(storages)
+
+
+@dataclasses.dataclass
+class _Admitted:
+    """A lowered schedule this backend admitted (under one EO analysis,
+    plan and arena plan): its proven fusion plan, where each ``X:`` owner
+    lives in the arena, and its captured chains by ``mask is None``."""
+
+    ref: Any                        # weak reference to the schedule
+    key: Tuple[int, int, int]       # ids of ordered, plan and arena plan
+    fusion: Any
+    block_at: Dict[int, Any]
+    covered: frozenset
+    offsets: Dict[str, Tuple[int, int]]
+    arena_bytes: int
+    chains: Dict[bool, _Chain] = dataclasses.field(default_factory=dict)
+
+
+class JitBlocksBackend(AsyncDeviceBackend):
+    """Replay each proven-fusable ``Compute`` run as one dispatch: one
+    CUDA-graph replay on the card, over the plan's packed device arena.
+
+    Per-op Python dispatch is the replay's cost on large graphs.  The
+    static dependence prover (:mod:`repro_torch.core.verify.deps`) plans
+    the blocks — maximal ``Compute`` runs crossing no transfer fence, no
+    ``Free``-reuse hazard and no in-place re-admission — and admission is
+    prove-then-run: beyond the base verifier gate, the fusion plan must
+    pass :func:`verify_fusion` and the fused replay stream must pass
+    :func:`schedules_equivalent` against the verified original, before
+    any op runs.  Transfers, ``Free``s, the optimizer lane and the
+    computes outside blocks stay eager at their issue points; at a
+    block's entry its consumer fences are taken for the device-resident
+    names it reads; the sanitizer cross-checks residency at block
+    boundaries.
+
+    Every ``X:`` owner group lives in one :class:`DeviceArena` of the
+    plan's packed bytes at its planned offsets (:class:`ArenaActivationStore`),
+    so an activation has one address in every step.  On the card each
+    block is captured once as a ``torch.cuda.CUDAGraph`` — after one
+    warm-up run on the capture stream, whose writes land in copies — and
+    replayed on every later step; all blocks of a schedule share one
+    private pool (:class:`_Chain`).  The interpreter's Python state after
+    a replay points at the graph's outputs.  A capture that fails raises,
+    naming the block and the op: no block of the card ever runs eagerly
+    in place of its graph.  On the CPU each block runs as one call of the
+    same interpreter, with no capture.
+
+    The arena, the gradient buffers (zeroed each step) and the graphs are
+    kept across runs: the returned grads are those buffers, rewritten by
+    the next run (clone them to keep them); the loss is a copy.
+    ``arena_plan`` is the device plan whose offsets hold the activations
+    (``plan`` when not given: a swap-free plan reaches the backend as
+    ``arena_plan`` alone).
+    """
+
+    name = "jit_blocks"
+
+    def __init__(self, device=None, *, sanitize: bool = False):
+        super().__init__(device, sanitize=sanitize)
+        self._arena_buf: Optional[DeviceArena] = None
+        self._grad_bufs: Optional[Tuple[Any, Dict]] = None
+        self._mask_buf: Optional[Tensor] = None
+        self._side = None
+        # id(lowered schedule) -> its admission; dropped, graphs and pools
+        # with it, once the schedule is gone (the verifier's registry keys
+        # schedules the same way)
+        self._admitted: Dict[int, _Admitted] = {}
+        self._last_fusion = None
+
+    def start(self, *args, **kwargs):
         raise NotImplementedError(
-            f"executor backend {self.name!r} is not ported yet: {self.why}")
+            "jit_blocks replays whole steps, one dispatch per fused block; "
+            "a phase-by-phase cursor replays op by op on 'sim' or 'async'")
+
+    # -------------------------------------------------------------- set-up
+    def _admit_fused(self, lowered, ordered: OrderedTensors, plan,
+                     arena_plan) -> _Admitted:
+        """Fusion admission, once per schedule: plan the blocks, re-prove
+        them legal, prove the fused replay stream keeps every dependence
+        edge of the verified original — only then may a block dispatch —
+        and place every ``X:`` owner at its planned arena offsets."""
+        from repro_torch.core.plan import SwapOut, planned_device_offset
+        from repro_torch.core.verify import (ScheduleVerificationError,
+                                             plan_fusion, replay_stream,
+                                             schedules_equivalent,
+                                             verify_fusion)
+        key = (id(ordered), id(plan), id(arena_plan))
+        entry = self._admitted.get(id(lowered))
+        if entry is not None and entry.ref() is lowered and entry.key == key:
+            return entry
+        for k in [k for k, e in self._admitted.items() if e.ref() is None]:
+            del self._admitted[k]
+        fusion = plan_fusion(lowered, ordered, plan)
+        errors = tuple(d for d in verify_fusion(fusion, lowered, ordered,
+                                                plan)
+                       if d.severity == "error")
+        if errors:
+            raise ScheduleVerificationError(errors)
+        schedules_equivalent(lowered, replay_stream(lowered, fusion),
+                             ordered=ordered, plan=plan).raise_if_errors()
+        if arena_plan is None:
+            raise ValueError(
+                "jit_blocks holds every activation at its planned arena "
+                "offset: it needs the plan (a schedule lowered without one "
+                "places nothing)")
+        swapped = {op.tensor for op in lowered.ops if isinstance(op, SwapOut)}
+        offsets: Dict[str, Tuple[int, int]] = {}
+        for t in ordered.planned_tensors():
+            if not t.name.startswith("X:"):
+                continue
+            pre = planned_device_offset(arena_plan, t.name, post=False)
+            post = planned_device_offset(arena_plan, t.name, post=True)
+            if pre < 0:
+                raise ValueError(f"{t.name} has no arena offset in the plan")
+            if t.name not in swapped and post != pre:
+                raise ValueError(
+                    f"{t.name} moves from arena offset {pre} to {post} "
+                    f"with no transfer to carry it")
+            offsets[t.name] = (pre, post)
+        entry = self._admitted[id(lowered)] = _Admitted(
+            ref=weakref.ref(lowered), key=key, fusion=fusion,
+            block_at={min(b.op_indices): b for b in fusion.blocks},
+            covered=frozenset(i for b in fusion.blocks
+                              for i in b.op_indices),
+            offsets=offsets, arena_bytes=arena_plan.arena_bytes)
+        return entry
+
+    @property
+    def arena(self) -> Optional[DeviceArena]:
+        """The device arena the last run held its activations in."""
+        return self._arena_buf
+
+    def _arena_for(self, nbytes: int, device: torch.device) -> DeviceArena:
+        """The arena, kept while its size and device hold."""
+        if self._arena_buf is None or self._arena_buf.device != device \
+                or self._arena_buf.nbytes != nbytes:
+            self._arena_buf = None          # release the old arena first
+            self._arena_buf = DeviceArena(device, nbytes)
+        return self._arena_buf
+
+    def _grads_for(self, graph: LayerGraph, params):
+        """The gradient buffers, allocated once per parameter layout and
+        zeroed for this step."""
+        owners = _trainable_owners(graph)
+        sig = tuple((o, k, tuple(w.shape), w.dtype, w.device)
+                    for o in owners for k, w in sorted(params[o].items()))
+        if self._grad_bufs is None or self._grad_bufs[0] != sig:
+            self._grad_bufs = (sig, _zero_grads(graph, params))
+        else:
+            for entry in self._grad_bufs[1].values():
+                for g in entry.values():
+                    g.zero_()
+        return self._grad_bufs[1]
+
+    def _mask_for(self, mask, label: Tensor):
+        """The mask as the loss reads it (the label's float dtype, on its
+        device), so no conversion runs inside a block; a mask that needs
+        one is copied into a buffer of the backend's, whose address holds
+        across steps."""
+        if mask is None:
+            return None
+        dtype = label.dtype if label.is_floating_point() else torch.float32
+        if isinstance(mask, torch.Tensor) and mask.dtype == dtype \
+                and mask.device == label.device:
+            return mask
+        m = torch.as_tensor(mask, dtype=dtype)
+        if self._mask_buf is None or self._mask_buf.shape != m.shape \
+                or self._mask_buf.device != label.device:
+            self._mask_buf = torch.empty(m.shape, dtype=dtype,
+                                         device=label.device)
+        self._mask_buf.copy_(m)
+        return self._mask_buf
+
+    # ----------------------------------------------------------------- run
+    def run(self, graph: LayerGraph, params, x, label, *,
+            schedule: OffloadSchedule,
+            ordered: Optional[OrderedTensors] = None,
+            plan=None, lowered=None, mask=None,
+            engine: Optional[TransferEngine] = None, optim=None,
+            arena_plan=None):
+        from repro_torch.core.verify import (ScheduleVerificationError,
+                                             plan_fusion, replay_stream,
+                                             schedules_equivalent,
+                                             verify_fusion)
+        if engine is not None:
+            raise ValueError(
+                "jit_blocks runs its own copy-stream engine over its arena; "
+                "an injected engine runs on 'sim' or 'async'")
+        t0 = time.perf_counter()
+        ordered, lowered = self._admit(graph, x, schedule, ordered, plan,
+                                       lowered)
+        admitted = self._admit_fused(
+            lowered, ordered, plan,
+            arena_plan if arena_plan is not None else plan)
+        self._last_fusion = admitted.fusion
+        engine = self._engine_for(x, plan, lowered, None, optim)
+        arena = self._arena_for(admitted.arena_bytes, x.device)
+        grads = self._grads_for(graph, params)
+        mask = self._mask_for(mask, label)
+        store = ArenaActivationStore(ordered, HbmTracker(), arena,
+                                     admitted.offsets, engine)
+        cursor = ScheduleCursor(
+            self, graph, params, x, label, schedule=schedule,
+            ordered=ordered, plan=plan, lowered=lowered, mask=mask,
+            engine=engine, sanitizer=self._sanitizer(ordered), optim=optim,
+            store=store, grad_bufs=grads)
+        chain = None
+        if arena.cuda:
+            chain = self._chain_for(admitted, arena, params, x, label, mask,
+                                    grads)
+        stats = cursor.stats
+        ops = lowered.ops
+        block_at, covered = admitted.block_at, admitted.covered
+        phase_eo = None
+        try:
+            for op_index, op in enumerate(ops):
+                block = block_at.get(op_index)
+                if block is not None:
+                    engine.begin_phase()
+                    phase_eo = None
+                    cursor._retire(ops[block.compute_indices[-1]].eo)
+                    self._exec_block(block, ops, cursor, chain)
+                    cursor.fused_away += len(block.op_indices) - 1
+                    self._replay_block_books(block, ops, cursor)
+                elif op_index not in covered:
+                    if op.eo != phase_eo:
+                        engine.begin_phase()
+                        phase_eo = op.eo
+                    cursor._exec_op(op, op_index)
+            stats.wall_time_s = time.perf_counter() - t0
+            stats.arena_copy_bytes = store.copy_bytes
+            cursor._finish()            # the card is done after its drain
+            stats.arena_write_wait_s = arena.settle()
+        except BaseException:
+            # a step that failed leaves no chain half captured, and nothing
+            # of it still running on the arena's bytes
+            if chain is not None:
+                admitted.chains.pop(mask is None, None)
+            if arena.cuda:
+                torch.cuda.synchronize(arena.device)
+            arena.settle()
+            raise
+        loss, grads_out, stats = cursor.result()
+        return (loss.clone() if loss is not None else None), grads_out, stats
+
+    def _replay_block_books(self, block, ops, cursor: ScheduleCursor) -> None:
+        """A block's ops into the replayed stream, its deferred frees, and
+        the sanitizer's steps: one cross-check at the block's end."""
+        store, sanitizer = cursor.store, cursor.sanitizer
+        for ci in block.compute_indices:
+            cursor._replayed.append(ops[ci])
+            if sanitizer is not None:
+                sanitizer.step(ops[ci])
+                cursor.stats.sanitizer_checks += 1
+        for fi in block.free_indices:
+            store.free_owner(ops[fi].tensor)
+            cursor._replayed.append(ops[fi])
+            if sanitizer is not None:
+                sanitizer.step(ops[fi])
+                cursor.stats.sanitizer_checks += 1
+        if sanitizer is not None:
+            last = max(block.free_indices or block.compute_indices)
+            sanitizer.cross_check(store.alive, last)
+
+    def _chain_for(self, admitted: _Admitted, arena: DeviceArena, params,
+                   x, label, mask, grads) -> _Chain:
+        fixed = [arena.buf, x, label] + ([mask] if mask is not None else [])
+        fixed += [w for o in sorted(params) for _, w in sorted(
+            params[o].items())]
+        fixed += [g for o in sorted(grads) for _, g in sorted(
+            grads[o].items())]
+        key = tuple(_tensor_key(t) for t in fixed)
+        chains = admitted.chains
+        chain = chains.get(mask is None)
+        if chain is None or chain.key != key:
+            chain = chains[mask is None] = _Chain(
+                key, (t.untyped_storage().data_ptr() for t in fixed))
+        return chain
+
+    # --------------------------------------------------------------- block
+    def _exec_block(self, block, ops, cursor: ScheduleCursor,
+                    chain: Optional[_Chain]) -> None:
+        """Fence the block's inputs, order its arena writes after the
+        swap-outs still reading those bytes, then run it as one dispatch."""
+        env, store, stats = cursor.env, cursor.store, cursor.stats
+        computes = [ops[ci] for ci in block.compute_indices]
+        # consumer fences for the device-resident names the block reads:
+        # read_names over-approximates (a CG lists every input even when
+        # its planned read is later), and fencing a host-resident name
+        # would swap it in ahead of its Prefetch; the verifier proved every
+        # name a block compute reads resident before the block
+        for op in computes:
+            for name in env.read_names(op):
+                if name in store.device:
+                    store.get(name, stats)
+        for op in computes:
+            owner = store.owner_of(op.layer) if op.kind == "F" else None
+            if owner is not None and owner not in store.alive:
+                store.arena.before_write(*store.region_of(owner))
+
+        def resident(name: str) -> Tensor:
+            try:
+                return store.device[name]
+            except KeyError:
+                raise KeyError(
+                    f"block {block.index} reads {name!r}, which is not "
+                    f"resident at its entry") from None
+
+        env.get = resident
+        try:
+            if chain is None:
+                for op in computes:
+                    env.step(op)
+            else:
+                self._graph_block(chain, block, computes, cursor)
+        finally:
+            env.get = cursor.fenced_get
+
+    def _state(self, cursor: ScheduleCursor, computes):
+        """The interpreter state a block reads and leaves: the saved
+        contexts of its own layers (the only ones its phases read or
+        write), the backward state, and the store's entries that hold no
+        arena bytes (the input, views of it)."""
+        state = cursor.env.state()
+        ctxs = state["ctxs"]
+        state["ctxs"] = {op.layer: ctxs[op.layer] for op in computes
+                         if op.layer in ctxs}
+        store = cursor.store
+        state["device"] = {n: t for n, t in store.device.items()
+                           if store.owner_of(n) is None}
+        return state
+
+    def _graph_block(self, chain: _Chain, block, computes,
+                     cursor: ScheduleCursor) -> None:
+        env, store, stats = cursor.env, cursor.store, cursor.stats
+        leaves: List[Tensor] = []
+        skel = _flatten_state(self._state(cursor, computes), leaves)
+        entry = chain.blocks.get(block.index)
+        if entry is None:
+            entry = self._capture(chain, block, computes, cursor, skel,
+                                  leaves)
+            chain.blocks[block.index] = entry
+            stats.graph_captures += 1
+            entry.graph.replay()
+            stats.graph_replays += 1
+            return
+        if entry.in_skel != skel:
+            raise RuntimeError(
+                f"jit_blocks: the interpreter state entering block "
+                f"{block.index} differs from the one it was captured from")
+        seen = list(leaves)
+        for i, leaf in enumerate(leaves):
+            static = entry.statics.get(i)
+            if static is not None:
+                if leaf.data_ptr() != static.data_ptr():
+                    static.copy_(leaf)
+                seen[i] = static
+            elif leaf.data_ptr() != entry.in_ptrs[i]:
+                raise RuntimeError(
+                    f"jit_blocks: block {block.index} would replay over a "
+                    f"stale address: an input it reads in place moved")
+        entry.graph.replay()
+        stats.graph_replays += 1
+        for put in entry.puts:
+            store.replay_put(*put)
+        out = _unflatten_state(entry.out_skel, [
+            seen[d[1]] if d[0] == "in" else _alias(d[1])
+            for d in entry.outs])
+        store.device.update(out.pop("device"))
+        env.load(out)
+
+    def _capture(self, chain: _Chain, block, computes,
+                 cursor: ScheduleCursor, skel, leaves) -> _Captured:
+        """Warm the block up on the capture stream, capture it into the
+        chain's pool and record how to replay it.  Leaves the interpreter
+        and the store as the block leaves them (the data lands when the
+        caller replays the graph)."""
+        env, store = cursor.env, cursor.store
+        device = store.arena.device
+        if self._side is None or self._side.device != device:
+            self._side = torch.cuda.Stream(device)
+        side, compute = self._side, torch.cuda.current_stream(device)
+        # a leaf an eager op made is new every step: the graph reads a
+        # static copy of it, refreshed before each replay
+        statics: Dict[int, Tensor] = {}
+        seen = list(leaves)
+        for i, leaf in enumerate(leaves):
+            if leaf.untyped_storage().data_ptr() not in chain.baked:
+                statics[i] = seen[i] = leaf.clone()
+                chain.baked.add(seen[i].untyped_storage().data_ptr())
+        state = _unflatten_state(skel, seen)
+        side.wait_stream(compute)
+        with torch.cuda.stream(side):
+            self._warm_up(env, store, computes, state)
+        compute.wait_stream(side)
+
+        env.load(state)
+        store.device.update(state["device"])
+        graph = torch.cuda.CUDAGraph()
+        store.log = []
+        at, err = None, None
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=chain.pool)
+            try:
+                for at in computes:
+                    env.step(at)
+            except Exception as e:          # noqa: BLE001 - re-raised below
+                err = e
+            finally:
+                try:
+                    with warnings.catch_warnings():
+                        # a block of views and pass-through derivatives
+                        # launches no kernel: its graph is empty, and
+                        # replaying it is a no-op, not a misplaced capture
+                        warnings.filterwarnings(
+                            "ignore", message="The CUDA Graph is empty")
+                        graph.capture_end()
+                except Exception as e:      # noqa: BLE001 - re-raised below
+                    err = err or e
+        puts, store.log = tuple(store.log), None
+        if err is not None:
+            kind = cursor.graph.layer(at.layer).kind if at else None
+            raise RuntimeError(
+                f"jit_blocks: block {block.index} failed to capture as a "
+                f"CUDA graph at {at} ({kind} layer): {err}") from err
+        compute.wait_stream(side)
+
+        out_leaves: List[Tensor] = []
+        out_skel = _flatten_state(self._state(cursor, computes), out_leaves)
+        ids = {id(t): i for i, t in enumerate(seen)}
+        outs = []
+        for t in out_leaves:
+            if id(t) in ids:
+                outs.append(("in", ids[id(t)]))
+                continue
+            st = t.untyped_storage()
+            outs.append(("alias", (st.data_ptr(), st.nbytes(), t.device,
+                                   t.dtype, t.storage_offset(),
+                                   tuple(t.shape), tuple(t.stride()))))
+            chain.baked.add(st.data_ptr())
+        return _Captured(graph=graph, in_skel=skel,
+                         in_ptrs=tuple(t.data_ptr() for t in leaves),
+                         statics=statics, out_skel=out_skel,
+                         outs=tuple(outs), puts=puts)
+
+    @staticmethod
+    def _warm_up(env: _ComputeEnv, store: ArenaActivationStore, computes,
+                 state) -> None:
+        """Run the block once eagerly on copies (torch's CUDA-graph notes
+        prescribe a warm-up on the capture stream: lazy handles and
+        workspaces are made outside the capture), leaving the arena and
+        the gradient buffers untouched."""
+        scratch: Dict[str, Tensor] = {}
+
+        def get(name: str) -> Tensor:
+            if name not in scratch:
+                scratch[name] = store.device[name].clone()
+            return scratch[name]
+
+        warm = _ComputeEnv(env.graph, env.params, env.label, env.mask,
+                           get=get, put=scratch.__setitem__,
+                           aliased=env.aliased,
+                           grad_bufs=_LazyClones(env._grad_bufs))
+        warm.load(state)
+        for op in computes:
+            warm.step(op)
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes the allocator holds in the private pools of this
+        backend's captured blocks (segments of ``memory_snapshot``); None
+        on the CPU or when the snapshot does not name segments' pools."""
+        pools = {tuple(c.pool) for a in self._admitted.values()
+                 for c in a.chains.values()}
+        if not pools:
+            return None
+        total, named = 0, False
+        for seg in torch.cuda.memory_snapshot():
+            pid = seg.get("segment_pool_id")
+            if pid is None:
+                continue
+            named = True
+            if tuple(pid) in pools:
+                total += seg["total_size"]
+        return total if named else None
+
+    def report(self) -> Dict[str, Any]:
+        out = super().report()
+        s = self._last_stats
+        out.update({
+            "fusion": self._last_fusion.summary(),
+            "graph_captures": s.graph_captures,
+            "graph_replays": s.graph_replays,
+            "arena_bytes": self._arena_buf.nbytes if self._arena_buf
+            else 0,
+            "arena_copy_bytes": s.arena_copy_bytes,
+            "arena_write_wait_s": s.arena_write_wait_s,
+        })
+        return out
 
 
 # Registry: MemoryPlanConfig.executor values -> backend factories.
 BACKENDS = {
     SimulatedBackend.name: SimulatedBackend,
     AsyncDeviceBackend.name: AsyncDeviceBackend,
-    "jit_blocks": _NotPorted(
-        "jit_blocks", "its counterpart replays each proven FusedBlock as "
-        "one CUDA-graph replay over the plan's packed device arena, the "
-        "next item of ROADMAP queue A"),
+    JitBlocksBackend.name: JitBlocksBackend,
 }
 
 
@@ -750,8 +1419,7 @@ def get_backend(executor: Union[str, ExecutorBackend, None]
     """Resolve an executor selection to a backend instance.
 
     ``None`` means the default (``"sim"``); a string is looked up in
-    :data:`BACKENDS` (unknown names raise with the valid options; a name
-    not ported yet raises ``NotImplementedError``); an
+    :data:`BACKENDS` (unknown names raise with the valid options); an
     :class:`ExecutorBackend` instance passes through untouched, the hook
     for custom backends."""
     if executor is None:

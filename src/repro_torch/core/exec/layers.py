@@ -223,8 +223,11 @@ def layer_calc_gradient(l: LayerNode, ctx: Any, dy: Tensor,
         (idx,) = ctx
         flat_idx = idx.reshape(-1)
         g = torch.zeros(p["w"].shape, dtype=dy.dtype, device=dy.device)
-        return {"w": g.index_add_(0, flat_idx,
-                                  dy.reshape(flat_idx.shape[0], -1))}
+        # accumulate into repeated rows in a fixed order (CUDA's index_add_
+        # adds them with atomics, so two runs of one step could differ)
+        return {"w": g.index_put_((flat_idx,),
+                                  dy.reshape(flat_idx.shape[0], -1),
+                                  accumulate=True)}
     if l.kind == "lstm":
         x, h0, c0 = ctx
         gwx, gwh, gb = _vjp(
@@ -473,3 +476,15 @@ def sgd_update(params: Params, grads: Params, lr: float = 1e-2) -> Params:
         else:
             out[lname] = entry
     return out
+
+
+@torch.no_grad()
+def sgd_update_(params: Params, grads: Params, lr: float = 1e-2) -> Params:
+    """:func:`sgd_update` in place: each parameter keeps its storage, so a
+    replay whose CUDA graphs read the parameters where they were captured
+    replays instead of capturing again.  Returns ``params``."""
+    for lname, entry in params.items():
+        if lname in grads:
+            for k, v in entry.items():
+                v.add_(grads[lname][k], alpha=-lr)
+    return params

@@ -111,6 +111,13 @@ class SwapExecStats:
     # intervals, from CUDA events; on the CPU: the host clock the
     # scheduler reads around each phase
     cross_hidden_dma_s: float = 0.0
+    # ---- jit_blocks (the packed device arena, one CUDA graph per block) ----
+    graph_captures: int = 0        # blocks captured as CUDA graphs this run
+    graph_replays: int = 0         # block graph replays (block calls on CPU)
+    arena_copy_bytes: int = 0      # layer outputs copied into arena views
+    # card seconds the compute stream waited, before writing arena bytes,
+    # for swap-outs still reading them (hazard (a) of the DeviceArena)
+    arena_write_wait_s: float = 0.0
 
 
 class HbmTracker:
@@ -573,6 +580,56 @@ class DeviceStreamEngine:
                                        self.inflight_bytes)
         return arrays
 
+    # ------------------------------------------------ arena regions
+    def swap_out_region(self, owner: str, region: Tensor, nbytes: int,
+                        host_offset: int = -1) -> Tuple[Tensor, Any]:
+        """D2H of one owner group's bytes, ``region`` (a uint8 view of the
+        device arena), into its host slot.  Returns the slot and, on the
+        card, the copy's end event: until then the region is still being
+        read, and no allocator knows it (the arena's hazard list does)."""
+        slot = self.pool.slot(host_offset, nbytes)
+        if region.numel() > slot.numel():
+            raise ValueError(
+                f"{owner}: its region holds {region.numel()} bytes, more "
+                f"than its {slot.numel()}-byte host slot")
+        done = None
+        if self.cuda:
+            produced = torch.cuda.Event()
+            produced.record(torch.cuda.current_stream(self.device))
+            self.copy_stream.wait_event(produced)
+            with torch.cuda.stream(self.copy_stream):
+                slot[:region.numel()].copy_(region, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        else:
+            slot[:region.numel()].copy_(region)
+        self._bus_schedule(nbytes)
+        return slot, done
+
+    def swap_in_region(self, owner: str, slot: Tensor, region: Tensor,
+                       nbytes: int, after: Tuple[Any, ...] = ()) -> None:
+        """H2D of ``owner``'s host slot into its arena ``region``, issued
+        on the copy stream once the compute-stream events ``after`` (the
+        last reads of the bytes' previous occupants) have passed, and
+        fenced at the consumer like :meth:`swap_in`."""
+        if self.cuda:
+            for ev in after:
+                self.copy_stream.wait_event(ev)
+            with torch.cuda.stream(self.copy_stream):
+                start = self._event()
+                start.record()
+                region.copy_(slot[:region.numel()], non_blocking=True)
+                done = self._event()
+                done.record()
+        else:
+            region.copy_(slot[:region.numel()])
+            start = done = None
+        self._inflight[owner] = _Copy(nbytes, time.perf_counter(),
+                                      self._bus_schedule(nbytes), start, done)
+        self.inflight_bytes += nbytes
+        self.inflight_high_water = max(self.inflight_high_water,
+                                       self.inflight_bytes)
+
     def opt_swap_in(self, owner: str, nbytes: int, host_nbytes: int,
                     stats: SwapExecStats, host_offset: int = -1,
                     srcs: Optional[List[Tensor]] = None
@@ -947,3 +1004,274 @@ class ActivationStore:
         if owner in self.alive:
             self.alive.discard(owner)
             self.hbm.free(self.ordered.tensors[owner].nbytes)
+
+
+# ---------------------------------------------------------------------------
+# The packed device arena (jit_blocks)
+# ---------------------------------------------------------------------------
+
+def _span_bytes(m: _Member) -> int:
+    """Bytes from a member's first element to the end of its last."""
+    esize = m.dtype.itemsize
+    if 0 in m.shape:
+        return 0
+    return (1 + sum((n - 1) * st for n, st in zip(m.shape, m.stride))) * esize
+
+
+def _contiguous(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(strides))
+
+
+def _overlaps(a: Tuple[int, int], lo: int, hi: int) -> bool:
+    return a[0] < hi and lo < a[1]
+
+
+class DeviceArena:
+    """ONE device buffer of the plan's packed arena bytes, allocated once
+    and kept by its backend across runs.  Every planned ``X:`` owner group
+    lives in it as typed views at the offset the packer chose and the
+    verifier proved, so every activation has the same address in every
+    step: what a CUDA graph needs, since it bakes in the address of every
+    tensor it reads.
+
+    The verifier proves the offsets free of overlap in EO order, not in
+    stream time, and no caching allocator's ``record_stream`` stands
+    guard over the arena's bytes, so the arena orders the two streams
+    itself:
+
+    (a) a swap-out's D2H reads its region on the copy stream after the
+        compute stream has moved on: the first compute-stream write into
+        those bytes waits on the copy's end event (:meth:`before_write`);
+    (b) a prefetch's H2D writes its region on the copy stream: it waits on
+        a compute-stream event recorded when each earlier occupant of
+        those bytes was freed, after its last read (:meth:`vacate`,
+        :meth:`last_reads`).
+
+    On the CPU every copy is done when it returns, and neither list is
+    kept.
+    """
+
+    def __init__(self, device: torch.device, nbytes: int):
+        self.device = device
+        self.nbytes = nbytes
+        self.cuda = device.type == "cuda"
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self._reading: List[Tuple[int, int, Any]] = []
+        self._vacated: List[Tuple[int, int, Any]] = []
+        self._waits: List[Tuple[Any, Any]] = []
+
+    @property
+    def base(self) -> int:
+        return self.buf.data_ptr()
+
+    def region(self, offset: int, nbytes: int) -> Tensor:
+        """The uint8 view of ``[offset, offset + nbytes)``."""
+        if offset < 0 or offset + nbytes > self.nbytes:
+            raise ValueError(
+                f"arena region [{offset}, {offset + nbytes}) lies outside "
+                f"the {self.nbytes}-byte arena")
+        return self.buf[offset:offset + nbytes]
+
+    def view(self, offset: int, member: _Member) -> Tensor:
+        """``member`` (its offset counted in elements from ``offset``) as
+        a typed view of the arena."""
+        esize = member.dtype.itemsize
+        if offset % esize:
+            raise ValueError(
+                f"arena offset {offset} is not aligned to {member.dtype} "
+                f"({esize}-byte elements)")
+        at = offset + member.offset * esize
+        if member.offset < 0 or at + _span_bytes(member) > self.nbytes:
+            raise ValueError(
+                f"a {member.dtype} view of shape {member.shape} at byte "
+                f"{at} lies outside the {self.nbytes}-byte arena")
+        return torch.empty(0, dtype=member.dtype, device=self.device).set_(
+            self.buf.untyped_storage(), at // esize, member.shape,
+            member.stride)
+
+    def holds(self, t: Tensor) -> bool:
+        return (t.device == self.buf.device
+                and t.untyped_storage().data_ptr() == self.base)
+
+    # ---------------------------------------------------------- hazards
+    def reading(self, lo: int, hi: int, done: Any) -> None:
+        """(a) a D2H is reading ``[lo, hi)`` until ``done``."""
+        if done is not None:
+            self._reading.append((lo, hi, done))
+
+    def before_write(self, lo: int, hi: int) -> None:
+        """(a) make the compute stream wait for every D2H still reading
+        bytes of ``[lo, hi)``; later compute work is ordered after it."""
+        if not self._reading:
+            return
+        hits = [r for r in self._reading if _overlaps(r, lo, hi)]
+        if not hits:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"arena bytes [{lo}, {hi}) are written inside a CUDA-graph "
+                f"capture while a swap-out still reads them: the block's "
+                f"writes must be ordered after the copy at its entry")
+        stream = torch.cuda.current_stream(self.device)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record(stream)
+        for r in hits:
+            stream.wait_event(r[2])
+        end.record(stream)
+        self._waits.append((begin, end))
+        self._reading = [r for r in self._reading
+                         if not _overlaps(r, lo, hi)]
+
+    def vacate(self, lo: int, hi: int) -> None:
+        """(b) ``[lo, hi)`` was freed: its occupant's last read is queued
+        on the compute stream before this point."""
+        if not self.cuda:
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._vacated.append((lo, hi, ev))
+
+    def last_reads(self, lo: int, hi: int) -> Tuple[Any, ...]:
+        """(b) the events an H2D into ``[lo, hi)`` must wait for; once the
+        copy stream has waited, later copies are ordered after them."""
+        hits = tuple(r[2] for r in self._vacated if _overlaps(r, lo, hi))
+        if hits:
+            self._vacated = [r for r in self._vacated
+                             if not _overlaps(r, lo, hi)]
+        return hits
+
+    def settle(self) -> float:
+        """The card has finished the step's work: nothing is in flight.
+        Returns the seconds the compute stream waited in
+        :meth:`before_write` since the last settle (card clock)."""
+        waited = sum(b.elapsed_time(e) for b, e in self._waits) / 1e3
+        self._waits.clear()
+        self._reading.clear()
+        self._vacated.clear()
+        return waited
+
+
+class ArenaActivationStore(ActivationStore):
+    """The activation store over a :class:`DeviceArena`.
+
+    ``offsets`` maps each planned owner to its (pre, post) byte offsets:
+    where its producer writes it, and where its prefetch lands it (equal
+    when it never leaves the device).  The owner's producer output is
+    copied into the typed view at the head of its region (``put``; the
+    copy's bytes are counted in ``copy_bytes``); a member merged into it
+    (an in-place activation, a flatten view) already lies in that region
+    and is kept as the view it is.  A swap moves the region's bytes, and
+    the members come back as views at the post offset with the dtype,
+    shape, strides and offset each had.  Byte accounting is the base
+    store's, unchanged."""
+
+    def __init__(self, ordered: OrderedTensors, hbm: HbmTracker,
+                 arena: DeviceArena, offsets: Dict[str, Tuple[int, int]],
+                 engine: "DeviceStreamEngine"):
+        super().__init__(ordered, hbm, engine=engine)
+        self.arena = arena
+        self.offsets = offsets
+        self.at: Dict[str, int] = {}          # owner -> where its bytes are
+        self.layout: Dict[str, _Member] = {}  # member -> place in its region
+        self.slots: Dict[str, Tensor] = {}    # owner -> host slot, swapped
+        self.copy_bytes = 0
+        # (member, layout, bytes copied) of each arena put, while a block
+        # is recorded
+        self.log: Optional[List[Tuple[str, _Member, int]]] = None
+
+    def region_of(self, owner: str) -> Tuple[int, int]:
+        """``owner``'s bytes as ``[lo, hi)``: where they are while it is
+        resident, where its producer writes them before."""
+        lo = self.at[owner] if owner in self.alive else self.offsets[owner][0]
+        return lo, lo + self.ordered.tensors[owner].nbytes
+
+    def put(self, lname: str, y: Tensor) -> None:
+        owner = self.owner_of(lname)
+        if owner is None:
+            super().put(lname, y)
+            return
+        lo, hi = self.region_of(owner)
+        esize = y.element_size()
+        off = y.data_ptr() - self.arena.base - lo
+        copied = 0
+        if self.arena.holds(y) and 0 <= off and off % esize == 0 and \
+                off + y.numel() * esize <= hi - lo:
+            member = _Member(y.dtype, tuple(y.shape), tuple(y.stride()),
+                             off // esize)
+            view = y
+        else:
+            # the group's first bytes, or a merged member computed out of
+            # place (the analysis proved the bytes it overwrites dead)
+            if y.numel() * esize > hi - lo:
+                raise ValueError(
+                    f"{lname}: {y.numel() * esize} bytes do not fit "
+                    f"{owner}'s {hi - lo}-byte arena region")
+            member = _Member(y.dtype, tuple(y.shape),
+                             _contiguous(tuple(y.shape)), 0)
+            self.arena.before_write(lo, hi)
+            view = self.arena.view(lo, member)
+            view.copy_(y)
+            copied = y.numel() * esize
+        self._placed(lname, owner, lo, member, copied)
+        super().put(lname, view)
+
+    def _placed(self, lname: str, owner: str, lo: int, member: _Member,
+                copied: int) -> None:
+        self.at[owner] = lo
+        self.layout[lname] = member
+        self.copy_bytes += copied
+        if self.log is not None:
+            self.log.append((lname, member, copied))
+
+    def replay_put(self, lname: str, member: _Member, copied: int) -> None:
+        """The books of a put a replayed block graph made: ``lname`` is
+        the view ``member`` of its owner's region, ``copied`` bytes were
+        copied into it on the card."""
+        owner = self.owner_of(lname)
+        lo = self.region_of(owner)[0]
+        self._placed(lname, owner, lo, member, copied)
+        super().put(lname, self.arena.view(lo, member))
+
+    def swap_out(self, owner: str, stats: SwapExecStats,
+                 host_offset: int = -1) -> None:
+        lo, hi = self.region_of(owner)
+        nbytes = hi - lo
+        slot, done = self.engine.swap_out_region(
+            owner, self.arena.region(lo, nbytes), nbytes, host_offset)
+        self.arena.reading(lo, hi, done)
+        self.slots[owner] = slot
+        for m in self.members.get(owner, ()):
+            if self.device.pop(m, None) is not None:
+                self.host[m] = HostCopy(slot, self.layout[m])
+        self.alive.discard(owner)
+        self.hbm.free(nbytes)
+        self.host_pool.alloc(nbytes)
+        stats.swap_outs += 1
+        stats.dma_bytes += nbytes
+
+    def swap_in(self, owner: str, stats: SwapExecStats) -> None:
+        lo = self.offsets[owner][1]
+        nbytes = self.ordered.tensors[owner].nbytes
+        self.engine.swap_in_region(
+            owner, self.slots.pop(owner), self.arena.region(lo, nbytes),
+            nbytes, self.arena.last_reads(lo, lo + nbytes))
+        for m in self.members.get(owner, ()):
+            if self.host.pop(m, None) is not None:
+                self.device[m] = self.arena.view(lo, self.layout[m])
+        self.at[owner] = lo
+        self.alive.add(owner)
+        self.hbm.alloc(nbytes)
+        self.host_pool.free(nbytes)
+        stats.prefetches += 1
+        stats.dma_bytes += nbytes
+
+    def free_owner(self, owner: str) -> None:
+        if owner in self.alive:
+            self.arena.vacate(*self.region_of(owner))
+        self.slots.pop(owner, None)
+        super().free_owner(owner)

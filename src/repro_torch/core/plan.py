@@ -76,8 +76,9 @@ knob (default)          meaning
 (``"sim"``)             sim (synchronous, deterministic stats) | async
                         (non-blocking copies on a CUDA copy stream into a
                         pinned host pool, fenced by events at the
-                        consumer, overlap measured) | jit_blocks (not
-                        ported yet: raises)
+                        consumer, overlap measured) | jit_blocks (async
+                        transfers; each proven block one CUDA-graph
+                        replay over the packed device arena)
 ``verify``              static verification of the lowered schedule
 (``"error"``)           (``repro_torch.core.verify``): "error" raises
                         ``ScheduleVerificationError`` on any violated
@@ -163,8 +164,10 @@ class MemoryPlanConfig:
                          non-blocking copies on a CUDA copy stream into
                          one pinned host pool, dispatched ahead of need
                          and fenced by events at the consumer; achieved
-                         overlap reported).  "jit_blocks" is not ported
-                         yet and raises.  See
+                         overlap reported) or "jit_blocks" (async
+                         transfers; each proven-fusable Compute run one
+                         dispatch: a CUDA-graph replay over the plan's
+                         packed device arena on the card).  See
                          ``repro_torch.core.exec.backends``.
     ``verify``           static schedule verification policy: "error"
                          (default — raise ScheduleVerificationError on any
@@ -375,6 +378,21 @@ class ExecutionSchedule:
                      if isinstance(op, (SwapOut, Prefetch)))
 
 
+def planned_device_offset(plan: Optional[Union[Plan, SwapAwarePlan]],
+                          name: str, *, post: bool) -> int:
+    """``name``'s byte offset in the packed device arena: its first
+    residency (``post=False``, where the producer writes it) or its last
+    (``post=True``, where a prefetch lands it); -1 when unplaced."""
+    if isinstance(plan, SwapAwarePlan):
+        rs = plan.residencies.get(name)
+        if rs:
+            ordered_rs = sorted(rs, key=lambda r: r.min_eo)
+            return ordered_rs[-1 if post else 0].offset
+    elif isinstance(plan, Plan) and name in plan.placements:
+        return plan.placements[name].offset
+    return -1
+
+
 def lower_schedule(ordered: OrderedTensors, schedule: OffloadSchedule,
                    plan: Optional[Union[Plan, SwapAwarePlan]] = None
                    ) -> ExecutionSchedule:
@@ -387,16 +405,6 @@ def lower_schedule(ordered: OrderedTensors, schedule: OffloadSchedule,
     In-place decisions lower to nothing — their bytes never move.
     """
     swap_aware = isinstance(plan, SwapAwarePlan)
-
-    def device_offset(name: str, *, post: bool) -> int:
-        if swap_aware:
-            rs = plan.residencies.get(name)
-            if rs:
-                ordered_rs = sorted(rs, key=lambda r: r.min_eo)
-                return ordered_rs[-1 if post else 0].offset
-        elif isinstance(plan, Plan) and name in plan.placements:
-            return plan.placements[name].offset
-        return -1
 
     def host_offset(name: str) -> int:
         if swap_aware:
@@ -418,17 +426,20 @@ def lower_schedule(ordered: OrderedTensors, schedule: OffloadSchedule,
                 f"execution-order analysis does not know — schedule and "
                 f"ordered tensors come from different graphs?")
         ops.append(SwapOut(eo=d.swap_out_eo, tensor=d.name, nbytes=d.nbytes,
-                           device_offset=device_offset(d.name, post=False),
+                           device_offset=planned_device_offset(
+                               plan, d.name, post=False),
                            host_offset=host_offset(d.name)))
         ops.append(Prefetch(eo=d.prefetch_at_eo, tensor=d.name,
                             nbytes=d.nbytes,
-                            device_offset=device_offset(d.name, post=True),
+                            device_offset=planned_device_offset(
+                                plan, d.name, post=True),
                             host_offset=host_offset(d.name),
                             read_eo=d.read_eo))
     for t in ordered.planned_tensors():
         if t.name.startswith("X:"):
             ops.append(Free(eo=t.max_eo, tensor=t.name, nbytes=t.nbytes,
-                            device_offset=device_offset(t.name, post=True)))
+                            device_offset=planned_device_offset(
+                                plan, t.name, post=True)))
     optim = getattr(plan, "optim", None)
     if optim is not None:
         # optimizer slots: one prefetch (compressed host copy -> fp32
@@ -608,8 +619,8 @@ class CompiledMemoryPlan:
 
         ``engine`` optionally injects a :class:`TransferEngine` into the
         replay backends (``"sim"``/``"async"``) — e.g. a bus-paced engine
-        for emulated-hardware benchmarks; the jit-fused backend manages
-        its own engine and rejects the override.
+        for emulated-hardware benchmarks; ``"jit_blocks"`` runs its own
+        engine over its device arena and rejects the override.
 
         ``optim`` (a :class:`repro_torch.core.optim_offload.OffloadedStep`
         over this plan's optimizer slots) makes the replay's
@@ -618,12 +629,17 @@ class CompiledMemoryPlan:
         call.
         """
         self._require_graph("loss_and_grads")
-        from repro_torch.core.exec.backends import get_backend
+        from repro_torch.core.exec.backends import (JitBlocksBackend,
+                                                    get_backend)
         backend = get_backend(
             executor if executor is not None else self.config.executor)
         extra = {} if engine is None else {"engine": engine}
         if optim is not None:
             extra["optim"] = optim
+        if isinstance(backend, JitBlocksBackend):
+            # activations at their offsets in this plan's arena (a swap-free
+            # plan is no SwapAwarePlan, so it does not arrive as ``plan``)
+            extra["arena_plan"] = self.plan
         out = backend.run(
             self.graph, params, x, label,
             schedule=self.schedule,

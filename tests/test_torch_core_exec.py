@@ -7,8 +7,8 @@ an emulated bus.  (The reference's own ``async`` lane cannot run on the CPU:
 its donated ``device_put`` raises there, so JAX ``sim`` is the yardstick.)
 
 Also: the engine's host pool and alias groups, the resumable cursor,
-verified admission, and the refusals of what is not ported and of running
-without a card."""
+verified admission, ``jit_blocks`` resolving to the port's backend, and
+the refusal to run without a card."""
 
 import dataclasses
 import functools
@@ -304,12 +304,18 @@ def test_admission_refuses_an_unverified_schedule():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="CUDA-graph"):
-        get_backend("jit_blocks")
+    # jit_blocks is ported: the name resolves to the port's backend, and a
+    # plan replays on it (its parity: tests/test_torch_jit_blocks.py)
+    from repro_torch.core.exec import JitBlocksBackend
+    assert isinstance(get_backend("jit_blocks"), JitBlocksBackend)
+    jcp, params, x, y, jloss, jgrads, _ = _reference("lenet5")
     cp = _port("lenet5")
-    with pytest.raises(NotImplementedError, match="CUDA-graph"):
-        cp.loss_and_grads({}, torch.zeros(1), torch.zeros(1),
-                          executor="jit_blocks")
+    loss, grads, stats = cp.loss_and_grads(
+        graph_params_from_numpy(params, "cpu"), torch.from_numpy(x),
+        torch.from_numpy(y), executor="jit_blocks")
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
+    _assert_grads(grads, jgrads)
+    assert stats.backend == "jit_blocks"
     # ROADMAP item 8 is done: the policy and the tag no longer raise
     from repro_torch.core.remat_policy import RematPlan, tag
     policy = RematPlan(("qkv",), (), 0, 0.0, offloaded=("mlp_hidden",)

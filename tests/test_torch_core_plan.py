@@ -176,10 +176,13 @@ def test_unported_policy_and_optimizer_offload_raise():
     assert policy.offloaded == cp.remat_plan.offloaded
     assert {n: policy.decision(n) for n in cp.remat_plan.decisions()} \
         == cp.remat_plan.decisions()
-    with pytest.raises(NotImplementedError, match="CUDA-graph"):
-        tplan.compile_plan(tzoo.ZOO["lenet5"](),
-                           tplan.MemoryPlanConfig(executor="jit_blocks"),
-                           batch=BATCH)
+    # jit_blocks is ported: the config compiles and names the backend
+    cp = tplan.compile_plan(tzoo.ZOO["lenet5"](),
+                            tplan.MemoryPlanConfig(executor="jit_blocks"),
+                            batch=BATCH)
+    assert cp.report()["executor"] == "jit_blocks"
+    from repro_torch.core.exec import JitBlocksBackend, get_backend
+    assert isinstance(get_backend(cp.config.executor), JitBlocksBackend)
     with pytest.raises(ValueError, match="unknown executor"):
         tplan.compile_plan(tzoo.ZOO["lenet5"](),
                            tplan.MemoryPlanConfig(executor="nope"),
