@@ -176,8 +176,40 @@ them:
    algorithms: steps 3-4 bit for bit, the data state restored as saved.
    The two kernels are timed at the train step's shape (one sequence of
    4096) for their rows in the kernel table.
+20. train_recurrent: the hybrid and ssm families trained through
+   ``Trainer`` at full width (fp32 parameters and AdamW state, bf16
+   compute, the default plan: each mamba, mLSTM and sLSTM block
+   checkpointed with nothing saved, zamba's shared block under the plan's
+   policy), every SSD and mLSTM scan's forward by its kernel and its
+   backward by the vjp of ``ssd_chunked`` / ``mlstm_chunked``
+   (``kernels/recompute.py``, timed on the card's clock): (e) zamba2-7b,
+   depth 81 -> 39 (6 groups of 6 and a tail of 3; 81 layers' fp32 state is
+   108 GB) and batch 256 -> 2, train_4k's 4096 tokens, 3 steps of 2
+   micro-batches; (f) xlstm-1.3b at full depth (48 blocks), batch 2,
+   sequence 4096 -> 1024, 2 steps.  Gates: finite losses, the first within
+   1.0 of ln(vocab) (the untied unembedding starts at logits ~N(0, 1)),
+   SSD / mLSTM / flash / SwiGLU launches exactly as the checkpoint
+   structure implies (each scan in its forward and its block's replay;
+   flash and SwiGLU by ``_expected_launches``), all wgmma, no forward
+   through a twin, the peak within 80 GB beside the reckoned parts; (g)
+   fp32 at full width, S = 1024, every tag recomputed, zamba at depth 7
+   and xlstm at depth 8: the kernel path (SSD, mLSTM wgmma; flash, SwiGLU
+   simt) against the twins in the wrappers' place on the card, the loss
+   within 1e-4 and every grad of the whole model normwise within the
+   larger of 1e-4 and 2x a second plain path's distance from the twins
+   (the scans' forwards by ``ssd_chunked`` / ``mlstm_chunked``).
+   xlstm-1.3b's mLSTM normaliser max(|n|, exp(-m)) is a kink whose branch
+   a forward difference of fp32 size can flip in the backward, so its
+   runs take every backward's branches from the twin run, the second
+   plain paths include the twins with the kernel's own forward error
+   (permuted) added, the flips and the unpinned grads are reported, and
+   each mLSTM block is held at 1e-4 from its input and upstream gradient
+   in the kernel run.  The four kernels are timed at these train
+   steps' shapes for their rows, and one layer's backward recompute of
+   each scan is timed alone.
 
-The bf16 prefill steps (3, 5, 8, 11) and generate's SwiGLU launches must
+The bf16 prefill steps (3, 5, 8, 11), the bf16 train steps (19 (a), 20
+(e), (f)) and generate's SwiGLU launches must
 count under the wgmma variants only; in the fp32 parity phases (7, 10,
 13) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
 (``LAUNCHES_BY_VARIANT``).  Every phase prints one
@@ -195,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -381,6 +414,7 @@ def main() -> int:
     check(all(m.LAUNCHES == 0 for m in (fa, ssd, ml, sw)), "paper_path",
           "the paper's path launched a kernel of the transformer path")
     train_rows = _train_rows(torch, fa, sw, gpu)
+    train_rows += _train_recurrent_rows(torch, fa, ssd, ml, sw, gpu)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
@@ -3143,6 +3177,662 @@ def _train_resume(torch):
           "nondeterministic_warnings": nondeterministic})
     check(ok, "train", f"(d) straight {straight}, resumed {resumed}, data "
           f"state {restored} vs {saved}")
+
+
+# ---------------------------------------------------------------------------
+# 20. train_recurrent: zamba2-7b and xlstm-1.3b trained at full width
+# ---------------------------------------------------------------------------
+
+# (e) zamba2-7b: depth 81 -> 39 (6 groups of 6 and a tail of 3: the fp32
+# parameters, grads and AdamW moments of 81 layers, 108 GB, do not fit the
+# card), global batch 256 -> 2 (2 micro-batches of 1), train_4k's 4096
+# tokens; (f) xlstm-1.3b at full depth, batch 2 likewise, sequence 4096 ->
+# 1024 (the sLSTM loop, replayed and backpropagated step by step on the
+# host, would add minutes at 4096)
+REC_ZAMBA_DEPTH, REC_ZAMBA_SEQ, REC_ZAMBA_STEPS = 39, 4096, 3
+REC_XLSTM_SEQ, REC_XLSTM_STEPS = 1024, 2
+REC_BATCH, REC_MICRO = 2, 2
+# (g) fp32 parity: full width, S = 1024, zamba one group and a tail of 1,
+# xlstm one group of 7 mLSTM blocks and 1 sLSTM block
+REC_FP32_SEQ = 1024
+REC_FP32_DEPTH = {"zamba2-7b": 7, "xlstm-1.3b": 8}
+# (g) holds each grad leaf of the kernel path to the twin path within the
+# larger of GRAD_REL_TOL and SPREAD_FACTOR x a plain fp32 path's distance
+# on the leaf (the scans' forwards by ssd_chunked / mlstm_chunked, and for
+# xlstm-1.3b also NOISE_DRAWS draws of the kernel's own forward error
+# added to the twins'): zamba2-7b's SSD decay leaves (A_log, dt_bias) sum
+# cancelling terms, and their fp32 grads move by ~1e-4 with the order of
+# the sums; xlstm-1.3b's whole-model grads run through the mLSTM
+# normaliser's kink (``_xlstm_witness``)
+SPREAD_FACTOR = 2.0
+NOISE_DRAWS = 2
+# the kernels at the train steps' shapes (one sequence)
+SSD_TRAIN = (1, 4096, 112, 64, 64, 256)        # x (1, 16, 256, 112, 64)
+MLSTM_TRAIN = (1, 1024, 4, 1024, 256)          # q (1, 4, 256, 4, 1024)
+ZAMBA_TRAIN_FLASH = (1, 32, 32, 4096, 4096, 112, True, 512, 1024)
+ZAMBA_TRAIN_SWIGLU = (1, 4096, 3584, 14336)
+
+
+class _TimedRecompute:
+    """Wraps a scan Function's backward recompute (``kernels.recompute.
+    vjp``): CUDA events around each call on the current stream, read after
+    the run (``ms``)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.events = torch, fn, []
+
+    def __call__(self, *args):
+        t = self.torch
+        start = t.cuda.Event(enable_timing=True)
+        end = t.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+@contextlib.contextmanager
+def _recurrent_twins(torch, fa, ssd, ml, sw):
+    """Every kernel's twin counted (``_Counted``), and both scans' backward
+    recomputes timed; yields (twins, timers)."""
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+
+    twins = {"flash": _Counted(fa.flash_attention_fwd_plain),
+             "swiglu": _Counted(sw.fused_swiglu_plain),
+             "ssd": _Counted(ssd.ssd_chunk_plain),
+             "mlstm": _Counted(ml.mlstm_chunk_plain)}
+    timers = {"ssd": _TimedRecompute(torch, ssd_ops.vjp),
+              "mlstm": _TimedRecompute(torch, mlstm_ops.vjp)}
+    saved = (fa.flash_attention_fwd_plain, sw.fused_swiglu_plain,
+             ssd.ssd_chunk_plain, ml.mlstm_chunk_plain, ssd_ops.vjp,
+             mlstm_ops.vjp)
+    fa.flash_attention_fwd_plain = twins["flash"]
+    sw.fused_swiglu_plain = twins["swiglu"]
+    ssd.ssd_chunk_plain, ml.mlstm_chunk_plain = twins["ssd"], twins["mlstm"]
+    ssd_ops.vjp, mlstm_ops.vjp = timers["ssd"], timers["mlstm"]
+    try:
+        yield twins, timers
+    finally:
+        (fa.flash_attention_fwd_plain, sw.fused_swiglu_plain,
+         ssd.ssd_chunk_plain, ml.mlstm_chunk_plain, ssd_ops.vjp,
+         mlstm_ops.vjp) = saved
+
+
+def _train_recurrent_rows(torch, fa, ssd, ml, sw, gpu):
+    """The train_recurrent phase, then its four kernel rows, each kernel
+    timed at its train step's shape with the launches of (e) or (f)."""
+    rows = {"ssd": _scan_row(torch, ssd, "ssd_chunk", SSD_TRAIN,
+                             _ssd_inputs, ssd_bound, SSD_TOL, gpu,
+                             "zamba2-7b"),
+            "mlstm": _scan_row(torch, ml, "mlstm_chunk", MLSTM_TRAIN,
+                               _mlstm_inputs, mlstm_bound, MLSTM_TOL, gpu,
+                               "xlstm-1.3b"),
+            "flash": _flash_times(torch, fa, gpu, ZAMBA_TRAIN_FLASH,
+                                  "zamba2-7b"),
+            "swiglu": _swiglu_times(torch, sw, gpu, ZAMBA_TRAIN_SWIGLU,
+                                    "zamba2-7b MLP")}
+    _recompute_times(torch, gpu)
+    launches = phase_train_recurrent(torch, fa, ssd, ml, sw, gpu)
+    paths = {"ssd": "zamba2-7b train step (forward and replays)",
+             "mlstm": "xlstm-1.3b train step (forward and replays)",
+             "flash": "zamba2-7b shared block, train step (forward and "
+                      "replays)",
+             "swiglu": "zamba2-7b shared MLP, train step (forward and "
+                       "replays)"}
+    for k, row in rows.items():
+        row.update(path=paths[k], launches=launches[k])
+    return list(rows.values())
+
+
+def _scan_row(torch, m, kernel, case, make_inputs, bound, tol, gpu, arch):
+    """An SSD or mLSTM kernel-table row at ``case``: the kernel against its
+    twin, its time beside the earlier simt design's and the twin's."""
+    ins = make_inputs(torch, case, seed=654)
+    variant = m.variant_for(*ins[:5])
+    err = max(_compare(g, w, **tol)[1] for g, w in
+              zip(getattr(m, kernel)(*ins), getattr(m, f"{kernel}_plain")(
+                  *ins)))
+    ms, prev_ms, plain_ms = _scan_times(torch, m, kernel, ins, 10)
+    bound_ms, bound_by, flops, nbytes = bound(case)
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "kernel": kernel, "arch": arch, "path": "train step",
+          "shape": list(case), "variant": variant, "kernel_ms": ms,
+          "prev_ms": prev_ms, "plain_ms": plain_ms, "library_ms": None,
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "roofline_share": bound_ms / ms,
+          "max_abs_err": err})
+    del ins
+    torch.cuda.empty_cache()
+    src = {"ssd_chunk": ("ssm_scan", "src/repro/kernels/ssm_scan/"
+                                     "kernel.py:61"),
+           "mlstm_chunk": ("mlstm_scan", "src/repro/kernels/mlstm_scan/"
+                                         "kernel.py:65")}[kernel]
+    return {"name": kernel, "route": "cuda", "variant": variant,
+            "source": f"src/repro_torch/kernels/{src[0]}/csrc/"
+                      + m.SOURCES[variant].name,
+            "replaces": src[1], "shape": list(case), "launches": 0,
+            "max_abs_err": err, "ms": ms, "prev_ms": prev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _recompute_times(torch, gpu):
+    """The backward of one mamba layer's scan and of one mLSTM block's at
+    the train steps' shapes: the vjp of ``ssd_chunked`` and of
+    ``mlstm_chunked`` recomputed from the inputs, as the Functions run it
+    (the time a CUDA backward kernel would be held against)."""
+    from repro_torch.kernels.recompute import vjp
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.xlstm import mlstm_chunked
+
+    g = torch.Generator("cuda").manual_seed(77)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    b, s, h, p, n, _ = SSD_TRAIN
+    ssd_in = (rnd(b, s, h, p), torch.nn.functional.softplus(rnd(b, s, h)),
+              torch.log(torch.linspace(1.0, 16.0, h, device="cuda")),
+              rnd(b, s, n), rnd(b, s, n))
+    ssd_dy = rnd(b, s, h, p)
+    b, s, h, p, _ = MLSTM_TRAIN
+    ml_in = (rnd(b, s, h, p), rnd(b, s, h, p), rnd(b, s, h, p), rnd(b, s, h),
+             rnd(b, s, h) + 3.0)
+    ml_dy = rnd(b, s, h, p)
+    needs = [True] * 5
+    ssd_ms = _median_ms(torch, lambda: vjp(ssd_chunked, ssd_in, needs,
+                                           ssd_dy), reps=5, inner=1)
+    ml_ms = _median_ms(torch, lambda: vjp(mlstm_chunked, ml_in, needs,
+                                          ml_dy), reps=5, inner=1)
+    emit({"phase": "backward_recompute", "ok": True, "gpu": gpu,
+          "ssd_chunked_vjp_ms": ssd_ms, "ssd_shape": list(SSD_TRAIN),
+          "mlstm_chunked_vjp_ms": ml_ms, "mlstm_shape": list(MLSTM_TRAIN),
+          "note": "one layer's backward recompute, all five inputs' grads, "
+                  "fp32; median of 5 calls"})
+    del ssd_in, ml_in
+    torch.cuda.empty_cache()
+
+
+def phase_train_recurrent(torch, fa, ssd, ml, sw, gpu):
+    """(e) zamba2-7b and (f) xlstm-1.3b trained through ``Trainer``; (g)
+    the kernel path against the plain path in fp32.  Returns the launches
+    of (e) (SSD, flash, SwiGLU) and (f) (mLSTM)."""
+    import gc
+
+    torch.cuda.empty_cache()
+    launches = _train_recurrent_full(torch, fa, ssd, ml, sw, gpu,
+                                     "zamba2-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(_train_recurrent_full(torch, fa, ssd, ml, sw, gpu,
+                                          "xlstm-1.3b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("zamba2-7b", "xlstm-1.3b"):
+        _train_recurrent_fp32(torch, fa, ssd, ml, sw, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _recurrent_expected(cfg, tokens, runs):
+    """Launches of one run of ``runs`` micro-batches: each mamba layer's
+    SSD and each mLSTM block's kernel in the forward and again in its
+    block's replay (remat rebuilds the block from its input); flash and
+    SwiGLU once per shared-block application and again where the plan
+    recomputes their outputs (``_expected_launches``)."""
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.models.transformer import xlstm_counts
+    from repro_torch.models.zamba import layout
+
+    again = 2 if cfg.remat else 1
+    if cfg.family == "ssm":
+        return {"mlstm": xlstm_counts(cfg)[0] * runs * again}
+    plan = compile_plan(cfg, batch_tokens=tokens)
+    out = _expected_launches(plan, layout(cfg)[0], runs)
+    out["ssd"] = cfg.n_layers * runs * again
+    return out
+
+
+def _mixer_params(params, cfg):
+    """Parameters by part: each mamba layer, mLSTM or sLSTM block, the
+    shared block, embedding and unembedding."""
+    count = lambda mods: sum(p.numel() for m in mods for p in m.parameters())
+    parts = {"embed_unembed": params.embed.numel() + params.unembed.numel()}
+    if cfg.family == "hybrid":
+        parts["mamba_layer"] = count(params.mblocks[:1])
+        parts["shared_block"] = count([params.shared])
+    else:
+        parts["mlstm_block"] = count(params.mblocks[:1])
+        parts["slstm_block"] = count(params.sblocks[:1])
+    return parts
+
+
+def _train_recurrent_full(torch, fa, ssd, ml, sw, gpu, arch):
+    """(e) or (f): ``Trainer`` at full width, the cuts above, the default
+    plan; finite losses near ln(vocab) at step 1, launches exactly as the
+    checkpoint structure implies, no forward through a twin (SwiGLU's
+    backward recomputes through its twin once per application), the peak
+    within 80 GB beside the reckoned parts."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    part = "e" if arch == "zamba2-7b" else "f"
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas")
+    seq, steps = REC_ZAMBA_SEQ, REC_ZAMBA_STEPS
+    cuts = {"global_batch": [256, REC_BATCH, "the fp32 state and one "
+                             "sequence's activations fill the card"]}
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, n_layers=REC_ZAMBA_DEPTH)
+        cuts["n_layers"] = [81, REC_ZAMBA_DEPTH, "81 layers' fp32 params, "
+                            "grads and AdamW moments are 108 GB"]
+    else:
+        seq, steps = REC_XLSTM_SEQ, REC_XLSTM_STEPS
+        cuts["seq_len"] = [4096, seq, "the sLSTM loop is replayed and "
+                           "backpropagated step by step on the host"]
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                                global_batch=REC_BATCH)
+    tokens = seq * REC_BATCH // REC_MICRO
+    runs = steps * REC_MICRO
+    expected = _recurrent_expected(cfg, tokens, runs)
+    mods = {"ssd": ssd, "mlstm": ml, "flash": fa, "swiglu": sw}
+    with _recurrent_twins(torch, fa, ssd, ml, sw) as (twins, timers):
+        _zero(fa, ssd, ml, sw)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = Trainer(build_model(cfg), make_optimizer("adamw"), shape,
+                      TrainerConfig(steps=steps, log_every=1),
+                      microbatches=REC_MICRO).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        recompute_ms = {k: t.ms() for k, t in timers.items()}
+        twin_calls = {k: t.calls for k, t in twins.items()}
+    launches = {k: mods[k].LAUNCHES for k in expected}
+    by_variant = {k: dict(mods[k].LAUNCHES_BY_VARIANT) for k in expected}
+    all_wgmma = all(_only(mods[k], "wgmma", n) for k, n in launches.items())
+    parts = _mixer_params(out["params"], cfg)
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    losses = [h["loss"] for h in out["history"]]
+    times = [h["time_s"] for h in out["history"]]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = statistics.median(times[1:])
+    want_twins = _expected_twins(cfg, runs)
+    # the untied unembedding (std 1/sqrt(d)) makes the first logits ~N(0,
+    # 1): the first loss is ln(vocab) + ~0.5
+    ok = (all(math.isfinite(v) for v in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) <= 1.0
+          and launches == expected and all_wgmma
+          and twin_calls == want_twins and peak <= 80e9)
+    emit({"phase": "train_recurrent", "part": part, "arch": arch, "ok": ok,
+          "gpu": gpu, "entry": "Trainer(build_model(cfg), adamw, shape, "
+                               "TrainerConfig(steps), microbatches=2).run()",
+          "layers": cfg.n_layers, "seq": seq, "batch": REC_BATCH,
+          "microbatches": REC_MICRO, "steps": steps, "cuts": cuts,
+          "params": n_params, "params_by_part": parts,
+          "losses": losses, "ln_vocab": math.log(cfg.vocab),
+          "step_s": times, "step_s_median_after_1": step_s,
+          "tokens_per_s": seq * REC_BATCH / step_s,
+          "mfu_6nt": 6 * n_params * seq * REC_BATCH / step_s
+          / PEAK_FLOPS["bfloat16"],
+          "wall_s": wall, "peak_bytes": peak,
+          "reckoned_bytes": {"params": 4 * n_params, "grads": 4 * n_params,
+                             "adamw_moments": 8 * n_params,
+                             "state_total": 16 * n_params},
+          "backward_recompute_ms_total": recompute_ms,
+          "backward_recompute_share_of_wall": {
+              k: v / 1e3 / sum(times) for k, v in recompute_ms.items()},
+          "kernel_launches": launches, "expected_launches": expected,
+          "launches_by_variant": by_variant, "all_wgmma": all_wgmma,
+          "twin_calls": twin_calls, "expected_twin_calls": want_twins})
+    check(ok, "train_recurrent", f"({part}) {arch}: losses {losses}, "
+          f"launches {launches} vs {expected}, twins {twin_calls} vs "
+          f"{want_twins}, peak {peak}")
+    return launches
+
+
+def _expected_twins(cfg, runs):
+    """Twin calls of a kernel-path run: none in any forward or replay; the
+    SwiGLU backward recomputes through its twin once per application of
+    zamba's shared block."""
+    from repro_torch.models.zamba import layout
+    apps = layout(cfg)[0] if cfg.family == "hybrid" else 0
+    return {"flash": 0, "swiglu": apps * runs, "ssd": 0, "mlstm": 0}
+
+
+def _mlstm_block_errs(torch, fa, ssd, ml, sw, cfg, params, inputs, dys,
+                      rel):
+    """Each mLSTM block's grads (its parameters' and its input's) by the
+    kernel path against the twin path, from the block's input and upstream
+    gradient in the model's own kernel-path run: normwise, by leaf name."""
+    from repro_torch.models import transformer
+
+    errs = {}
+    for i, p in enumerate(params.mblocks):
+        names = ["input"] + [n for n, _ in p.named_parameters()]
+
+        def grads():
+            leaf = inputs[i].requires_grad_()
+            out = transformer._mlstm_block(cfg, p, leaf)
+            return torch.autograd.grad(out, [leaf, *p.parameters()], dys[i])
+
+        got = grads()
+        with _plain_path(torch, fa, ssd, ml, sw, "twin"):
+            want = grads()
+        for n, a, b in zip(names, got, want):
+            errs[f"mblocks.{i}.{n}"] = rel(a, b)
+    return errs
+
+
+@contextlib.contextmanager
+def _block_grads(torch):
+    """Each mLSTM block's input and the loss's gradient at its output in a
+    run: yields (inputs, upstream gradients), both by block."""
+    from repro_torch.models import transformer
+
+    real = transformer._Checkpointed.__call__
+    inputs, dys = [], {}
+
+    def call(self, policy, fn, *args):
+        out = real(self, policy, fn, *args)
+        if getattr(fn, "func", None) is transformer._mlstm_block:
+            i = len(inputs)
+            inputs.append(args[0].detach())
+            out.register_hook(lambda g: dys.__setitem__(i, g.detach()))
+        return out
+
+    transformer._Checkpointed.__call__ = call
+    try:
+        yield inputs, dys
+    finally:
+        transformer._Checkpointed.__call__ = real
+
+
+@contextlib.contextmanager
+def _normaliser_branches(torch, pin=None):
+    """The branch of the mLSTM normaliser max(|n|, exp(-m)) (``xlstm.
+    _normaliser``) each backward recompute takes, |n| > exp(-m) by
+    position, in call order: yields the list.  With ``pin``, an earlier
+    run's list, each recompute takes the pinned branch instead.  A scan's
+    forward (run with autograd off) is left alone."""
+    from repro_torch.models import xlstm
+
+    real = xlstm._normaliser
+    seen = []
+
+    def spy(n, m):
+        if not torch.is_grad_enabled():
+            return real(n, m)
+        a, b = torch.abs(n), torch.exp(-m)
+        take = pin[len(seen)] if pin is not None else None
+        seen.append((a > b).detach())
+        return real(n, m) if take is None else torch.where(take, a, b)
+
+    xlstm._normaliser = spy
+    try:
+        yield seen
+    finally:
+        xlstm._normaliser = real
+
+
+@contextlib.contextmanager
+def _scan_outputs(torch, add=None):
+    """Each mLSTM scan's forward by block (a block is known by its inputs,
+    so a remat replay maps to its block): yields the list of each block's
+    (inputs, output) from its first call; ``add(block, y)``, if given,
+    returns the output the scan gives instead of ``y``."""
+    from repro_torch.kernels.mlstm_scan import ops
+
+    real = ops._forward
+    blocks, first = {}, []
+
+    def forward(*args):
+        y = real(*args)
+        key = tuple(float(t.sum()) for t in args[:5])
+        if key not in blocks:
+            blocks[key] = len(first)
+            first.append((args, y))
+        return y if add is None else add(blocks[key], y)
+
+    ops._forward = forward
+    try:
+        yield first
+    finally:
+        ops._forward = real
+
+
+def _flips(masks, ref):
+    """Positions whose normaliser branch differs from ``ref``'s, by
+    backward recompute."""
+    return [int((a != b).sum()) for a, b in zip(masks, ref)]
+
+
+@contextlib.contextmanager
+def _plain_path(torch, fa, ssd, ml, sw, scans):
+    """Every kernel out of the path: flash and SwiGLU by their twins, the
+    SSD and mLSTM scans' forwards by the twins (``scans="twin"``) or by
+    ``ssd_chunked`` / ``mlstm_chunked`` (``scans="chunked"``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.xlstm import mlstm_chunked
+
+    saved = (flash_ops.flash_attention_fwd, sw._forward, ssd_ops.ssd_chunk,
+             mlstm_ops.mlstm_chunk, ssd_ops._forward, mlstm_ops._forward)
+    flash_ops.flash_attention_fwd = fa.flash_attention_fwd_plain
+    sw._forward = sw.fused_swiglu_plain
+    if scans == "twin":
+        ssd_ops.ssd_chunk = ssd.ssd_chunk_plain
+        mlstm_ops.mlstm_chunk = ml.mlstm_chunk_plain
+    else:
+        ssd_ops._forward = lambda *a: ssd_chunked(*a[:5], chunk=a[5])
+        mlstm_ops._forward = lambda *a: mlstm_chunked(*a[:5], chunk=a[5])
+    try:
+        yield
+    finally:
+        (flash_ops.flash_attention_fwd, sw._forward, ssd_ops.ssd_chunk,
+         mlstm_ops.mlstm_chunk, ssd_ops._forward, mlstm_ops._forward) = saved
+
+
+def _train_recurrent_fp32(torch, fa, ssd, ml, sw, arch):
+    """(g) fp32, full width, S = 1024, every tag recomputed: the kernel path
+    (SSD and mLSTM wgmma, flash and SwiGLU simt) against the plain path
+    (each kernel's twin in its wrapper's place) on the card, the loss and
+    every grad of the whole model normwise, within the larger of
+    GRAD_REL_TOL and SPREAD_FACTOR x a plain path's distance on the leaf;
+    no forward through a twin in the kernel run, no kernel in the plain
+    runs.  xlstm-1.3b's runs take their mLSTM backwards' normaliser
+    branches from the twin run (``_xlstm_witness``), and each mLSTM
+    block is held at GRAD_REL_TOL from its input and upstream gradient in
+    the kernel run."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(
+        ARCHS[arch], attention_impl="pallas", dtype="float32",
+        n_layers=REC_FP32_DEPTH[arch], remat_budget_bytes=0)
+    xl = arch == "xlstm-1.3b"
+    model = build_model(cfg)
+    params = model.init(0, trainable=True)
+    g = torch.Generator("cuda").manual_seed(47)
+    toks = torch.randint(0, cfg.vocab, (1, REC_FP32_SEQ + 1), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    expected = _recurrent_expected(cfg, REC_FP32_SEQ, 1)
+    mods = {"ssd": ssd, "mlstm": ml, "flash": fa, "swiglu": sw}
+    variants = {"ssd": "wgmma", "mlstm": "wgmma", "flash": "simt",
+                "swiglu": "simt"}
+    run = functools.partial(_loss_and_grads, torch, model, params, batch)
+    with contextlib.ExitStack() as stack:
+        twins, _ = stack.enter_context(
+            _recurrent_twins(torch, fa, ssd, ml, sw))
+        if xl:
+            block_io = stack.enter_context(_block_grads(torch))
+            scans = stack.enter_context(_scan_outputs(torch))
+            kernel_branches = stack.enter_context(
+                _normaliser_branches(torch))
+        _zero(fa, ssd, ml, sw)
+        loss, grads = run()
+        launches = {k: mods[k].LAUNCHES for k in expected}
+        routed = all(_only(mods[k], variants[k], n)
+                     for k, n in launches.items())
+        twin_calls = {k: t.calls for k, t in twins.items()}
+    _zero(fa, ssd, ml, sw)
+    with _plain_path(torch, fa, ssd, ml, sw, "twin"), \
+            _normaliser_branches(torch) as branches:
+        want_loss, want = run()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def errs_of(got):
+        return {n: rel(got[n], w) for n, w in want.items()}
+
+    errs = errs_of(grads)
+    del grads
+    with _plain_path(torch, fa, ssd, ml, sw, "chunked"):
+        chunked_loss, chunked = run()
+    spread = errs_of(chunked)
+    del chunked
+    loss_rel = abs((loss - want_loss) / want_loss).item()
+    finite = all(bool(v.isfinite().all()) for v in want.values())
+    out = {"loss": loss.item(), "loss_rel": loss_rel,
+           "loss_rel_plain_paths": abs((chunked_loss - want_loss)
+                                       / want_loss).item(),
+           "max_grad_rel": max(errs.values()),
+           "worst_grad": max(errs, key=errs.get),
+           "max_spread_plain_paths": max(spread.values())}
+    gated, witness, bad = errs, spread, {}
+    if xl:
+        gated, witness, plain_launches, seen = _xlstm_witness(
+            torch, fa, ssd, ml, sw, run, errs_of, scans, branches,
+            kernel_branches)
+        out.update(seen)
+        block_errs = _mlstm_block_errs(torch, fa, ssd, ml, sw, cfg, params,
+                                       *block_io, rel)
+        bad = {n: [e, GRAD_REL_TOL] for n, e in block_errs.items()
+               if not e <= GRAD_REL_TOL}
+        out.update(max_block_grad_rel=max(block_errs.values()),
+                   worst_block_grad=max(block_errs, key=block_errs.get))
+    else:
+        plain_launches = (fa.LAUNCHES + ssd.LAUNCHES + ml.LAUNCHES
+                          + sw.LAUNCHES)
+    tols = {n: max(GRAD_REL_TOL, SPREAD_FACTOR * witness[n]) for n in gated}
+    bad.update({n: [e, tols[n]] for n, e in gated.items()
+                if not e <= tols[n]})
+    ok = (loss_rel <= GRAD_REL_TOL and finite and not bad
+          and launches == expected and routed and plain_launches == 0
+          and twin_calls == _expected_twins(cfg, 1))
+    strict = [n for n in gated if tols[n] == GRAD_REL_TOL]
+    widened = sorted((n for n in gated if tols[n] > GRAD_REL_TOL),
+                     key=tols.get)
+    emit({"phase": "train_recurrent", "part": "g", "arch": arch, "ok": ok,
+          "layers": cfg.n_layers, "seq": REC_FP32_SEQ, "dtype": "float32",
+          **out, "grads_finite": finite,
+          "gated": "the whole model's grads, normaliser branches pinned to "
+                   "the twin run's, and each mLSTM block's" if xl else
+                   "the whole model's grads",
+          "max_gated_grad_rel": max(gated.values()),
+          "worst_gated_grad": max(gated, key=gated.get),
+          "max_grad_rel_at_1e-4": max((gated[n] for n in strict), default=0),
+          "leaves": len(gated), "leaves_at_1e-4": len(strict),
+          "widened": {n: [gated[n], witness[n]] for n in widened[-8:]},
+          "max_err_over_witness": max(
+              (gated[n] / witness[n] for n in gated if witness[n] > 0),
+              default=None),
+          "tol": GRAD_REL_TOL, "spread_factor": SPREAD_FACTOR,
+          "failing": dict(list(bad.items())[:12]),
+          "kernel_launches": launches, "expected_launches": expected,
+          "variants": variants, "routed": routed,
+          "twin_calls_kernel_run": twin_calls,
+          "plain_run_kernel_launches": plain_launches})
+    check(ok, "train_recurrent", f"(g) {arch}: loss rel {loss_rel}, "
+          f"{len(bad)} leaves over their tolerance, launches {launches} "
+          f"vs {expected}, twins {twin_calls}")
+    del params, want
+    torch.cuda.empty_cache()
+
+
+def _xlstm_witness(torch, fa, ssd, ml, sw, run, errs_of, scans, branches,
+                   kernel_branches):
+    """xlstm-1.3b's whole-model comparison.  The mLSTM normaliser
+    max(|n|, exp(-m)) has a kink; where its two sides nearly tie, a
+    forward difference of float32 size sends the backward's recompute to
+    the other side, and the block's gradient jumps there.  So: (1) the
+    kernel's own forward error on each block (kernel minus twin on the
+    kernel run's scan inputs), permuted at random, is added to the twin
+    run's scan outputs (``NOISE_DRAWS`` draws): how far that moves the
+    grads, and how many branches it flips, beside the kernel's and the
+    chunked path's; (2) the kernel, chunked and noise runs again with
+    every backward's branches pinned to the twin run's.  Returns the
+    pinned kernel run's errors, the witness (per leaf, the largest pinned
+    error of the chunked and noise runs), the plain runs' kernel
+    launches and the readings."""
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+
+    with _plain_path(torch, fa, ssd, ml, sw, "twin"):
+        errors = [y - mlstm_ops._forward(*args) for args, y in scans]
+    rms = max((e.square().mean() / y.square().mean()).sqrt().item()
+              for e, (_, y) in zip(errors, scans))
+    gen = torch.Generator("cuda").manual_seed(61)
+    draws = [[e.flatten()[torch.randperm(e.numel(), generator=gen,
+                                         device="cuda")].view_as(e)
+              for e in errors] for _ in range(NOISE_DRAWS)]
+    del scans[:]
+
+    def noisy(k):
+        return lambda block, y: y + draws[k][block]
+
+    free, flips = {}, {"kernel": _flips(kernel_branches, branches)}
+    with _plain_path(torch, fa, ssd, ml, sw, "chunked"), \
+            _normaliser_branches(torch) as seen:
+        run()
+    flips["chunked"] = _flips(seen, branches)
+    for k in range(NOISE_DRAWS):
+        with _plain_path(torch, fa, ssd, ml, sw, "twin"), \
+                _scan_outputs(torch, noisy(k)), \
+                _normaliser_branches(torch) as seen:
+            free[k] = max(errs_of(run()[1]).values())
+        flips[f"noise_{k}"] = _flips(seen, branches)
+    plain_launches = fa.LAUNCHES + ssd.LAUNCHES + ml.LAUNCHES + sw.LAUNCHES
+
+    def pinned_errs(path=None, k=None):
+        with contextlib.ExitStack() as stack:
+            if path:
+                stack.enter_context(_plain_path(torch, fa, ssd, ml, sw, path))
+            if k is not None:
+                stack.enter_context(_scan_outputs(torch, noisy(k)))
+            stack.enter_context(_normaliser_branches(torch, pin=branches))
+            return errs_of(run()[1])
+
+    pinned = pinned_errs()
+    witness = pinned_errs("chunked")
+    for k in range(NOISE_DRAWS):
+        noise = pinned_errs("twin", k)
+        witness = {n: max(v, noise[n]) for n, v in witness.items()}
+    seen = {"kernel_forward_err": {
+                "max_abs": max(e.abs().max().item() for e in errors),
+                "rms_rel": rms},
+            "normaliser_flips": flips,
+            "noise_max_grad_rel_unpinned": list(free.values()),
+            "pinned_max_grad_rel": max(pinned.values()),
+            "pinned_max_witness": max(witness.values())}
+    return pinned, witness, plain_launches, seen
 
 
 if __name__ == "__main__":

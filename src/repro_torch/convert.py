@@ -45,8 +45,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.optimizers import QBLOCK
+from repro_torch.models.layers import weight_dtype
 from repro_torch.models.transformer import (TransformerLM, XLSTMLM,
-                                            weight_dtype, xlstm_layout)
+                                            xlstm_counts)
 from repro_torch.models.zamba import ZambaLM, layout
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -84,13 +85,10 @@ def optim_state_from_numpy(runtime, host_state, residual, count: int
 
 def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
                       *, trainable: bool = False) -> nn.Module:
-    """The port's model holding ``tree``'s values; ``trainable=True`` (the
-    dense and moe families) holds every leaf in float32 with gradients."""
+    """The port's model holding ``tree``'s values; ``trainable=True`` holds
+    every leaf in float32 with gradients."""
     if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if trainable and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet")
     dev = resolve_device(device)
     dt = weight_dtype(cfg, trainable)
 
@@ -140,40 +138,77 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
                 "norm": t(s["norm"]["scale"][i]),
             }}
 
-        n_groups, per = xlstm_layout(cfg)
+        n_m, n_s = xlstm_counts(cfg)
         port["mblocks"] = [xblock(tree["mblocks"], "mlstm", _MLSTM, i)
-                           for i in range(n_groups * per)]
+                           for i in range(n_m)]
         port["sblocks"] = [xblock(tree["sblocks"], "slstm", _SLSTM, i)
-                           for i in range(n_groups)]
-        return XLSTMLM(cfg, port)
+                           for i in range(n_s)]
+        return XLSTMLM(cfg, port, trainable=trainable)
     n_groups, tail = layout(cfg)
     port["mblocks"] = [mamba(tree["mblocks"], i)
                        for i in range(n_groups * cfg.shared_attn_every)]
     port["tail"] = [mamba(tree["tail"], i) for i in range(tail)]
     port["shared"] = block(tree["shared"])
-    return ZambaLM(cfg, port)
+    return ZambaLM(cfg, port, trainable=trainable)
 
 
 def lm_leaf_paths(cfg: ModelConfig, tree):
     """(port parameter name, reference tree path, stacked layer or None)
-    of every leaf of a dense or moe LM, in ``named_parameters()`` order."""
+    of every leaf of an LM of any ported family: a stacked leaf (``blocks``,
+    ``mblocks``, ``tail``, ``sblocks``) once per layer, zamba's one
+    ``shared`` block once."""
     yield "embed", ("embed", "table"), None
-    for i in range(cfg.n_layers):
-        b = f"blocks.{i}"
-        yield f"{b}.ln1", ("blocks", "ln1", "scale"), i
-        for n in _ATTN:
-            yield f"{b}.attn.{n}", ("blocks", "attn", n, "kernel"), i
-        yield f"{b}.ln2", ("blocks", "ln2", "scale"), i
-        if cfg.is_moe:
-            yield f"{b}.moe.router", ("blocks", "moe", "router", "kernel"), i
-            for n in _MLP:
-                yield f"{b}.moe.{n}", ("blocks", "moe", n), i
-        else:
-            for n in _MLP:
-                yield f"{b}.mlp.{n}", ("blocks", "mlp", n, "kernel"), i
+    if cfg.family in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            yield from _block_paths(cfg, f"blocks.{i}", "blocks", i)
+    elif cfg.family == "hybrid":
+        n_groups, tail = layout(cfg)
+        for i in range(n_groups * cfg.shared_attn_every):
+            yield from _mamba_paths(f"mblocks.{i}", "mblocks", i)
+        yield from _block_paths(cfg, "shared", "shared", None)
+        for i in range(tail):
+            yield from _mamba_paths(f"tail.{i}", "tail", i)
+    else:
+        n_m, n_s = xlstm_counts(cfg)
+        for root, kind, names, n in (("mblocks", "mlstm", _MLSTM, n_m),
+                                     ("sblocks", "slstm", _SLSTM, n_s)):
+            dense, f32 = names
+            for i in range(n):
+                b = f"{root}.{i}"
+                yield f"{b}.ln", (root, "ln", "scale"), i
+                for m in dense:
+                    yield f"{b}.{kind}.{m}", (root, kind, m, "kernel"), i
+                for m in f32:
+                    yield f"{b}.{kind}.{m}", (root, kind, m), i
+                yield f"{b}.{kind}.norm", (root, kind, "norm", "scale"), i
     yield "ln_f", ("ln_f", "scale"), None
     if "unembed" in tree:
         yield "unembed", ("unembed", "kernel"), None
+
+
+def _block_paths(cfg: ModelConfig, b: str, root: str, i):
+    """The leaves of one decoder block: layer ``i`` of the stacked
+    ``root``, or the one block ``root`` when ``i`` is None."""
+    yield f"{b}.ln1", (root, "ln1", "scale"), i
+    for n in _ATTN:
+        yield f"{b}.attn.{n}", (root, "attn", n, "kernel"), i
+    yield f"{b}.ln2", (root, "ln2", "scale"), i
+    if cfg.is_moe:
+        yield f"{b}.moe.router", (root, "moe", "router", "kernel"), i
+        for n in _MLP:
+            yield f"{b}.moe.{n}", (root, "moe", n), i
+    else:
+        for n in _MLP:
+            yield f"{b}.mlp.{n}", (root, "mlp", n, "kernel"), i
+
+
+def _mamba_paths(b: str, root: str, i: int):
+    yield f"{b}.ln", (root, "ln", "scale"), i
+    yield f"{b}.ssm.in_proj", (root, "ssm", "in_proj", "kernel"), i
+    for n in _SSM_F32:
+        yield f"{b}.ssm.{n}", (root, "ssm", n), i
+    yield f"{b}.ssm.norm", (root, "ssm", "norm", "scale"), i
+    yield f"{b}.ssm.out_proj", (root, "ssm", "out_proj", "kernel"), i
 
 
 def adamw_state_from_numpy(state, cfg: ModelConfig,
@@ -185,9 +220,6 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
     quantised leaf over all layers of a stacked parameter; its blocks are
     split between the layers, which is exact when a layer's element count
     is a whole number of blocks and raises otherwise."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet")
     dev = resolve_device(device)
     mu = state["mu"]
 
@@ -232,6 +264,10 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
 def _param_shape(cfg: ModelConfig, path):
     """One layer's shape of the stacked parameter at ``path``."""
     d, hd = cfg.d_model, cfg.head_dim
+    if path[1] == "ln":                    # a mamba, mLSTM or sLSTM block
+        return (d,)
+    if path[1] in ("ssm", "mlstm", "slstm"):
+        return _mixer_shapes(cfg, path[1])[path[2]]
     name = path[-2] if path[-1] in ("kernel", "scale") else path[-1]
     if path[1] in ("ln1", "ln2"):
         return (d,)
@@ -244,3 +280,21 @@ def _param_shape(cfg: ModelConfig, path):
                 "down": (e, f, d)}[name]
     return {"gate": (d, cfg.d_ff), "up": (d, cfg.d_ff),
             "down": (cfg.d_ff, d)}[name]
+
+
+def _mixer_shapes(cfg: ModelConfig, kind: str):
+    """Each leaf's shape in one mamba (``ssm``), mLSTM or sLSTM layer."""
+    d = cfg.d_model
+    if kind == "ssm":
+        di, n, h = cfg.d_inner, cfg.ssm_state or 64, cfg.n_ssm_heads
+        return {"in_proj": (d, 2 * di + 2 * n + h),
+                "conv": (cfg.ssm_conv, di + 2 * n), "A_log": (h,),
+                "D": (h,), "dt_bias": (h,), "norm": (di,),
+                "out_proj": (di, d)}
+    if kind == "mlstm":
+        di, h = 2 * d, cfg.n_heads
+        return {"up_l": (d, di), "up_r": (d, di), "wq": (di, di),
+                "wk": (di, di), "wv": (di, di), "w_if": (di, 2 * h),
+                "b_if": (2 * h,), "norm": (di,), "down": (di, d)}
+    return {"wx": (d, 4 * d), "wh": (d, 4 * d), "bias": (4 * d,),
+            "norm": (d,), "proj": (d, d)}

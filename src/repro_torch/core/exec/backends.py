@@ -959,6 +959,12 @@ class JitBlocksBackend(AsyncDeviceBackend):
     ``arena_plan`` is the device plan whose offsets hold the activations
     (``plan`` when not given: a swap-free plan reaches the backend as
     ``arena_plan`` alone).
+
+    ``start`` is the async backend's admitted, phase-by-phase cursor, as
+    the reference's ``JitBlocksBackend`` inherits it: a cursor replays op
+    by op through the copy-stream engine and the default activation store,
+    with no arena, no fusion admission and no graph, so
+    ``StepScheduler(backend=JitBlocksBackend())`` serves.
     """
 
     name = "jit_blocks"
@@ -974,11 +980,6 @@ class JitBlocksBackend(AsyncDeviceBackend):
         # schedules the same way)
         self._admitted: Dict[int, _Admitted] = {}
         self._last_fusion = None
-
-    def start(self, *args, **kwargs):
-        raise NotImplementedError(
-            "jit_blocks replays whole steps, one dispatch per fused block; "
-            "a phase-by-phase cursor replays op by op on 'sim' or 'async'")
 
     # -------------------------------------------------------------- set-up
     def _admit_fused(self, lowered, ordered: OrderedTensors, plan,

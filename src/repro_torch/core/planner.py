@@ -113,7 +113,7 @@ class Plan:
     planner: str
     # bytes NOT in the arena (placeholders: model inputs / labels)
     external_bytes: int = 0
-    # optimizer-state offload plan (not ported yet, ROADMAP item 5)
+    # optimizer-state offload plan (``core.optim_offload.OptimPlan``)
     # attached by compile_plan when MemoryPlanConfig.optim_offload is on;
     # optimizer slots occupy their OWN device region and host pool, so
     # nothing here aliases the activation placements above
@@ -507,7 +507,7 @@ class SwapAwarePlan:
     host_planner: str = "sorting"
     # swapped tensors whose gap went unused: no host copy, no DMA
     inplace: Tuple[str, ...] = ()
-    # optimizer-state offload plan (not ported yet, ROADMAP item 5),
+    # optimizer-state offload plan (``core.optim_offload.OptimPlan``),
     # attached by compile_plan when MemoryPlanConfig.optim_offload is on.
     # Its slots are packed into a separate device working region and
     # compressed host pool — activation_residency_peak() and the two

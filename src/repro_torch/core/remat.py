@@ -332,6 +332,12 @@ def produce(compute: Callable[[], torch.Tensor]) -> torch.Tensor:
     return compute() if region is None else region.produce(compute)
 
 
+# ``jax.checkpoint`` without a policy: no tagged intermediate kept, so the
+# block is rebuilt from its input in the backward (the reference's mamba,
+# mLSTM and sLSTM blocks)
+FULL_RECOMPUTE = CheckpointPolicy()
+
+
 def checkpoint(policy: CheckpointPolicy, fn: Callable, *args,
                prev: Optional[Region] = None):
     """``fn(*args)`` under ``policy``; returns (fn's result, its Region).

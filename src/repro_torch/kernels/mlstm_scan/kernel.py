@@ -137,9 +137,10 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk_lf (b, nc, h), m_state (b, nc, h)), all float32.
 
     CUDA tensors go to the sm_90a kernel :func:`choose_variant` names, CPU
-    tensors to the plain twin.  The kernels have no backward yet, so a
-    CUDA call that would need a gradient raises rather than return
-    outputs the gradient cannot flow through.
+    tensors to the plain twin.  The kernels have no backward: the scan's
+    is ``ops._MLSTMScan``'s recompute, so a CUDA call that would need a
+    gradient here raises rather than return outputs the gradient cannot
+    flow through.
     """
     _check(q, k, v, li, lf)
     if q.device.type == "cpu":
@@ -149,8 +150,8 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, li, lf)):
         raise NotImplementedError(
-            "mlstm_chunk is forward-only on the card; its backward comes "
-            "with the training slice")
+            "mlstm_chunk is forward-only on the card; differentiate "
+            "ops.mlstm_scan, whose backward recomputes mlstm_chunked")
     return _launch(q, k, v, li, lf, sm_scale, variant_for(q, k, v, li, lf))
 
 

@@ -11,10 +11,17 @@ recurrence over the S/Q chunk states stays plain PyTorch, a loop as the
 reference's ``lax.scan``: it is S/Q multiply-adds of (p, p) states.  The
 inter-chunk product ``y_inter`` is a batched (Q, p) x (p, p) matmul that
 the reference also leaves outside its kernel.
+
+When autograd needs a gradient the scan runs as :class:`_MLSTMScan`: the
+same forward, and a backward that recomputes ``repro_torch.models.xlstm.
+mlstm_chunked`` (the port of the jnp function the reference
+differentiates) from the saved q, k, v and gate logits and returns its
+vjp.  The reference has no Pallas backward either.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_scan.kernel import mlstm_chunk
+from repro_torch.kernels.recompute import vjp
 from repro_torch.models.layers import log_sigmoid
 
 Chunked = Tuple[torch.Tensor, ...]
@@ -49,11 +57,36 @@ def chunk_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lf.reshape(b, nc, qq, h).contiguous())
 
 
+class _MLSTMScan(torch.autograd.Function):
+    """Forward by the kernel (its twin on the CPU), backward by the vjp of
+    ``mlstm_chunked`` recomputed from the saved q, k, v and gate logits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_gate, chunk):
+        ctx.save_for_backward(q, k, v, i_gate, f_gate)
+        ctx.chunk = chunk
+        return _forward(q, k, v, i_gate, f_gate, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.models.xlstm import mlstm_chunked
+        return (*vjp(functools.partial(mlstm_chunked, chunk=ctx.chunk),
+                     ctx.saved_tensors, ctx.needs_input_grad, dy), None)
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_gate: torch.Tensor, f_gate: torch.Tensor, *,
                chunk: int = 256) -> torch.Tensor:
     """q,k,v: (b,s,h,p); i_gate,f_gate: (b,s,h) raw logits -> (b,s,h,p),
-    float32."""
+    float32.  Under autograd it runs as :class:`_MLSTMScan`; outside it
+    (serving) the kernel runs without the Function."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, i_gate, f_gate)):
+        return _MLSTMScan.apply(q, k, v, i_gate, f_gate, chunk)
+    return _forward(q, k, v, i_gate, f_gate, chunk)
+
+
+def _forward(q, k, v, i_gate, f_gate, chunk):
     b, s, h, p = q.shape
     scale = 1.0 / math.sqrt(p)
     qc, kc, vc, lic, lfc = chunk_inputs(q, k, v, i_gate, f_gate, chunk)

@@ -135,9 +135,10 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         chunk_lf (b, nc, h)), all float32.
 
     CUDA tensors go to the sm_90a kernel :func:`choose_variant` names, CPU
-    tensors to the plain twin.  The kernels have no backward yet, so a
-    CUDA call that would need a gradient raises rather than return
-    outputs the gradient cannot flow through.
+    tensors to the plain twin.  The kernels have no backward: the scan's
+    is ``ops._SSDScan``'s recompute, so a CUDA call that would need a
+    gradient here raises rather than return outputs the gradient cannot
+    flow through.
     """
     _check(x, dt, A_log, B, C)
     if x.device.type == "cpu":
@@ -147,8 +148,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A_log, B, C)):
         raise NotImplementedError(
-            "ssd_chunk is forward-only on the card; its backward comes "
-            "with the training slice")
+            "ssd_chunk is forward-only on the card; differentiate "
+            "ops.ssd_scan, whose backward recomputes ssd_chunked")
     return _launch(x, dt, A_log, B, C, variant_for(x, dt, A_log, B, C))
 
 
@@ -214,7 +215,9 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     may overflow, and inf * 0 would be NaN.  Like the kernels, it sums
     dA_cum in float64 (see :func:`log_decay`).  Its three matrix products
     go through ``product`` (an ``einsum``): the tests pass one that
-    emulates the wgmma kernel's tf32 operand split."""
+    emulates the wgmma kernel's tf32 operand split.  It is a forward
+    oracle: its backward is not finite, since the select's zero cotangent
+    above the diagonal meets the exp's inf there (0 * inf = NaN)."""
     x, dt, B, C = (t.float() for t in (x, dt, B, C))
     q = x.shape[2]
     cum = log_decay(dt, A_log)                           # (b,nc,Q,h) f64

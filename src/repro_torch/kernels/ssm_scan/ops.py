@@ -1,4 +1,5 @@
-"""The chunked SSD scan: intra-chunk kernel + inter-chunk recurrence.
+"""The chunked SSD scan: intra-chunk kernel + inter-chunk recurrence, with
+its backward.
 
 Port of ``repro/kernels/ssm_scan/ops.py:ssd_scan``.  A ragged sequence is
 padded with zeros to whole chunks (dt = 0 makes the padded rows neutral),
@@ -6,15 +7,25 @@ the chunks go to :func:`repro_torch.kernels.ssm_scan.kernel.ssd_chunk` (the
 sm_90a kernel for CUDA tensors, its plain twin for CPU tensors), and the
 recurrence over the S/Q chunk states stays plain PyTorch, a loop as the
 reference's ``lax.scan``: it is S/Q small multiply-adds.
+
+When autograd needs a gradient the scan runs as :class:`_SSDScan`: the same
+forward, and a backward that recomputes ``repro_torch.models.ssm.
+ssd_chunked`` (the port of the jnp function the reference differentiates)
+from the saved inputs and returns its vjp.  The reference has no Pallas
+backward either.  The kernel's plain twin is not differentiated: its L is
+a select after the exp, whose backward multiplies a zero cotangent by the
+inf above the diagonal.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.recompute import vjp
 from repro_torch.kernels.ssm_scan.kernel import log_decay, ssd_chunk
 
 Chunked = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -40,10 +51,36 @@ def chunk_inputs(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
             C.reshape(b, nc, q, n).float().contiguous())
 
 
+class _SSDScan(torch.autograd.Function):
+    """Forward by the kernel (its twin on the CPU), backward by the vjp of
+    ``ssd_chunked`` recomputed from the saved x, dt, A_log, B and C."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, chunk):
+        ctx.save_for_backward(x, dt, A_log, B, C)
+        ctx.chunk = chunk
+        return _forward(x, dt, A_log, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.models.ssm import ssd_chunked
+        return (*vjp(functools.partial(ssd_chunked, chunk=ctx.chunk),
+                     ctx.saved_tensors, ctx.needs_input_grad, dy), None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
              ) -> torch.Tensor:
-    """x: (b,s,h,p); dt: (b,s,h); A_log: (h,); B,C: (b,s,n) -> (b,s,h,p)."""
+    """x: (b,s,h,p); dt: (b,s,h); A_log: (h,); B,C: (b,s,n) -> (b,s,h,p),
+    float32.  Under autograd it runs as :class:`_SSDScan`; outside it
+    (serving) the kernel runs without the Function."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A_log, B, C)):
+        return _SSDScan.apply(x, dt, A_log, B, C, chunk)
+    return _forward(x, dt, A_log, B, C, chunk)
+
+
+def _forward(x, dt, A_log, B, C, chunk):
     b, s, h, p = x.shape
     xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, chunk)
     A_log = A_log.float().contiguous()

@@ -6,8 +6,13 @@
 
 Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
 ``model.loss_fn`` with AdamW (the reference's defaults, fp32 state) on
-``synthetic_lm_producer``, each block checkpointed under the memory
-plan's policy.  Weights are random from seed 0.  It runs on the card;
+``synthetic_lm_producer``, each block checkpointed as the reference's
+``jax.checkpoint`` calls do (a transformer block under the memory plan's
+policy; a mamba, mLSTM or sLSTM block with nothing saved).  Every ported
+family trains: ``--arch llama3.2-3b``, ``granite-moe-1b-a400m``,
+``zamba2-7b`` (its SSD scans through the SSD kernel, its shared block
+through flash and SwiGLU) or ``xlstm-1.3b`` (its mLSTM scans through the
+mLSTM kernel).  Weights are random from seed 0.  It runs on the card;
 ``--device cpu`` runs the plain PyTorch path on the host.  Attention goes
 through the flash kernel (``attention_impl="pallas"``; the config's own
 default is the blockwise formulation).
@@ -32,7 +37,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=None,
                     help="global batch (default: the shape's; train_4k's "
                          "256 sequences of 4096 tokens do not fit one card "
-                         "with llama3.2-3b's fp32 AdamW state: use 2)")
+                         "with an fp32 AdamW state: use 2)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--heartbeat-dir", default=None)

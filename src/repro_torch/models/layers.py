@@ -31,6 +31,12 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def weight_dtype(cfg, trainable: bool) -> torch.dtype:
+    """The dtype matmul weights and the embedding are held in: the
+    compute dtype to serve, ``param_dtype`` (float32) to train."""
+    return dtype_of(cfg.param_dtype if trainable else cfg.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -139,6 +145,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     each step (``torch.logaddexp`` rounds once in bf16; ``F.softplus``
     returns x itself above its threshold of 20)."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Prefix sums summed in float64 and rounded to ``x``'s dtype, as the
+    SSD and mLSTM kernels sum theirs (``ssm_scan.kernel.log_decay``): at
+    the SSD's 256-row log decays, which reach thousands, two float32
+    orders of the sum disagree by more than 1e-4 in exp(sum_i - sum_j)."""
+    return torch.cumsum(x.double(), dim).to(x.dtype)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:

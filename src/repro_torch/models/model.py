@@ -14,9 +14,7 @@ Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
 ``prefill_fn`` is None for the hybrid and ssm families, whose decode
 state is recurrent: servers fill it token by token through ``decode_fn``.
 Training (``loss_fn``, ``init(..., trainable=True)``: float32 parameters
-with gradients) is ported for the dense and moe families; the hybrid and
-ssm families raise until their slice (ROADMAP.md queue A, item 12) brings
-gradients through the SSD and mLSTM kernels.
+with gradients) is ported for all four families.
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).
@@ -50,26 +48,7 @@ class Model:
 def _init(init_fn: Callable, cfg: ModelConfig, seed: int, *,
           device: DeviceLike = None, trainable: bool = False) -> nn.Module:
     gen = torch.Generator(resolve_device(device)).manual_seed(seed)
-    if trainable:
-        return init_fn(gen, cfg, trainable=True)
-    return init_fn(gen, cfg)
-
-
-def _untrainable(cfg: ModelConfig) -> Callable:
-    def refuse(*_, **__):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: it "
-            "needs gradients through the SSD and mLSTM kernels (ROADMAP.md "
-            "queue A, item 12)")
-    return refuse
-
-
-def _init_serving(init_fn: Callable, cfg: ModelConfig, seed: int, *,
-                  device: DeviceLike = None, trainable: bool = False
-                  ) -> nn.Module:
-    if trainable:
-        _untrainable(cfg)()
-    return _init(init_fn, cfg, seed, device=device)
+    return init_fn(gen, cfg, trainable=trainable)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -90,8 +69,8 @@ def build_model(cfg: ModelConfig) -> Model:
         z = zamba
         return Model(
             cfg=cfg,
-            init=functools.partial(_init_serving, z.zamba_init, cfg),
-            loss_fn=_untrainable(cfg),
+            init=functools.partial(_init, z.zamba_init, cfg),
+            loss_fn=lambda p, b: z.zamba_loss(cfg, p, b),
             forward=lambda p, b: z.zamba_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
                 z.zamba_decode_init(cfg, batch, max_seq,
@@ -103,8 +82,8 @@ def build_model(cfg: ModelConfig) -> Model:
         t = transformer
         return Model(
             cfg=cfg,
-            init=functools.partial(_init_serving, t.xlstm_init, cfg),
-            loss_fn=_untrainable(cfg),
+            init=functools.partial(_init, t.xlstm_init, cfg),
+            loss_fn=lambda p, b: t.xlstm_loss(cfg, p, b),
             forward=lambda p, b: t.xlstm_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
                 t.xlstm_decode_init(cfg, batch, max_seq,

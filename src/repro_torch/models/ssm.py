@@ -1,15 +1,19 @@
-"""Mamba2 (SSD) block: chunked prefill scan + O(1) decode state update.
+"""Mamba2 (SSD) block: chunked training/prefill scan + O(1) decode state
+update.
 
-Port of ``repro/models/ssm.py``.  The prefill path calls the port's
-``ssd_scan`` (the sm_90a SSD chunk kernel for CUDA tensors, its plain twin
-on the CPU) where the reference calls the jnp ``ssd_chunked``: the same
-function at the same chunk of 256.  Decode keeps the per-head state
+Port of ``repro/models/ssm.py``.  The forward calls the port's ``ssd_scan``
+(the sm_90a SSD chunk kernel for CUDA tensors, its plain twin on the CPU)
+where the reference calls the jnp ``ssd_chunked``: the same function at the
+same chunk of 256.  :func:`ssd_chunked` is the port of that jnp function;
+``ssd_scan``'s backward is its vjp, recomputed from the saved inputs (the
+reference differentiates it).  Decode keeps the per-head state
 h: (B, H, N, P) with the classic update
 
     h <- exp(dt*A) * h + dt * (B x x);   y = (C . h) + D*x
 
 Parameters are a dict per layer (held by ``zamba.MambaLayer``): the dense
-``in_proj``/``out_proj`` in the compute dtype, ``conv``, ``A_log``, ``D``,
+``in_proj``/``out_proj`` in the compute dtype to serve and in
+``param_dtype`` (float32) to train, ``conv``, ``A_log``, ``D``,
 ``dt_bias`` and the ``norm`` scale in float32.  The reference's cost-probe
 ``mixer_skip`` mode is not ported.
 """
@@ -21,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.ssm_scan.ops import ssd_scan
 from repro_torch.models import layers
 
@@ -31,9 +36,11 @@ def _widths(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     return di, cfg.ssm_state or 64, h, di // h
 
 
-def ssm_init(gen: torch.Generator, cfg: ModelConfig
-             ) -> Dict[str, torch.Tensor]:
-    dt = layers.dtype_of(cfg.dtype)
+def ssm_init(gen: torch.Generator, cfg: ModelConfig, *,
+             trainable: bool = False) -> Dict[str, torch.Tensor]:
+    """The dense kernels in the compute dtype, or in ``param_dtype`` when
+    ``trainable`` (as ``transformer.block_init``)."""
+    dt = layers.weight_dtype(cfg, trainable)
     d = cfg.d_model
     di, n, h, _ = _widths(cfg)
     dev = gen.device
@@ -48,6 +55,75 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig
         "norm": layers.rmsnorm_init(di, device=dev),
         "out_proj": layers.dense_init(gen, di, d, dtype=dt),
     }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """out[..., i, j] = sum_{j < k <= i} x[..., k], -inf above the diagonal:
+    the mask comes before the exp, so neither the exp nor its gradient
+    ever sees the positive sums there (``repro/models/ssm.py:_segsum``)."""
+    t = x.shape[-1]
+    cs = layers.cumsum(x, -1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    upper = torch.ones(t, t, dtype=torch.bool, device=x.device).triu(1)
+    return seg.masked_fill(upper, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
+                ) -> torch.Tensor:
+    """Chunked SSD scan, the reference's jnp ``ssd_chunked`` in PyTorch ops:
+    x (b, s, h, p), dt (b, s, h) softplus'd, A (h,) the log decay rate
+    (``A_log``; the decay is -exp(A)), B, C (b, s, n) -> y (b, s, h, p).
+
+    Written as the reference is (-inf masked before the exp; the
+    inter-chunk recurrence a loop as its ``lax.scan``), with each three-
+    or four-operand einsum taken as pairwise products, so autograd
+    through it gives the reference's gradient; its cumsums are summed in
+    float64 (``layers.cumsum``), as the kernel's forward sums them.
+    ``ssd_scan``'s backward is its vjp."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    xc = x.reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+
+    dA = dtc * (-torch.exp(A))                           # (b,nc,q,h)
+    dA_cum = layers.cumsum(dA, 2)
+
+    # ---- intra-chunk (quadratic within q) --------------------------------
+    L = torch.exp(_segsum(dA.transpose(2, 3)))           # (b,nc,h,q,q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)     # (b,nc,q,q)
+    w = scores[:, :, None] * L * dtc.transpose(2, 3)[..., None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", w, xc)
+
+    # ---- chunk states -----------------------------------------------------
+    decay_to_end = torch.exp(dA_cum[:, :, -1:] - dA_cum)  # (b,nc,q,h)
+    xw = xc * (dtc * decay_to_end)[..., None]
+    states = torch.einsum("bcqn,bcqhp->bchnp", Bc, xw)   # (b,nc,h,n,p)
+
+    # ---- inter-chunk recurrence (the only sequential part) ---------------
+    chunk_decay = torch.exp(dA_cum[:, :, -1])            # (b,nc,h)
+    carry = torch.zeros(b, h, n, p, dtype=x.dtype, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)                               # emit PREVIOUS
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)               # (b,nc,h,n,p)
+
+    # ---- inter-chunk contribution -----------------------------------------
+    y_off = torch.einsum("bcqn,bchnp->bcqhp", Cc, prev_states) \
+        * torch.exp(dA_cum)[..., None]
+    y = (y_diag + y_off).reshape(b, nc * q, h, p)
+    return y[:, :s]
 
 
 def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -77,7 +153,7 @@ def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
 
     dt = layers.softplus(dt.float() + params["dt_bias"][None, None])  # b,s,h
-    xh = xin.reshape(b, s, h, p)
+    xh = tag("ssm_in", xin.reshape(b, s, h, p))
     y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(dt_)

@@ -15,7 +15,9 @@ Norm scales are float32 either way.
 Under autograd with ``cfg.remat`` each block runs checkpointed under the
 memory plan's policy (``compile_plan(cfg, batch_tokens=B * S)``, the
 reference's ``_remat_policy``): ``repro_torch.core.remat`` keeps,
-offloads or recomputes each tagged intermediate as the plan decides.  The
+offloads or recomputes each tagged intermediate as the plan decides.  An
+xLSTM block is checkpointed with nothing saved (``remat.FULL_RECOMPUTE``),
+as the reference's ``jax.checkpoint`` of its ``mbody`` and ``sbody``.  The
 LM loss (``lm_loss``) carries the MoE auxiliary loss through the stack as
 the reference's ``_scan_blocks`` does; serving discards it.
 
@@ -57,20 +59,6 @@ def _param_dict(tree: Dict[str, torch.Tensor], trainable: bool
                              for k, v in tree.items()})
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return _param(t, False)
-
-
-def _frozen_dict(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return _param_dict(tree, False)
-
-
-def weight_dtype(cfg: ModelConfig, trainable: bool) -> torch.dtype:
-    """The dtype matmul weights and the embedding are held in: the
-    compute dtype to serve, ``param_dtype`` (float32) to train."""
-    return layers.dtype_of(cfg.param_dtype if trainable else cfg.dtype)
-
-
 # ---------------------------------------------------------------------------
 # Decoder block
 # ---------------------------------------------------------------------------
@@ -79,7 +67,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, *,
                trainable: bool = False) -> Tree:
     """An MoE config's block holds ``moe`` (router and experts), any other
     ``mlp``, as the reference's does."""
-    dt = weight_dtype(cfg, trainable)
+    dt = layers.weight_dtype(cfg, trainable)
     tree = {
         "ln1": layers.rmsnorm_init(cfg.d_model, device=gen.device),
         "attn": attn.attention_init(gen, cfg, dtype=dt),
@@ -152,23 +140,36 @@ def memory_plan(cfg: ModelConfig, batch_tokens: int) -> CompiledMemoryPlan:
     return compile_plan(cfg, batch_tokens=batch_tokens)
 
 
+class _Checkpointed:
+    """Runs blocks in turn, each checkpointed under its policy when remat
+    and autograd are on (``remat.checkpoint``, every region handed the one
+    before it), or called plainly."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.on = cfg.remat and torch.is_grad_enabled()
+        self.region = None
+
+    def __call__(self, policy, fn, *args):
+        if not self.on:
+            return fn(*args)
+        out, self.region = remat.checkpoint(policy, fn, *args,
+                                            prev=self.region)
+        return out
+
+
 def scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_scan_blocks``: every block in turn, the auxiliary
     losses summed; each block checkpointed under the plan's policy when
     ``cfg.remat`` and autograd are on."""
+    run = _Checkpointed(cfg)
     policy = memory_plan(cfg, x.shape[0] * x.shape[1]).offload_policy \
-        if torch.is_grad_enabled() else None
+        if run.on else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    region = None
     for blk in blocks:
-        if policy is None:
-            x, a = block_forward_aux(cfg, blk, x, positions)
-        else:
-            (x, a), region = remat.checkpoint(
-                policy, functools.partial(block_forward_aux, cfg, blk),
-                x, positions, prev=region)
+        x, a = run(policy, functools.partial(block_forward_aux, cfg, blk),
+                   x, positions)
         aux = aux + a
     return x, aux
 
@@ -180,7 +181,7 @@ def scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
 def lm_init(gen: torch.Generator, cfg: ModelConfig, *,
             trainable: bool = False) -> "TransformerLM":
     """Random init with the reference's distributions, on ``gen.device``."""
-    dt = weight_dtype(cfg, trainable)
+    dt = layers.weight_dtype(cfg, trainable)
     pv = padded_vocab(cfg)
     tree: Tree = {
         "embed": layers.embedding_init(gen, pv, cfg.d_model, dtype=dt),
@@ -338,12 +339,11 @@ def lm_prefill(cfg: ModelConfig, params: TransformerLM,
 
 def xlstm_layout(cfg: ModelConfig) -> Tuple[int, int]:
     """(n_groups, per): ``n_groups`` groups of ``per`` mLSTM blocks, each
-    followed by one sLSTM block (xlstm-1.3b: 6 groups of 7 + 1).  Every
-    xLSTM config has sLSTM blocks; the reference's stack without them is
-    not ported."""
+    followed by one sLSTM block (xlstm-1.3b: 6 groups of 7 + 1).  A stack
+    without sLSTM blocks (``slstm_every = 0``, as the reference builds it)
+    is one group of ``n_layers`` mLSTM blocks and no sLSTM block."""
     if not cfg.slstm_every:
-        raise NotImplementedError("an xLSTM stack without sLSTM blocks "
-                                  "(slstm_every = 0) is not ported")
+        return 1, cfg.n_layers
     n_s = cfg.n_layers // cfg.slstm_every
     n_m = cfg.n_layers - n_s
     if not n_s or n_m % n_s:
@@ -351,73 +351,109 @@ def xlstm_layout(cfg: ModelConfig) -> Tuple[int, int]:
     return n_s, n_m // n_s
 
 
+def xlstm_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(mLSTM blocks, sLSTM blocks)."""
+    n_groups, per = xlstm_layout(cfg)
+    return n_groups * per, n_groups if cfg.slstm_every else 0
+
+
 class MLSTMBlock(nn.Module):
     """Pre-norm mLSTM block: x + mlstm(norm(x))."""
 
-    def __init__(self, tree: Tree):
+    def __init__(self, tree: Tree, *, trainable: bool = False):
         super().__init__()
-        self.ln = _frozen(tree["ln"])
-        self.mlstm = _frozen_dict(tree["mlstm"])
+        self.ln = _param(tree["ln"], trainable)
+        self.mlstm = _param_dict(tree["mlstm"], trainable)
 
 
 class SLSTMBlock(nn.Module):
     """Pre-norm sLSTM block: x + slstm(norm(x))."""
 
-    def __init__(self, tree: Tree):
+    def __init__(self, tree: Tree, *, trainable: bool = False):
         super().__init__()
-        self.ln = _frozen(tree["ln"])
-        self.slstm = _frozen_dict(tree["slstm"])
+        self.ln = _param(tree["ln"], trainable)
+        self.slstm = _param_dict(tree["slstm"], trainable)
 
 
-def xlstm_init(gen: torch.Generator, cfg: ModelConfig) -> "XLSTMLM":
+def xlstm_init(gen: torch.Generator, cfg: ModelConfig, *,
+               trainable: bool = False) -> "XLSTMLM":
     """Random init with the reference's distributions, on ``gen.device``."""
-    dt = layers.dtype_of(cfg.dtype)
+    dt = layers.weight_dtype(cfg, trainable)
     pv = padded_vocab(cfg)
-    n_groups, per = xlstm_layout(cfg)
+    n_m, n_s = xlstm_counts(cfg)
     dev = gen.device
     tree: Tree = {
         "embed": layers.embedding_init(gen, pv, cfg.d_model, dtype=dt),
         "mblocks": [{"ln": layers.rmsnorm_init(cfg.d_model, device=dev),
-                     "mlstm": xlstm.mlstm_init(gen, cfg)}
-                    for _ in range(n_groups * per)],
+                     "mlstm": xlstm.mlstm_init(gen, cfg,
+                                               trainable=trainable)}
+                    for _ in range(n_m)],
         "sblocks": [{"ln": layers.rmsnorm_init(cfg.d_model, device=dev),
-                     "slstm": xlstm.slstm_init(gen, cfg)}
-                    for _ in range(n_groups)],
+                     "slstm": xlstm.slstm_init(gen, cfg,
+                                               trainable=trainable)}
+                    for _ in range(n_s)],
         "ln_f": layers.rmsnorm_init(cfg.d_model, device=dev),
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
-    return XLSTMLM(cfg, tree)
+    return XLSTMLM(cfg, tree, trainable=trainable)
 
 
 class XLSTMLM(nn.Module):
-    """Parameters of the xLSTM LM; ``forward(tokens)`` gives all logits."""
+    """Parameters of the xLSTM LM; ``forward(tokens)`` gives all logits.
+    Served, it holds its matmul weights in the compute dtype, frozen;
+    ``trainable=True`` holds every parameter in float32 with gradients."""
 
-    def __init__(self, cfg: ModelConfig, tree: Tree):
+    def __init__(self, cfg: ModelConfig, tree: Tree, *,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
-        self.mblocks = nn.ModuleList(MLSTMBlock(t) for t in tree["mblocks"])
-        self.sblocks = nn.ModuleList(SLSTMBlock(t) for t in tree["sblocks"])
-        self.ln_f = _frozen(tree["ln_f"])
-        self.unembed = _frozen(tree["unembed"])
+        self.embed = _param(tree["embed"], trainable)
+        self.mblocks = nn.ModuleList(MLSTMBlock(t, trainable=trainable)
+                                     for t in tree["mblocks"])
+        self.sblocks = nn.ModuleList(SLSTMBlock(t, trainable=trainable)
+                                     for t in tree["sblocks"])
+        self.ln_f = _param(tree["ln_f"], trainable)
+        self.unembed = _param(tree["unembed"], trainable)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return xlstm_forward(self.cfg, self, tokens)
 
 
+def _mlstm_block(cfg: ModelConfig, p: MLSTMBlock, x: torch.Tensor
+                 ) -> torch.Tensor:
+    return x + xlstm.mlstm_forward(cfg, p.mlstm,
+                                   layers.rmsnorm(p.ln, x, cfg.norm_eps))
+
+
+def _slstm_block(cfg: ModelConfig, p: SLSTMBlock, x: torch.Tensor
+                 ) -> torch.Tensor:
+    return x + xlstm.slstm_forward(cfg, p.slstm,
+                                   layers.rmsnorm(p.ln, x, cfg.norm_eps))
+
+
 def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor
                   ) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, padded_vocab)."""
+    """tokens: (B, S) -> logits (B, S, padded_vocab).  With ``cfg.remat``
+    under autograd every mLSTM and sLSTM block is checkpointed with
+    nothing saved (recomputed from its input in the backward), as the
+    reference's ``jax.checkpoint`` of ``mbody`` and ``sbody``."""
     n_groups, per = xlstm_layout(cfg)
     x = layers.embed(params.embed, tokens, layers.dtype_of(cfg.dtype))
+    run = _Checkpointed(cfg)
+    full = remat.FULL_RECOMPUTE
     for g in range(n_groups):
         for p in params.mblocks[g * per:(g + 1) * per]:
-            x = x + xlstm.mlstm_forward(
-                cfg, p.mlstm, layers.rmsnorm(p.ln, x, cfg.norm_eps))
-        p = params.sblocks[g]
-        x = x + xlstm.slstm_forward(
-            cfg, p.slstm, layers.rmsnorm(p.ln, x, cfg.norm_eps))
+            x = run(full, functools.partial(_mlstm_block, cfg, p), x)
+        if params.sblocks:
+            x = run(full, functools.partial(_slstm_block, cfg,
+                                            params.sblocks[g]), x)
     return lm_logits(cfg, params, x)
+
+
+def xlstm_loss(cfg: ModelConfig, params: XLSTMLM, batch) -> torch.Tensor:
+    """Next-token cross-entropy (the reference's ``xlstm_loss``)."""
+    return softmax_xent(cfg, xlstm_forward(cfg, params, batch["tokens"]),
+                        batch["targets"])
 
 
 # ---- decode ----------------------------------------------------------------
@@ -427,10 +463,11 @@ def xlstm_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *, device
     """The reference's layout: ``m`` holds C, n, m of every mLSTM block
     (xlstm-1.3b: C is (42, B, 4, 1024, 1024) float32), ``s`` holds h, c, n,
     m of every sLSTM block.  ``max_seq`` is unused: the state is O(1)."""
-    n_groups, per = xlstm_layout(cfg)
-    return {"m": xlstm.init_mlstm_state(cfg, batch, n_groups * per,
-                                        device=device),
-            "s": xlstm.init_slstm_state(cfg, batch, n_groups, device=device)}
+    n_m, n_s = xlstm_counts(cfg)
+    st = {"m": xlstm.init_mlstm_state(cfg, batch, n_m, device=device)}
+    if n_s:
+        st["s"] = xlstm.init_slstm_state(cfg, batch, n_s, device=device)
+    return st
 
 
 def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state,
@@ -444,13 +481,19 @@ def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state,
     x = layers.embed(params.embed, tokens[:, None],
                      layers.dtype_of(cfg.dtype))
     ms = state["m"]
+
+    def mstep(i: int, x: torch.Tensor) -> torch.Tensor:
+        p = params.mblocks[i]
+        y, ms["C"][i], ms["n"][i], ms["m"][i] = xlstm.mlstm_decode_step(
+            cfg, p.mlstm, layers.rmsnorm(p.ln, x, cfg.norm_eps),
+            ms["C"][i], ms["n"][i], ms["m"][i])
+        return x + y
+
     for g in range(n_groups):
         for i in range(g * per, (g + 1) * per):
-            p = params.mblocks[i]
-            y, ms["C"][i], ms["n"][i], ms["m"][i] = xlstm.mlstm_decode_step(
-                cfg, p.mlstm, layers.rmsnorm(p.ln, x, cfg.norm_eps),
-                ms["C"][i], ms["n"][i], ms["m"][i])
-            x = x + y
+            x = mstep(i, x)
+        if not params.sblocks:
+            continue
         p, ss = params.sblocks[g], state["s"]
         y, ss["h"][g], ss["c"][g], ss["n"][g], ss["m"][g] = \
             xlstm.slstm_decode_step(

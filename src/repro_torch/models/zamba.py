@@ -10,22 +10,37 @@ mamba layers.  The decode state holds each mamba layer's SSM state and one
 KV cache per application of the shared block; it is updated in place.
 The family has no batched prefill (its state is recurrent): servers fill
 the state token by token through ``zamba_decode_step``.
+
+Training (``zamba_loss``) follows the reference's checkpoint structure
+with ``cfg.remat`` under autograd, flattened: each mamba layer is
+checkpointed with nothing saved (rebuilt from its input in the backward),
+and each application of the shared block under the memory plan's policy
+(``transformer.memory_plan``).  The reference nests the mamba layers'
+checkpoints inside one per group; ``core/remat.py`` does not nest regions,
+so a group here holds k - 1 more mamba-layer inputs for its backward (the
+same function; 29 MB each at one sequence of 4096 in bf16).  The shared
+block's gradient is the sum over its applications, as autograd through
+one parameter set gives it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import remat
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, ssm
-from repro_torch.models.transformer import (Block, Tree, _frozen,
-                                            _frozen_dict, _mlp_residual,
-                                            block_forward, block_init,
-                                            lm_logits, padded_vocab)
+from repro_torch.models.transformer import (Block, Tree, _Checkpointed,
+                                            _mlp_residual, _param,
+                                            _param_dict, block_forward,
+                                            block_init, lm_logits,
+                                            memory_plan, padded_vocab,
+                                            softmax_xent)
 
 
 def layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -39,47 +54,54 @@ def layout(cfg: ModelConfig) -> Tuple[int, int]:
 class MambaLayer(nn.Module):
     """Pre-norm mamba2 layer: x + ssm(norm(x))."""
 
-    def __init__(self, tree: Tree):
+    def __init__(self, tree: Tree, *, trainable: bool = False):
         super().__init__()
-        self.ln = _frozen(tree["ln"])
-        self.ssm = _frozen_dict(tree["ssm"])
+        self.ln = _param(tree["ln"], trainable)
+        self.ssm = _param_dict(tree["ssm"], trainable)
 
 
-def _mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+def _mamba_init(gen: torch.Generator, cfg: ModelConfig, trainable: bool
+                ) -> Tree:
     return {"ln": layers.rmsnorm_init(cfg.d_model, device=gen.device),
-            "ssm": ssm.ssm_init(gen, cfg)}
+            "ssm": ssm.ssm_init(gen, cfg, trainable=trainable)}
 
 
-def zamba_init(gen: torch.Generator, cfg: ModelConfig) -> "ZambaLM":
+def zamba_init(gen: torch.Generator, cfg: ModelConfig, *,
+               trainable: bool = False) -> "ZambaLM":
     """Random init with the reference's distributions, on ``gen.device``."""
-    dt = layers.dtype_of(cfg.dtype)
+    dt = layers.weight_dtype(cfg, trainable)
     pv = padded_vocab(cfg)
     n_groups, tail = layout(cfg)
     tree: Tree = {
         "embed": layers.embedding_init(gen, pv, cfg.d_model, dtype=dt),
-        "mblocks": [_mamba_init(gen, cfg)
+        "mblocks": [_mamba_init(gen, cfg, trainable)
                     for _ in range(n_groups * cfg.shared_attn_every)],
-        "shared": block_init(gen, cfg),
-        "tail": [_mamba_init(gen, cfg) for _ in range(tail)],
+        "shared": block_init(gen, cfg, trainable=trainable),
+        "tail": [_mamba_init(gen, cfg, trainable) for _ in range(tail)],
         "ln_f": layers.rmsnorm_init(cfg.d_model, device=gen.device),
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
-    return ZambaLM(cfg, tree)
+    return ZambaLM(cfg, tree, trainable=trainable)
 
 
 class ZambaLM(nn.Module):
-    """Parameters of the hybrid LM; ``forward(tokens)`` gives all logits."""
+    """Parameters of the hybrid LM; ``forward(tokens)`` gives all logits.
+    Served, it holds its matmul weights in the compute dtype, frozen;
+    ``trainable=True`` holds every parameter in float32 with gradients."""
 
-    def __init__(self, cfg: ModelConfig, tree: Tree):
+    def __init__(self, cfg: ModelConfig, tree: Tree, *,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
+        self.embed = _param(tree["embed"], trainable)
         mblocks: List[Tree] = tree["mblocks"]
-        self.mblocks = nn.ModuleList(MambaLayer(t) for t in mblocks)
-        self.shared = Block(cfg, tree["shared"])
-        self.tail = nn.ModuleList(MambaLayer(t) for t in tree["tail"])
-        self.ln_f = _frozen(tree["ln_f"])
-        self.unembed = _frozen(tree["unembed"])
+        self.mblocks = nn.ModuleList(MambaLayer(t, trainable=trainable)
+                                     for t in mblocks)
+        self.shared = Block(cfg, tree["shared"], trainable=trainable)
+        self.tail = nn.ModuleList(MambaLayer(t, trainable=trainable)
+                                  for t in tree["tail"])
+        self.ln_f = _param(tree["ln_f"], trainable)
+        self.unembed = _param(tree["unembed"], trainable)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return zamba_forward(self.cfg, self, tokens)
@@ -98,14 +120,27 @@ def zamba_forward(cfg: ModelConfig, params: ZambaLM, tokens: torch.Tensor
     k = cfg.shared_attn_every
     x = layers.embed(params.embed, tokens, layers.dtype_of(cfg.dtype))
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    run = _Checkpointed(cfg)
+    policy = memory_plan(cfg, b * s).offload_policy if run.on else None
+    full = remat.FULL_RECOMPUTE
+
+    def shared(x, positions):
+        # the shared block: the same parameters at every application
+        return block_forward(cfg, params.shared, x, positions)
+
     for g in range(n_groups):
         for p in params.mblocks[g * k:(g + 1) * k]:
-            x = _mamba(cfg, p, x)
-        # the shared block: the same parameters at every application
-        x = block_forward(cfg, params.shared, x, positions)
+            x = run(full, functools.partial(_mamba, cfg, p), x)
+        x = run(policy, shared, x, positions)
     for p in params.tail:
-        x = _mamba(cfg, p, x)
+        x = run(full, functools.partial(_mamba, cfg, p), x)
     return lm_logits(cfg, params, x)
+
+
+def zamba_loss(cfg: ModelConfig, params: ZambaLM, batch) -> torch.Tensor:
+    """Next-token cross-entropy (the reference's ``zamba_loss``)."""
+    return softmax_xent(cfg, zamba_forward(cfg, params, batch["tokens"]),
+                        batch["targets"])
 
 
 # ---- decode ----------------------------------------------------------------

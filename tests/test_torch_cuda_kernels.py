@@ -492,23 +492,43 @@ def test_swiglu_refuses_a_gradient_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_ssd_refuses_a_gradient_on_the_card(cuda_device):
+    """The chunk kernel's wrapper still refuses a gradient (nothing may
+    drop one by going around the scan); the scan carries one through its
+    Function: the kernel forward, ``ssd_chunked``'s vjp backward."""
     x, dt, A_log, B, C = _ssd_inputs((1, 64, 2, 64, 64, 64), cuda_device)
     xc, dtc, Bc, Cc = chunk_inputs(x, dt, B, C, 64)
     with pytest.raises(NotImplementedError):
         S.ssd_chunk(_needs_grad(xc), dtc, A_log, Bc, Cc)
-    with pytest.raises(NotImplementedError):
-        ssd_scan(x, dt, _needs_grad(A_log), B, C)
     with torch.no_grad():
         S.ssd_chunk(_needs_grad(xc), dtc, A_log, Bc, Cc)
+    before = S.LAUNCHES
+    leaf = _needs_grad(A_log)
+    y = ssd_scan(x, dt, leaf, B, C)
+    assert y.grad_fn is not None and S.LAUNCHES == before + 1
+    y.sum().backward()
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
 
 
 @pytest.mark.cuda
 def test_mlstm_refuses_a_gradient_on_the_card(cuda_device):
+    """As for SSD: ``mlstm_chunk`` refuses a gradient, ``mlstm_scan``
+    carries one."""
     q, k, v, li, lf, scale = _mlstm_chunks((1, 64, 2, 128, 64), cuda_device)
     with pytest.raises(NotImplementedError):
         M.mlstm_chunk(q, _needs_grad(k), v, li, lf, scale)
     with torch.no_grad():
         M.mlstm_chunk(q, _needs_grad(k), v, li, lf, scale)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    qs, ks, vs = (torch.randn(1, 64, 2, 128, generator=g, device=cuda_device)
+                  for _ in range(3))
+    ig, fg = (torch.randn(1, 64, 2, generator=g, device=cuda_device)
+              for _ in range(2))
+    before = M.LAUNCHES
+    leaf = _needs_grad(ks)
+    y = mlstm_scan(qs, leaf, vs, ig, fg)
+    assert y.grad_fn is not None and M.LAUNCHES == before + 1
+    y.sum().backward()
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
 
 
 # depth of each model at full width for the bf16 check (chip_smoke.py's

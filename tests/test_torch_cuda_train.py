@@ -1,6 +1,8 @@
 """The training path's kernels on the card: the flash and SwiGLU backwards
-against their plain twins, and one train step of a reduced LM with the
-kernels against the same step with the twins in their place.
+against their plain twins, the SSD and mLSTM scans' Functions against
+autograd through ``ssd_chunked`` and ``mlstm_chunked``, and one train step
+of a reduced LM (dense, MoE, hybrid, xLSTM) with the kernels against the
+same step with the twins in their place.
 
 Needs a CUDA card (sm_90a); every case skips without one.  This file
 imports no JAX, so it runs on the card's machine:
@@ -93,6 +95,126 @@ def test_swiglu_backward_matches_the_twin(cuda_device, dtype, tol, shapes):
                                (x, wg, wu), dh)
     for g, w in zip(got, want):
         assert g.dtype == dtype and _rel(g, w) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 300])
+def test_ssd_scan_backward_matches_the_plain_path(cuda_device, s):
+    """``ssd_scan``'s Function (the wgmma kernel forward, the vjp of
+    ``ssd_chunked`` backward) against autograd through ``ssd_chunked``
+    itself on the card: the output and all five grads normwise within 1e-4
+    in fp32, at 64-wide heads and state (the wgmma kernel's widths)."""
+    from repro_torch.kernels.ssm_scan import kernel as S
+    from repro_torch.kernels.ssm_scan.ops import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, B, C = _leaves([(1, s, 4, 64), (1, s, 64), (1, s, 64)],
+                      torch.float32, cuda_device, 3)
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, s, 4, device=cuda_device)).requires_grad_()
+    A_log = torch.log(torch.linspace(1.0, 16.0, 4, device=cuda_device)) \
+        .requires_grad_()
+    ins = (x, dt, A_log, B, C)
+    dy = torch.randn(x.shape, device=cuda_device)
+    before = S.LAUNCHES_BY_VARIANT["wgmma"]
+    y = ssd_scan(*ins)
+    assert S.LAUNCHES_BY_VARIANT["wgmma"] == before + 1
+    got = torch.autograd.grad(y, ins, dy)
+    plain = ssd_chunked(*ins)
+    want = torch.autograd.grad(plain, ins, dy)
+    assert _rel(y, plain) <= 1e-4
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all()) and _rel(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 300])
+def test_mlstm_scan_backward_matches_the_plain_path(cuda_device, s):
+    """``mlstm_scan``'s Function (the wgmma kernel forward, the vjp of
+    ``mlstm_chunked`` backward) against autograd through
+    ``mlstm_chunked`` itself on the card: the output and all five grads
+    normwise within 1e-4 in fp32, at head dim 128."""
+    from repro_torch.kernels.mlstm_scan import kernel as M
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.models.xlstm import mlstm_chunked
+
+    q, k, v, ig = _leaves([(1, s, 2, 128)] * 3 + [(1, s, 2)],
+                          torch.float32, cuda_device, 4)
+    fg = (torch.randn(1, s, 2, device=cuda_device) + 3.0).requires_grad_()
+    ins = (q, k, v, ig, fg)
+    dy = torch.randn(q.shape, device=cuda_device)
+    before = M.LAUNCHES_BY_VARIANT["wgmma"]
+    y = mlstm_scan(*ins)
+    assert M.LAUNCHES_BY_VARIANT["wgmma"] == before + 1
+    got = torch.autograd.grad(y, ins, dy)
+    plain = mlstm_chunked(*ins)
+    want = torch.autograd.grad(plain, ins, dy)
+    assert _rel(y, plain) <= 1e-4
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all()) and _rel(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_recurrent_train_step_kernel_path_matches_plain_path(cuda_device,
+                                                             arch,
+                                                             monkeypatch):
+    """The loss and every gradient of a reduced zamba2-7b (64-wide SSD heads
+    and state) or xlstm-1.3b (head dim 128) at S = 300, fp32, remat on:
+    the kernels against their twins in the wrappers' place, normwise
+    within the larger of 1e-4 and twice a second plain path's distance
+    from the twins on the leaf (the scans' forwards by ``ssd_chunked`` /
+    ``mlstm_chunked``), as ``chip_smoke.py`` (g) holds zamba2-7b: the SSD
+    decay leaves A_log and dt_bias sum cancelling terms, and their fp32
+    grads move with the order of the sums."""
+    from repro_torch.kernels.mlstm_scan import kernel as M
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+    from repro_torch.kernels.ssm_scan import kernel as S
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.xlstm import mlstm_chunked
+
+    widths = dict(d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                  ssm_heads=8, ssm_state=64) if arch == "zamba2-7b" \
+        else dict(d_model=256, n_heads=4)
+    cfg = reduce_config(ARCHS[arch], vocab=512, dtype="float32",
+                        attention_impl="pallas", block_q=64, block_kv=64,
+                        remat=True, **widths)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda_device, trainable=True)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (1, 301), generator=g,
+                         device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def grads():
+        for p in params.parameters():
+            p.grad = None
+        loss = model.loss_fn(params, batch)
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone()
+                               for n, p in params.named_parameters()}
+
+    S.reset_launches()
+    M.reset_launches()
+    loss, got = grads()
+    assert S.LAUNCHES_BY_VARIANT["simt"] == M.LAUNCHES_BY_VARIANT["simt"] == 0
+    assert S.LAUNCHES + M.LAUNCHES > 0
+    monkeypatch.setattr(ssd_ops, "ssd_chunk", S.ssd_chunk_plain)
+    monkeypatch.setattr(mlstm_ops, "mlstm_chunk", M.mlstm_chunk_plain)
+    monkeypatch.setattr(flash_ops, "flash_attention_fwd",
+                        K.flash_attention_fwd_plain)
+    monkeypatch.setattr(W, "_forward", W.fused_swiglu_plain)
+    want_loss, want = grads()
+    monkeypatch.setattr(ssd_ops, "_forward",
+                        lambda *a: ssd_chunked(*a[:5], chunk=a[5]))
+    monkeypatch.setattr(mlstm_ops, "_forward",
+                        lambda *a: mlstm_chunked(*a[:5], chunk=a[5]))
+    _, other = grads()
+    assert _rel(loss, want_loss) <= 1e-4
+    for name, w in want.items():
+        tol = max(1e-4, 2 * _rel(other[name], w))
+        assert _rel(got[name], w) <= tol, (name, _rel(got[name], w), tol)
 
 
 @pytest.mark.cuda

@@ -292,8 +292,6 @@ def test_refusals():
     args = _args("lenet5")
     backend = get_backend("jit_blocks")
     assert isinstance(backend, JitBlocksBackend)
-    with pytest.raises(NotImplementedError, match="cursor"):
-        backend.start(cp.graph, *args, schedule=cp.schedule)
     with pytest.raises(ValueError, match="engine"):
         cp.loss_and_grads(*args, executor=backend,
                           engine=DeviceStreamEngine("cpu"))
@@ -301,6 +299,54 @@ def test_refusals():
         tbackends.swap_planned_loss_and_grads(
             cp.graph, *args, schedule=cp.schedule, ordered=cp.ordered,
             executor=backend)
+
+
+def test_scheduler_serves_on_jit_blocks():
+    """``StepScheduler(backend=JitBlocksBackend())`` serves a lenet5 wave,
+    as the reference's does (its jit_blocks inherits the async cursor):
+    each session's loss and grads equal the JAX ``sim`` replay's on the
+    same params and batch, its replayed stream is the compiled op list,
+    and the cursor touches none of the backend's arena or fusion state."""
+    from repro_torch.serve import SessionWork, StepScheduler
+    cfg = dict(min_idle_phases=3, min_bytes=1 << 12)
+    jg = jzoo.ZOO["lenet5"]()
+    jcp = jplan.compile_plan(jg, jplan.MemoryPlanConfig(**cfg), batch=8)
+    cp = tplan.compile_plan(tzoo.ZOO["lenet5"](),
+                            tplan.MemoryPlanConfig(**cfg), batch=8)
+    share = cp.peak_bytes + cp.optim_device_bytes
+    backend = JitBlocksBackend()
+    works, wants = [], []
+    for i, user in enumerate(["a", "b"]):
+        params = _np(jcp.init_params(jax.random.PRNGKey(i)))
+        r = np.random.default_rng(i)
+        x = r.standard_normal((8, 3, 32, 32)).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[r.integers(0, 10, 8)]
+        loss, grads, _ = jcp.loss_and_grads(params, jnp.asarray(x),
+                                            jnp.asarray(y), executor="sim")
+        wants.append((float(loss), _np(grads)))
+        p = graph_params_from_numpy(params, "cpu")
+        works.append(SessionWork(
+            user=user, arrival=i + 1, qos="standard", weight=1.0,
+            base_offset=i * share, share_bytes=share, cp=cp,
+            x=torch.from_numpy(x), y=torch.from_numpy(y), mask=None,
+            params_fn=lambda p=p: p))
+    sched = StepScheduler(backend=backend,
+                          engine=DeviceStreamEngine("cpu", bus_gbps=8.0,
+                                                    bus_latency_s=1e-5))
+    outs = sched.run(works)
+    assert [o.user for o in outs] == ["a", "b"]
+    for o, (jloss, jgrads) in zip(outs, wants):
+        assert o.ok
+        np.testing.assert_allclose(o.loss, jloss, rtol=1e-5)
+        assert sorted(o.grads) == sorted(jgrads)
+        for k in jgrads:
+            for n, b in jgrads[k].items():
+                scale = max(1.0, float(np.abs(b).max(initial=0.0)))
+                np.testing.assert_allclose(o.grads[k][n].numpy(), b,
+                                           rtol=1e-4, atol=1e-5 * scale)
+        assert o.stats.replayed_ops == cp.lowered.ops
+    assert backend.arena is None and backend._admitted == {}
+    assert sched.report()["completed"] == 2
 
 
 def test_optimizer_lane_matches_async():

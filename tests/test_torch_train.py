@@ -408,9 +408,18 @@ def test_grad_norm_is_the_fp32_norm_of_all_grads():
 
 
 def test_unported_families_refuse_to_train():
+    """The hybrid and ssm families, once refused here, now train: a
+    trainable init holds every parameter in float32 with gradients, and
+    ``loss_fn`` backpropagates into each of them
+    (``tests/test_torch_train_recurrent.py`` holds the values to the
+    reference)."""
     for arch in ("zamba2-7b", "xlstm-1.3b"):
         model = build_model(reduce_config(ARCHS[arch]))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            model.loss_fn(None, {})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            model.init(0, device="cpu", trainable=True)
+        params = model.init(0, device="cpu", trainable=True)
+        named = dict(params.named_parameters())
+        assert all(p.dtype == torch.float32 and p.requires_grad
+                   for p in named.values())
+        batch = _torch_batch(_batch(256))
+        model.loss_fn(params, batch).backward()
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in named.values())

@@ -92,8 +92,10 @@ def test_layout_and_full_size():
     assert transformer.padded_vocab(cfg) == 50432
     red = reduce_config(cfg)
     assert transformer.xlstm_layout(red) == (2, 1)
-    with pytest.raises(NotImplementedError, match="without sLSTM"):
-        transformer.xlstm_layout(reduce_config(cfg, slstm_every=0))
+    # the stack without sLSTM blocks: one group of mLSTM blocks alone
+    bare = reduce_config(cfg, slstm_every=0)
+    assert transformer.xlstm_layout(bare) == (1, 4)
+    assert transformer.xlstm_counts(bare) == (4, 0)
     assert build_model(red).prefill_fn is None   # recurrent: sequential fill
     # the parameter count of the full model, from the reference's shapes
     jcfg = JAX_ARCHS["xlstm-1.3b"]
