@@ -207,11 +207,36 @@ them:
    in the kernel run.  The four kernels are timed at these train
    steps' shapes for their rows, and one layer's backward recompute of
    each scan is timed alone.
+21. multimodal (run after 14): the two multimodal families served at
+   full width, random weights from seed 0, every cross block's ``xgate``
+   set to 0.5 (at the reference's init of 0 the cross path adds nothing):
+   (d) flash at llama-3.2-vision-11b's self (2, 32, 4096, 128, kv heads
+   8, causal) and cross (4096 queries against 1600 image keys,
+   non-causal) shapes and whisper-tiny's encoder shape (8, 6, 1500, 64,
+   non-causal), SwiGLU at the vlm MLP's (8192, 4096, 14336) and
+   whisper's encoder (12000, 384, 1536) and decoder (3584, 384, 1536)
+   shapes, each against its twin in f32 and bf16 in every variant and
+   timed for its kernel-table row; (a) llama-3.2-vision-11b's prefill
+   step at full depth (8 super-blocks of 4 self blocks and 1 cross
+   block), B = 2, S = 4096, 1600 image tokens, bf16: 40 self and 8 cross
+   flash launches and 40 SwiGLU launches, each shape and count exact,
+   all wgmma; the logits finite, moved by a second image, and their
+   argmax against the naive path; (e) generate, 4 requests of 128
+   prompt tokens + 16 greedy tokens through ``launch.serve.generate``
+   (filled token by token: the family has no batched prefill), one
+   SwiGLU launch per layer per decode step; (b) fp32 at depth 10, the
+   kernel path (flash and SwiGLU simt) against the naive path at
+   positions 0, 511 and S - 1 within ``LOGITS_REL_TOL``; (c)
+   whisper-tiny's prefill step, B = 8, 1500 frames, a decoder S of 448:
+   4 encoder flash launches (the decoder's 448 queries take the naive
+   path, as the reference's) and 8 SwiGLU launches, all wgmma, the
+   logits moved by other frames, (e) its generate, and fp32 at full
+   depth against the naive path.  The phase prints its wall time.
 
-The bf16 prefill steps (3, 5, 8, 11), the bf16 train steps (19 (a), 20
-(e), (f)) and generate's SwiGLU launches must
+The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
+20 (e), (f)) and generate's SwiGLU launches must
 count under the wgmma variants only; in the fp32 parity phases (7, 10,
-13) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
+13, 21) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
 (``LAUNCHES_BY_VARIANT``).  Every phase prints one
 JSON line.  Any failed check exits non-zero.  TF32 is off for cuDNN and
 for matmuls throughout.  Before the kernel table comes the paper path's
@@ -408,6 +433,7 @@ def main() -> int:
         phase_granite(torch, fa, sw, gpu)
     phase_granite_fp32_parity(torch, fa, sw)
     phase_bf16_parity(torch, fa, ssd, ml, sw)
+    mm_rows = phase_multimodal(torch, fa, sw, gpu)
     _zero(fa, ssd, ml, sw)
     paper_rows = phase_paper_zoo(torch, gpu) + phase_paper_trunk(torch, gpu)
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
@@ -421,7 +447,8 @@ def main() -> int:
     print(json.dumps({"paper_path": paper_rows}), flush=True)
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
                                   mlstm_row, *sw_rows,
-                                  granite_flash_row, *train_rows]}),
+                                  granite_flash_row, *train_rows,
+                                  *mm_rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -541,16 +568,31 @@ def phase_kernels(torch, fa, gpu):
     """The flash kernel against its twin in each variant, then its times at
     the llama3.2-3b (D = 128), zamba2-7b (D = 112) and granite-moe-1b-a400m
     (D = 64) layer shapes: one kernel-table row for each."""
+    results = _flash_twin_checks(
+        torch, fa, FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE,
+                                               ZAMBA_SHAPE, GRANITE_SHAPE])
+    emit({"phase": "kernels", "ok": True, "kernel": "flash_attention_fwd",
+          "checked": len(results),
+          "worst": {vr: max(r["max_abs_err"] for r in results
+                            if r["variant"] == vr) for vr in fa.VARIANTS},
+          "results": results})
+    return (_flash_times(torch, fa, gpu, FULL_SHAPE, "llama3.2-3b"),
+            _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"),
+            _flash_times(torch, fa, gpu, GRANITE_SHAPE,
+                         "granite-moe-1b-a400m"))
+
+
+def _flash_twin_checks(torch, fa, cases, phase="kernels"):
+    """Each case in f32 and bf16, in each variant, against the twin within
+    ``TOL``, the wrapper's choice checked; the results, one per run."""
     results = []
-    cases = FLASH_CASES + D112_CASES + [RAGGED_SHAPE, FULL_SHAPE, ZAMBA_SHAPE,
-                                        GRANITE_SHAPE]
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q, k, v = _inputs(torch, case, dtype, seed=len(results))
             causal, bq, bkv = case[6:]
             chosen = fa.variant_for(q, k, v)
-            check(chosen == flash_variants(name)[0], "kernels",
+            check(chosen == flash_variants(name)[0], phase,
                   f"{case} {name}: the wrapper chose {chosen}")
             want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                 block_q=bq, block_kv=bkv)
@@ -561,19 +603,11 @@ def phase_kernels(torch, fa, gpu):
                 results.append({"case": list(case[:7]), "dtype": name,
                                 "variant": variant, "max_abs_err": err,
                                 "ok": ok})
-                check(ok, "kernels",
+                check(ok, phase,
                       f"{case} {name} {variant}: max_abs_err {err}")
                 del got
             del q, k, v, want
-    emit({"phase": "kernels", "ok": True, "kernel": "flash_attention_fwd",
-          "checked": len(results),
-          "worst": {vr: max(r["max_abs_err"] for r in results
-                            if r["variant"] == vr) for vr in fa.VARIANTS},
-          "results": results})
-    return (_flash_times(torch, fa, gpu, FULL_SHAPE, "llama3.2-3b"),
-            _flash_times(torch, fa, gpu, ZAMBA_SHAPE, "zamba2-7b"),
-            _flash_times(torch, fa, gpu, GRANITE_SHAPE,
-                         "granite-moe-1b-a400m"))
+    return results
 
 
 def _flash_times(torch, fa, gpu, shape, arch):
@@ -592,7 +626,7 @@ def _flash_times(torch, fa, gpu, shape, arch):
     groups = q.shape[1] // k.shape[1]
     kk = k.repeat_interleave(groups, dim=1)
     vv = v.repeat_interleave(groups, dim=1)
-    lib_out = F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+    lib_out = F.scaled_dot_product_attention(q, kk, vv, is_causal=causal)
     _, lib_err = _compare(out, lib_out, **TOL["bfloat16"])
 
     def new():
@@ -602,7 +636,7 @@ def _flash_times(torch, fa, gpu, shape, arch):
         return fa._launch(q, k, v, causal, "simt")
 
     def library():
-        return F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+        return F.scaled_dot_product_attention(q, kk, vv, is_causal=causal)
 
     ms, prev_ms, library_ms = _in_turns(
         torch, [(new, 10), (prev, 3), (library, 10)])
@@ -915,27 +949,8 @@ def phase_swiglu_kernels(torch, sw, gpu):
     """The fused SwiGLU kernel against its twin in f32 and bf16, in each
     variant, then its times at each path's shape in bf16 (what the prefill
     steps run): one kernel-table row for each; then the decode shapes."""
-    results = []
-    for case in SWIGLU_CASES + list(SWIGLU_PATHS.values()) + SWIGLU_EXTRA:
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[-1]
-            ins = _swiglu_inputs(torch, case, dtype, seed=len(results))
-            variants = swiglu_variants(case, name)
-            chosen = sw.variant_for(*ins)
-            check(chosen == variants[0], "swiglu_kernels",
-                  f"{case} {name}: the wrapper chose {chosen}")
-            want = sw.fused_swiglu_plain(*ins)
-            for variant in variants:
-                got = sw._launch(*ins, variant)
-                torch.cuda.synchronize()
-                ok, err = _compare(got, want, **TOL[name])
-                check(ok and bool(got.isfinite().all()), "swiglu_kernels",
-                      f"{case} {name} {variant}: max_abs_err {err}")
-                results.append({"case": list(case), "dtype": name,
-                                "variant": variant, "max_abs_err": err,
-                                "ok": ok})
-                del got
-            del ins, want
+    results = _swiglu_twin_checks(
+        torch, sw, SWIGLU_CASES + list(SWIGLU_PATHS.values()) + SWIGLU_EXTRA)
     emit({"phase": "kernels", "ok": True, "kernel": "fused_swiglu",
           "checked": len(results),
           "worst": {vr: max(r["max_abs_err"] for r in results
@@ -947,6 +962,33 @@ def phase_swiglu_kernels(torch, sw, gpu):
         _swiglu_times(torch, sw, gpu, case, path)
     torch.cuda.empty_cache()
     return rows
+
+
+def _swiglu_twin_checks(torch, sw, cases, phase="swiglu_kernels"):
+    """Each case in f32 and bf16, in each variant, against the twin within
+    ``TOL``, the wrapper's choice checked; the results, one per run."""
+    results = []
+    for case in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            ins = _swiglu_inputs(torch, case, dtype, seed=len(results))
+            variants = swiglu_variants(case, name)
+            chosen = sw.variant_for(*ins)
+            check(chosen == variants[0], phase,
+                  f"{case} {name}: the wrapper chose {chosen}")
+            want = sw.fused_swiglu_plain(*ins)
+            for variant in variants:
+                got = sw._launch(*ins, variant)
+                torch.cuda.synchronize()
+                ok, err = _compare(got, want, **TOL[name])
+                check(ok and bool(got.isfinite().all()), phase,
+                      f"{case} {name} {variant}: max_abs_err {err}")
+                results.append({"case": list(case), "dtype": name,
+                                "variant": variant, "max_abs_err": err,
+                                "ok": ok})
+                del got
+            del ins, want
+    return results
 
 
 def _swiglu_times(torch, sw, gpu, case, path):
@@ -3833,6 +3875,365 @@ def _xlstm_witness(torch, fa, ssd, ml, sw, run, errs_of, scans, branches,
             "pinned_max_grad_rel": max(pinned.values()),
             "pinned_max_witness": max(witness.values())}
     return pinned, witness, plain_launches, seen
+
+
+# ---------------------------------------------------------------------------
+# 21. multimodal: llama-3.2-vision-11b and whisper-tiny served
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, WHISPER_ARCH = "llama-3.2-vision-11b", "whisper-tiny"
+# parameters of the reference's full trees (its abstract_params)
+VLM_PARAMS, WHISPER_PARAMS = 10_110_734_344, 61_153_540
+VLM_BATCH, VLM_SEQ = 2, 4096
+WHISPER_BATCH, WHISPER_SEQ = 8, 448
+# every cross block's gate: at the reference's init (0) tanh(xgate) = 0
+# and the cross path would add nothing, so a wrong one would pass
+XGATE = 0.5
+VLM_FP32_DEPTH = 10          # two super-blocks of 4 self + 1 cross block
+MM_GENERATE = (4, 128, 16)   # requests, prompt tokens, new tokens
+# the flash calls of the two prefill steps (b, hq, hkv, sq, skv, d,
+# causal, block_q, block_kv), and their SwiGLU calls (e, m, k, f)
+VLM_SELF_SHAPE = (2, 32, 8, 4096, 4096, 128, True, 512, 1024)
+VLM_CROSS_SHAPE = (2, 32, 8, 4096, 1600, 128, False, 512, 1024)
+WHISPER_ENC_SHAPE = (8, 6, 6, 1500, 1500, 64, False, 512, 1024)
+MM_FLASH = {"llama-3.2-vision-11b self-attention": VLM_SELF_SHAPE,
+            "llama-3.2-vision-11b cross-attention": VLM_CROSS_SHAPE,
+            "whisper-tiny encoder": WHISPER_ENC_SHAPE}
+MM_SWIGLU = {"llama-3.2-vision-11b MLP": (1, 8192, 4096, 14336),
+             "whisper-tiny encoder MLP": (1, 12000, 384, 1536),
+             "whisper-tiny decoder MLP": (1, 3584, 384, 1536)}
+
+
+@contextlib.contextmanager
+def _launch_calls(m, key):
+    """Record ``key(*args)`` of every launch of kernel module ``m`` in the
+    body (its wrapper calls the module's ``_launch``), the variant last."""
+    calls = []
+    launch = m._launch
+
+    def recorded(*args):
+        calls.append(key(*args))
+        return launch(*args)
+
+    m._launch = recorded
+    try:
+        yield calls
+    finally:
+        m._launch = launch
+
+
+def _flash_key(q, k, v, causal, variant):
+    """(b, hq, hkv, sq, skv, d, causal, variant) of a (B, H, S, D) call."""
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], bool(causal), variant)
+
+
+def _swiglu_key(x, wg, wu, variant):
+    """(e, m, k, f, variant) of a dense call."""
+    return (1, x.numel() // x.shape[-1], x.shape[-1], wg.shape[-1], variant)
+
+
+def _mm_model(arch, **over):
+    """(cfg, model, params): ``arch`` on the card, weights from seed 0,
+    every cross block's xgate set to ``XGATE``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas", **over)
+    model = build_model(cfg)
+    params = model.init(0)
+    cross = params.cross_blocks if cfg.family == "vlm" else params.dec_blocks
+    for p in cross:
+        p.xgate.data.fill_(XGATE)
+    return cfg, model, params
+
+
+def _mm_extra(torch, cfg, b, g, dtype):
+    """The stubbed frontend's embeddings: ``(key, (B, T, d) tensor)``."""
+    if cfg.family == "vlm":
+        key, t = "image_embeds", cfg.image_tokens
+    else:
+        key, t = "enc_frames", cfg.encoder_seq
+    return key, torch.randn((b, t, cfg.d_model), generator=g,
+                            device="cuda").to(dtype)
+
+
+def phase_multimodal(torch, fa, sw, gpu):
+    """21. (d) the kernels against their twins at the multimodal shapes and
+    their times; (a) llama-3.2-vision-11b's prefill step at full width and
+    depth; (e) its generate; (b) its fp32 parity at depth 10; (c)
+    whisper-tiny's prefill and fp32 parity at full depth, (e) its generate.
+    Returns the six kernel-table rows, launches from (a) and (c)."""
+    t_start = time.perf_counter()
+    flash_results = _flash_twin_checks(torch, fa, list(MM_FLASH.values()),
+                                       phase="multimodal_kernels")
+    sw_results = _swiglu_twin_checks(torch, sw, list(MM_SWIGLU.values()),
+                                     phase="multimodal_kernels")
+    emit({"phase": "multimodal_kernels", "ok": True,
+          "checked": len(flash_results) + len(sw_results),
+          "results": flash_results + sw_results})
+    rows = {}
+    for path, shape in MM_FLASH.items():
+        rows[path] = _flash_times(torch, fa, gpu, shape,
+                                  path.split(" ")[0])
+        rows[path]["path"] = f"{path}, prefill step"
+    for path, case in MM_SWIGLU.items():
+        rows[path] = _swiglu_times(torch, sw, gpu, case, path)
+    torch.cuda.empty_cache()
+
+    flash_calls, sw_calls = _vlm_prefill(torch, fa, sw, gpu)
+    calls = _whisper_prefill(torch, fa, sw, gpu)
+    flash_calls += calls[0]
+    sw_calls += calls[1]
+    for path, shape in MM_FLASH.items():
+        rows[path]["launches"] = sum(
+            1 for c in flash_calls if c[:7] == tuple(shape[:7]))
+    for path, case in MM_SWIGLU.items():
+        rows[path]["launches"] = sum(
+            1 for c in sw_calls if c[:4] == tuple(case))
+    wall = time.perf_counter() - t_start
+    emit({"phase": "multimodal", "ok": True, "wall_s": wall,
+          "launches": {p: r["launches"] for p, r in rows.items()}})
+    return list(rows.values())
+
+
+def _counted_prefill(torch, fa, sw, phase, step, params, batch):
+    """One prefill step with the counts at 0 just before and read just
+    after; returns (logits, seconds, flash calls, SwiGLU calls)."""
+    _zero(fa, sw)
+    with _launch_calls(fa, _flash_key) as flash_calls, \
+            _launch_calls(sw, _swiglu_key) as sw_calls:
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    check(fa.LAUNCHES == len(flash_calls) and sw.LAUNCHES == len(sw_calls),
+          phase, "a launch escaped the recorder")
+    return logits, seconds, flash_calls, sw_calls
+
+
+def _expect_calls(phase, calls, expected):
+    """``calls`` (keys ending in the variant) equal ``expected``, a
+    {key: count} with every key's variant wgmma."""
+    got = {}
+    for c in calls:
+        got[c] = got.get(c, 0) + 1
+    check(got == expected, phase, f"launches {got}, expected {expected}")
+
+
+def _timed_steps(torch, step, params, batch, first_s, n=2):
+    times = [first_s]
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _moved(torch, step, params, batch, key, other, logits):
+    """max|logits' - logits| / max|logits| when ``batch[key]`` is
+    replaced by ``other``."""
+    moved = step(params, {**batch, key: other})
+    rel = ((moved - logits).abs().max() / logits.abs().max()).item()
+    del moved
+    return rel
+
+
+def _vlm_prefill(torch, fa, sw, gpu):
+    """(a), (e) and (b) for llama-3.2-vision-11b; returns the prefill's
+    flash and SwiGLU calls."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.multimodal import vlm_layout
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.train.step import make_prefill_step
+
+    cfg, model, params = _mm_model(VLM_ARCH)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == VLM_PARAMS, "vlm_prefill",
+          f"{n_params} parameters, the reference's tree has {VLM_PARAMS}")
+    n_super, per = vlm_layout(cfg)
+    b, s = VLM_BATCH, VLM_SEQ
+    g = torch.Generator("cuda").manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    key, img = _mm_extra(torch, cfg, b, g, torch.bfloat16)
+    batch = {"tokens": tokens, key: img}
+    step = make_prefill_step(model)
+    step(params, batch)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, first_s, flash_calls, sw_calls = _counted_prefill(
+        torch, fa, sw, "vlm_prefill", step, params, batch)
+    _expect_calls("vlm_prefill", flash_calls, {
+        VLM_SELF_SHAPE[:7] + ("wgmma",): n_super * (per + 1),
+        VLM_CROSS_SHAPE[:7] + ("wgmma",): n_super})
+    _expect_calls("vlm_prefill", sw_calls, {
+        MM_SWIGLU["llama-3.2-vision-11b MLP"] + ("wgmma",): cfg.n_layers})
+    check(logits.shape == (b, s, padded_vocab(cfg))
+          and bool(logits.isfinite().all()),
+          "vlm_prefill", f"logits {tuple(logits.shape)} not finite")
+    times = _timed_steps(torch, step, params, batch, first_s)
+    step_s = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = _moved(torch, step, params, batch, key,
+                   _mm_extra(torch, cfg, b, g, torch.bfloat16)[1], logits)
+    check(moved > 1e-3, "vlm_prefill",
+          f"a second image moved the logits by {moved} only")
+    arg_kernel = logits[..., :cfg.vocab].argmax(-1)
+    del logits
+    naive = build_model(dataclasses.replace(cfg, attention_impl="naive"))
+    with torch.no_grad():
+        logits_plain = naive.forward(params, batch)
+    agree = (logits_plain[..., :cfg.vocab].argmax(-1) == arg_kernel) \
+        .float().mean().item()
+    del logits_plain, arg_kernel
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm_prefill", "ok": True, "gpu": gpu, "arch": cfg.name,
+          "params": n_params, "batch": b, "seq": s,
+          "image_tokens": cfg.image_tokens, "dtype": cfg.dtype,
+          "xgate": XGATE, "flash_launches": len(flash_calls),
+          "swiglu_launches": len(sw_calls),
+          "cross_launches": sum(1 for c in flash_calls if c[3] != c[4]),
+          "step_s": step_s, "step_times_s": times,
+          "tokens_per_s": b * s / step_s, "peak_gb": peak_gb,
+          "image_moves_logits_rel": moved,
+          "bf16_argmax_agreement_vs_plain": agree})
+    _mm_generate(torch, fa, sw, gpu, cfg, model, params, "vlm_generate")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) fp32 at full width and depth 10: kernel path against naive
+    cfg32, model32, params32 = _mm_model(VLM_ARCH, dtype="float32",
+                                         n_layers=VLM_FP32_DEPTH)
+    n_super32 = vlm_layout(cfg32)[0]
+    batch32 = {"tokens": tokens,
+               key: _mm_extra(torch, cfg32, b, g, torch.float32)[1]}
+    pos = [0, 511, s - 1]
+    _zero(fa, sw)
+    with torch.no_grad():
+        a = model32.forward(params32, batch32)[:, pos].float()
+    check(_only(fa, "simt", cfg32.n_layers + n_super32)
+          and _only(sw, "simt", cfg32.n_layers), "vlm_fp32_parity",
+          f"launches {fa.LAUNCHES_BY_VARIANT} {sw.LAUNCHES_BY_VARIANT}, "
+          "expected all simt")
+    with torch.no_grad():
+        ref = build_model(dataclasses.replace(cfg32, attention_impl="naive")) \
+            .forward(params32, batch32)[:, pos].float()
+    rel = ((a - ref).abs().max() / ref.abs().max()).item()
+    del params32, a, ref
+    torch.cuda.empty_cache()
+    ok = rel <= LOGITS_REL_TOL
+    emit({"phase": "vlm_fp32_parity", "ok": ok, "layers": cfg32.n_layers,
+          "batch": b, "seq": s, "positions": pos,
+          "flash_launches": dict(fa.LAUNCHES_BY_VARIANT),
+          "max_rel_err": rel, "tol": LOGITS_REL_TOL})
+    check(ok, "vlm_fp32_parity", f"max_rel_err {rel}")
+    return flash_calls, sw_calls
+
+
+def _whisper_prefill(torch, fa, sw, gpu):
+    """(c) and (e) for whisper-tiny; returns the prefill's flash and
+    SwiGLU calls."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.train.step import make_prefill_step
+
+    cfg, model, params = _mm_model(WHISPER_ARCH)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == WHISPER_PARAMS, "whisper_prefill",
+          f"{n_params} parameters, the reference's tree has "
+          f"{WHISPER_PARAMS}")
+    b, s = WHISPER_BATCH, WHISPER_SEQ
+    g = torch.Generator("cuda").manual_seed(29)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    key, frames = _mm_extra(torch, cfg, b, g, torch.bfloat16)
+    batch = {"tokens": tokens, key: frames}
+    step = make_prefill_step(model)
+    step(params, batch)                          # warm-up
+    torch.cuda.synchronize()
+    logits, first_s, flash_calls, sw_calls = _counted_prefill(
+        torch, fa, sw, "whisper_prefill", step, params, batch)
+    _expect_calls("whisper_prefill", flash_calls, {
+        WHISPER_ENC_SHAPE[:7] + ("wgmma",): cfg.encoder_layers})
+    _expect_calls("whisper_prefill", sw_calls, {
+        MM_SWIGLU["whisper-tiny encoder MLP"] + ("wgmma",):
+            cfg.encoder_layers,
+        MM_SWIGLU["whisper-tiny decoder MLP"] + ("wgmma",): cfg.n_layers})
+    pv = padded_vocab(cfg)
+    check(logits.shape == (b, s, pv) and bool(logits.isfinite().all()),
+          "whisper_prefill", f"logits {tuple(logits.shape)} not finite")
+    times = _timed_steps(torch, step, params, batch, first_s)
+    moved = _moved(torch, step, params, batch, key,
+                   _mm_extra(torch, cfg, b, g, torch.bfloat16)[1], logits)
+    check(moved > 1e-3, "whisper_prefill",
+          f"other frames moved the logits by {moved} only")
+    del logits
+    step_s = statistics.median(times)
+    emit({"phase": "whisper_prefill", "ok": True, "gpu": gpu,
+          "arch": cfg.name, "params": n_params, "batch": b, "seq": s,
+          "frames": cfg.encoder_seq, "dtype": cfg.dtype, "xgate": XGATE,
+          "flash_launches": len(flash_calls),
+          "swiglu_launches": len(sw_calls), "step_s": step_s,
+          "step_times_s": times, "tokens_per_s": b * s / step_s,
+          "frames_move_logits_rel": moved})
+    _mm_generate(torch, fa, sw, gpu, cfg, model, params, "whisper_generate")
+
+    # fp32 at full width and depth: kernel path against naive
+    cfg32, model32, params32 = _mm_model(WHISPER_ARCH, dtype="float32")
+    batch32 = {"tokens": tokens,
+               key: _mm_extra(torch, cfg32, b, g, torch.float32)[1]}
+    _zero(fa, sw)
+    with torch.no_grad():
+        a = model32.forward(params32, batch32)
+    check(_only(fa, "simt", cfg32.encoder_layers)
+          and _only(sw, "simt", cfg32.encoder_layers + cfg32.n_layers),
+          "whisper_fp32_parity",
+          f"launches {fa.LAUNCHES_BY_VARIANT} {sw.LAUNCHES_BY_VARIANT}, "
+          "expected all simt")
+    with torch.no_grad():
+        ref = build_model(dataclasses.replace(cfg32, attention_impl="naive")) \
+            .forward(params32, batch32)
+    rel = ((a - ref).abs().max() / ref.abs().max()).item()
+    ok = rel <= LOGITS_REL_TOL and bool(a.isfinite().all())
+    emit({"phase": "whisper_fp32_parity", "ok": ok,
+          "layers": [cfg32.encoder_layers, cfg32.n_layers], "batch": b,
+          "seq": s, "max_rel_err": rel, "tol": LOGITS_REL_TOL})
+    check(ok, "whisper_fp32_parity", f"max_rel_err {rel}")
+    del params, params32, a, ref
+    torch.cuda.empty_cache()
+    return flash_calls, sw_calls
+
+
+def _mm_generate(torch, fa, sw, gpu, cfg, model, params, phase):
+    """(e) ``MM_GENERATE`` through the server's ``generate``: the state
+    filled token by token, then greedy decode; one SwiGLU launch per
+    decoder layer per decode step, no flash launch."""
+    from repro_torch.launch.serve import generate
+
+    n_req, plen, gen_tokens = MM_GENERATE
+    g = torch.Generator("cuda").manual_seed(31)
+    prompts = torch.randint(0, cfg.vocab, (n_req, plen), generator=g,
+                            device="cuda")
+    generate(model, params, prompts[:, :4], 2)            # warm-up
+    _zero(fa, sw)
+    out = generate(model, params, prompts, gen_tokens)
+    toks = out.tokens
+    steps = plen + gen_tokens
+    check(out.mode == "sequential", phase, f"mode {out.mode}")
+    check(fa.LAUNCHES == 0 and _only(sw, "wgmma", cfg.n_layers * steps),
+          phase, f"flash {fa.LAUNCHES}, SwiGLU {sw.LAUNCHES_BY_VARIANT}: "
+          f"expected 0 and {cfg.n_layers} x {steps} wgmma")
+    check(toks.shape == (n_req, gen_tokens)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          phase, f"tokens {tuple(toks.shape)} out of range")
+    emit({"phase": phase, "ok": True, "gpu": gpu, "requests": n_req,
+          "prompt": plen, "gen_tokens": gen_tokens, "mode": out.mode,
+          "prefill_ms": out.prefill_s * 1e3,
+          "prefill_tokens_per_s": n_req * plen / out.prefill_s,
+          "decode_ms": out.decode_s * 1e3,
+          "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
+          "swiglu_launches": sw.LAUNCHES,
+          "first_request_tokens": toks[0].tolist()})
 
 
 if __name__ == "__main__":

@@ -1,22 +1,25 @@
 """Carry the reference's parameters into the port.
 
 ``params_from_numpy`` takes the JAX parameter tree of ``lm_init`` (dense
-or moe),
-``zamba_init`` (hybrid) or ``xlstm_init`` (ssm) with every leaf as a numpy
-array (``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
-``TransformerLM``, ``ZambaLM`` or ``XLSTMLM``:
+or moe), ``zamba_init`` (hybrid), ``xlstm_init`` (ssm), ``encdec_init``
+(audio) or ``vlm_init`` (vlm) with every leaf as a numpy array
+(``jax.tree_util.tree_map(np.asarray, p)``) and builds the port's
+``TransformerLM``, ``ZambaLM``, ``XLSTMLM``, ``EncDecLM`` or ``VisionLM``:
 
-- a stacked leading axis (``blocks``, ``mblocks``, ``tail``, ``sblocks``)
+- a stacked leading axis (``blocks``, ``mblocks``, ``tail``, ``sblocks``,
+  ``enc_blocks``, ``dec_blocks``, ``self_blocks``, ``cross_blocks``)
   becomes one module per layer; the hybrid ``shared`` block is one
-  ``Block``;
+  ``Block``; a cross block also carries ``ln_x``, ``xattn`` and
+  ``xgate``;
 - dense ``kernel``s stay (d_in, d_out), the experts' stacked ``gate`` and
   ``up`` (E, d, f) and ``down`` (E, f, d), and the embedding ``table``
   stays (V, d), cast to the compute dtype (the reference casts at every
   use); the MoE router's kernel stays float32 (the reference casts it to
   fp32);
 - norm ``scale``s, the mamba ``conv``, ``A_log``, ``D`` and ``dt_bias``,
-  the mLSTM gate projection ``w_if`` and ``b_if`` and the sLSTM ``bias``
-  stay float32 (the reference casts ``conv`` and ``bias`` at use).
+  the mLSTM gate projection ``w_if`` and ``b_if``, the sLSTM ``bias`` and
+  the cross-attention gate ``xgate`` stay float32 (the reference casts
+  ``conv`` and ``bias`` at use).
 
 ``graph_params_from_numpy`` takes the reference's layer-graph parameters
 (``repro.core.exec.layers.init_params``: layer name -> parameter name ->
@@ -46,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.models.layers import weight_dtype
+from repro_torch.models.multimodal import EncDecLM, VisionLM, vlm_layout
 from repro_torch.models.transformer import (TransformerLM, XLSTMLM,
                                             xlstm_counts)
 from repro_torch.models.zamba import ZambaLM, layout
@@ -87,8 +91,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
                       *, trainable: bool = False) -> nn.Module:
     """The port's model holding ``tree``'s values; ``trainable=True`` holds
     every leaf in float32 with gradients."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = weight_dtype(cfg, trainable)
 
@@ -109,7 +111,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
                           **{n: t(at(p["moe"][n]), dt) for n in _MLP}}
         else:
             out["mlp"] = {n: t(at(p["mlp"][n]["kernel"]), dt) for n in _MLP}
+        if "xattn" in p:
+            out["ln_x"] = t(at(p["ln_x"]["scale"]))
+            out["xattn"] = {n: t(at(p["xattn"][n]["kernel"]), dt)
+                            for n in _ATTN}
+            out["xgate"] = t(at(p["xgate"]))
         return out
+
+    def stack(root, n):
+        return [block(tree[root], i) for i in range(n)]
 
     def mamba(p, i):
         s = p["ssm"]
@@ -125,9 +135,18 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
     if "unembed" in tree:
         port["unembed"] = t(tree["unembed"]["kernel"], dt)
     if cfg.family in ("dense", "moe"):
-        port["blocks"] = [block(tree["blocks"], i)
-                          for i in range(cfg.n_layers)]
+        port["blocks"] = stack("blocks", cfg.n_layers)
         return TransformerLM(cfg, port, trainable=trainable)
+    if cfg.family == "audio":
+        port["enc_blocks"] = stack("enc_blocks", cfg.encoder_layers)
+        port["enc_ln"] = t(tree["enc_ln"]["scale"])
+        port["dec_blocks"] = stack("dec_blocks", cfg.n_layers)
+        return EncDecLM(cfg, port, trainable=trainable)
+    if cfg.family == "vlm":
+        n_super, per = vlm_layout(cfg)
+        port["self_blocks"] = stack("self_blocks", n_super * per)
+        port["cross_blocks"] = stack("cross_blocks", n_super)
+        return VisionLM(cfg, port, trainable=trainable)
     if cfg.family == "ssm":
         def xblock(p, kind, names, i):
             """Layer ``i`` of a stacked mLSTM or sLSTM tree."""

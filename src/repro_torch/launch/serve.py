@@ -21,10 +21,15 @@ In ``generate``, requests are batched, prefilled with one fused full-
 prompt forward that fills the KV cache (``model.prefill_fn``; the dense
 and MoE families, e.g. ``--arch granite-moe-1b-a400m``), then decoded
 token by token with greedy sampling. A family with no ``prefill_fn`` (the
-hybrid and the xLSTM, whose states are recurrent) fills its state token by
-token through the decode step, as ``--sequential-prefill`` forces for any
-family: ``--arch zamba2-7b`` and ``--arch xlstm-1.3b`` serve so. Weights
-are random from seed 0. It runs on the CUDA card; ``--device cpu`` runs
+hybrid and the xLSTM, whose states are recurrent, and the multimodal
+ones, whose states are cross-attentive) fills its state token by token
+through the decode step, as ``--sequential-prefill`` forces for any
+family: ``--arch zamba2-7b``, ``--arch xlstm-1.3b``, ``--arch
+whisper-tiny`` and ``--arch llama-3.2-vision-11b`` serve so. The
+multimodal decode states' cross-attention keys and values (``xk``/``xv``)
+start as zeros and, as in the reference, ``generate`` writes nothing
+there: the stubbed frontends give it no frames or image. Weights are
+random from seed 0. It runs on the CUDA card; ``--device cpu`` runs
 the plain PyTorch path on the host (both subcommands). ``--test-mesh``
 keeps its reference meaning: the reduced config.
 """

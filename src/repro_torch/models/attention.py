@@ -1,12 +1,14 @@
 """GQA attention: naive, blockwise and flash-kernel backends, plus the
 KV-cache prefill and decode.
 
-Port of ``repro/models/attention.py`` (dense self-attention; the
-cross-attention arguments come with the multimodal slice).  Tensors are
-(B, S, H, hd) as in the reference.  ``attention_forward`` keeps the
-reference's dispatch: naive when ``s <= cfg.block_q``, else the flash
-kernel for ``attention_impl="pallas"`` and blockwise for "blockwise".
-The kernel takes GQA natively, so it gets the un-repeated K/V (same
+Port of ``repro/models/attention.py``.  Tensors are (B, S, H, hd) as in
+the reference.  ``attention_forward`` is self-attention, or
+cross-attention when it is given ``kv_x`` (keys and values projected
+from the encoder's output or the image embeddings, non-causal, no rope),
+and keeps the reference's dispatch: naive when the query length ``s <=
+cfg.block_q`` (whatever the key length), else the flash kernel for
+``attention_impl="pallas"`` and blockwise for "blockwise".  The kernel
+takes GQA and Sq != Skv natively, so it gets the un-repeated K/V (same
 function, less memory).
 
 Under autograd the rotary q and k projections are one Function each
@@ -169,18 +171,31 @@ def _rotary_projection(x, w, positions, theta, heads, dt):
 
 
 def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
-                      positions: torch.Tensor, causal: bool = True
+                      positions: torch.Tensor,
+                      kv_x: Optional[torch.Tensor] = None,
+                      causal: bool = True, use_rope: bool = True
                       ) -> torch.Tensor:
-    """Self-attention sub-layer: proj -> rope -> attend -> out-proj."""
+    """Attention sub-layer: proj -> rope -> attend -> out-proj.
+
+    ``kv_x`` (B, Skv, d) switches to cross-attention: K and V come from
+    it, rope is not applied and the call is non-causal.  ``use_rope=False``
+    drops rope from self-attention too."""
     dt = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _rotary_projection(x, params["wq"], positions, cfg.rope_theta, h,
-                           dt)
-    k = _rotary_projection(x, params["wk"], positions, cfg.rope_theta, kv,
-                           dt)
-    v = layers.dense(params["wv"], x, dt).view(b, s, kv, hd)
+    kv_src = x if kv_x is None else kv_x
+    skv = kv_src.shape[1]
+    if use_rope and kv_x is None:
+        q = _rotary_projection(x, params["wq"], positions, cfg.rope_theta,
+                               h, dt)
+        k = _rotary_projection(x, params["wk"], positions, cfg.rope_theta,
+                               kv, dt)
+    else:
+        q = layers.dense(params["wq"], x, dt).view(b, s, h, hd)
+        k = layers.dense(params["wk"], kv_src, dt).view(b, skv, kv, hd)
+    v = layers.dense(params["wv"], kv_src, dt).view(b, skv, kv, hd)
     q = tag("qkv", q)
+    causal = causal and kv_x is None
     impl = cfg.attention_impl
     if impl not in ("naive", "pallas", "blockwise"):
         # "skip" is the reference's cost-probe mode (launch/probe.py)

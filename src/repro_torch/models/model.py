@@ -1,7 +1,8 @@
 """Unified Model API and reduced configs.
 
-Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
-"hybrid" and "ssm" (xLSTM).
+Port of ``repro/models/model.py`` for every ``family``: "dense", "moe",
+"hybrid", "ssm" (xLSTM), "audio" (whisper-style encoder-decoder) and
+"vlm" (llama-vision-style).
 ``Model`` bundles the functions for one config:
 
     model.init(seed, device=None, trainable=False) -> params (an nn.Module)
@@ -11,10 +12,15 @@ Port of ``repro/models/model.py`` for ``family`` "dense", "moe",
     model.decode_fn(params, state, tokens, cache_len) -> (logits, state)
     model.prefill_fn(params, state, tokens)    -> (last_logits, state)
 
-``prefill_fn`` is None for the hybrid and ssm families, whose decode
-state is recurrent: servers fill it token by token through ``decode_fn``.
-Training (``loss_fn``, ``init(..., trainable=True)``: float32 parameters
-with gradients) is ported for all four families.
+``batch`` holds ``tokens`` (B, S), and for "audio" ``enc_frames`` (B,
+T_enc, d), for "vlm" ``image_embeds`` (B, n_img, d): the stubbed
+frontends' embeddings.  ``prefill_fn`` is None for the hybrid and ssm
+families, whose decode state is recurrent, and for the multimodal ones,
+whose decode state is cross-attentive, as in the reference: servers fill
+it token by token through ``decode_fn``.  Training (``loss_fn``,
+``init(..., trainable=True)``: float32 parameters with gradients) is
+ported for the first four families; the multimodal ``loss_fn`` gives the
+loss value (``repro_torch.models.multimodal``).
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).
@@ -31,7 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer, zamba
+from repro_torch.models import multimodal, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +97,35 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_fn=lambda p, s, tok, ln: t.xlstm_decode_step(
                 cfg, p, s, tok, ln),
         )
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: ROADMAP.md queue A names "
-        "the slice of the port that brings it")
+    if cfg.family == "audio":
+        m = multimodal
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init, m.encdec_init, cfg),
+            loss_fn=lambda p, b: m.encdec_loss(cfg, p, b),
+            forward=lambda p, b: m.encdec_forward(cfg, p, b["tokens"],
+                                                  b["enc_frames"]),
+            decode_init=lambda batch, max_seq, device=None:
+                m.encdec_decode_init(cfg, batch, max_seq,
+                                     device=resolve_device(device)),
+            decode_fn=lambda p, s, tok, ln: m.encdec_decode_step(
+                cfg, p, s, tok, ln),
+        )
+    if cfg.family == "vlm":
+        m = multimodal
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init, m.vlm_init, cfg),
+            loss_fn=lambda p, b: m.vlm_loss(cfg, p, b),
+            forward=lambda p, b: m.vlm_forward(cfg, p, b["tokens"],
+                                               b["image_embeds"]),
+            decode_init=lambda batch, max_seq, device=None:
+                m.vlm_decode_init(cfg, batch, max_seq,
+                                  device=resolve_device(device)),
+            decode_fn=lambda p, s, tok, ln: m.vlm_decode_step(
+                cfg, p, s, tok, ln),
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------

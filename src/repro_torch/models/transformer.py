@@ -28,7 +28,7 @@ The KV cache and the xLSTM decode state are updated in place.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,9 +64,11 @@ def _param_dict(tree: Dict[str, torch.Tensor], trainable: bool
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, *,
-               trainable: bool = False) -> Tree:
+               trainable: bool = False, cross: bool = False) -> Tree:
     """An MoE config's block holds ``moe`` (router and experts), any other
-    ``mlp``, as the reference's does."""
+    ``mlp``, as the reference's does; a ``cross`` block also holds its
+    cross-attention: ``ln_x``, ``xattn`` and the float32 gate ``xgate``,
+    0 at init (tanh(0) = 0: the cross path adds nothing until trained)."""
     dt = layers.weight_dtype(cfg, trainable)
     tree = {
         "ln1": layers.rmsnorm_init(cfg.d_model, device=gen.device),
@@ -78,12 +80,18 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, *,
     else:
         tree["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff,
                                          dtype=dt)
+    if cross:
+        tree["ln_x"] = layers.rmsnorm_init(cfg.d_model, device=gen.device)
+        tree["xattn"] = attn.attention_init(gen, cfg, dtype=dt)
+        tree["xgate"] = torch.zeros((), dtype=torch.float32,
+                                    device=gen.device)
     return tree
 
 
 class Block(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then + swiglu(norm(.)) or, for an
-    MoE config, + moe(norm(.))."""
+    MoE config, + moe(norm(.)).  A cross block (its tree holds ``xattn``)
+    adds tanh(xgate) x cross-attention between the two."""
 
     def __init__(self, cfg: ModelConfig, tree: Tree, *,
                  trainable: bool = False):
@@ -96,6 +104,11 @@ class Block(nn.Module):
             self.moe = _param_dict(tree["moe"], trainable)
         else:
             self.mlp = _param_dict(tree["mlp"], trainable)
+        self.cross = "xattn" in tree
+        if self.cross:
+            self.ln_x = _param(tree["ln_x"], trainable)
+            self.xattn = _param_dict(tree["xattn"], trainable)
+            self.xgate = _param(tree["xgate"], trainable)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
@@ -103,21 +116,38 @@ class Block(nn.Module):
 
 
 def block_forward_aux(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                      positions: torch.Tensor
+                      positions: torch.Tensor,
+                      kv_x: Optional[torch.Tensor] = None, *,
+                      causal: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``block_forward``: (y, the MoE auxiliary loss, 0 for
-    a dense block), with its tags."""
+    a dense block), with its tags.  A cross block attends to ``kv_x``
+    after its self-attention."""
     h = x + attn.attention_forward(
         cfg, p.attn, layers.rmsnorm(p.ln1, x, cfg.norm_eps),
-        positions=positions)
+        positions=positions, causal=causal)
+    if p.cross:
+        h = gated_cross_residual(
+            p, h, attn.attention_forward(
+                cfg, p.xattn, layers.rmsnorm(p.ln_x, h, cfg.norm_eps),
+                positions=positions, kv_x=kv_x, causal=False,
+                use_rope=False))
     return _mlp_residual(cfg, p, h)
 
 
+def gated_cross_residual(p: Block, h: torch.Tensor, xa: torch.Tensor
+                         ) -> torch.Tensor:
+    """h + tanh(xgate) x xa, the gate cast to the activations' dtype."""
+    return h + torch.tanh(p.xgate).to(xa.dtype) * xa
+
+
 def block_forward(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor,
+                  kv_x: Optional[torch.Tensor] = None, *,
+                  causal: bool = True) -> torch.Tensor:
     """The block's output; an MoE block's auxiliary loss is dropped: it
     matters only to training."""
-    return block_forward_aux(cfg, p, x, positions)[0]
+    return block_forward_aux(cfg, p, x, positions, kv_x, causal=causal)[0]
 
 
 def _mlp_residual(cfg: ModelConfig, p: Block, h: torch.Tensor
@@ -158,18 +188,22 @@ class _Checkpointed:
 
 
 def scan_blocks(cfg: ModelConfig, blocks, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, *,
+                kv_x: Optional[torch.Tensor] = None, causal: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_scan_blocks``: every block in turn, the auxiliary
     losses summed; each block checkpointed under the plan's policy when
-    ``cfg.remat`` and autograd are on."""
+    ``cfg.remat`` and autograd are on.  ``kv_x`` goes to the blocks'
+    cross-attention and ``causal`` to their self-attention."""
     run = _Checkpointed(cfg)
     policy = memory_plan(cfg, x.shape[0] * x.shape[1]).offload_policy \
         if run.on else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    extra = () if kv_x is None else (kv_x,)
     for blk in blocks:
-        x, a = run(policy, functools.partial(block_forward_aux, cfg, blk),
-                   x, positions)
+        x, a = run(policy, functools.partial(block_forward_aux, cfg, blk,
+                                             causal=causal),
+                   x, positions, *extra)
         aux = aux + a
     return x, aux
 

@@ -78,7 +78,10 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
 
 
 def make_prefill_step(model: Model) -> Callable:
-    """(params, {"tokens": (B, S)}) -> logits (B, S, padded_vocab)."""
+    """(params, batch) -> logits (B, S, padded_vocab): ``model.forward``
+    without autograd.  ``batch`` holds ``tokens`` (B, S) and, for the
+    multimodal families, ``enc_frames`` (audio) or ``image_embeds`` (vlm),
+    (B, T, d)."""
 
     @torch.no_grad()
     def prefill(params, batch):

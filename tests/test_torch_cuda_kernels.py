@@ -40,6 +40,19 @@ FLASH_CASES = [
     (2, 32, 32, 1000, 1000, 112, True),     # its shared block, ragged
 ]
 
+# cross-attention: Sq != Skv, non-causal, Skv ragged against the wgmma
+# kernel's key tiles (128 keys at D 64, 96 at D 128): whisper-tiny's
+# decoder against its 1500 frames, then llama-3.2-vision-11b's GQA cross
+# call against 1600 image tokens, both with fewer heads, fewer keys than
+# one tile, and more keys than queries
+CROSS_CASES = [
+    (2, 6, 6, 448, 1500, 64, False),
+    (1, 4, 2, 300, 200, 64, False),
+    (2, 8, 2, 1000, 1600, 128, False),
+    (1, 8, 2, 100, 72, 128, False),
+    (1, 4, 4, 130, 300, 128, False),
+]
+
 SSD_CASES = [
     # (b, s, h, p, n, chunk): tests/test_kernels.py, then zamba2-7b's mamba
     # layer at a ragged S and at B = 2, S = 4096
@@ -112,6 +125,20 @@ def _flash_inputs(case, dt, device, seed=4):
 def test_flash_kernel_matches_plain_twin(cuda_device, case, variant, dtype):
     """Each variant against the twin; the wrapper picks wgmma for bf16,
     simt for fp32, and counts the launch under it."""
+    _flash_against_twin(cuda_device, case, variant, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES)
+@pytest.mark.parametrize("variant, dtype", FLASH_VARIANTS)
+def test_flash_cross_attention_matches_plain_twin(cuda_device, case,
+                                                  variant, dtype):
+    """The multimodal cross-attention shapes (Sq != Skv, non-causal) in
+    each variant against the twin."""
+    _flash_against_twin(cuda_device, case, variant, dtype)
+
+
+def _flash_against_twin(cuda_device, case, variant, dtype):
     causal = case[6]
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(case, dt, cuda_device)
@@ -408,6 +435,48 @@ def test_bf16_llama_prefill_runs_only_the_wgmma_kernels(cuda_device):
     assert bool(logits.isfinite().all())
     assert K.LAUNCHES_BY_VARIANT == {"wgmma": 2, "simt": 0}
     assert W.LAUNCHES_BY_VARIANT == {"wgmma": 2, "mma_sync": 0, "simt": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vision_lm_on_the_card_matches_the_cpu_path(cuda_device, dtype):
+    """A reduced llama-3.2-vision-11b (2 super-blocks of one self and one
+    cross block, head dim 64, GQA 4/2, every xgate 0.5) at S = 300 against
+    200 image tokens: the card's forward (4 self- and 2 cross-attention
+    flash launches, 4 SwiGLU, all wgmma in bf16, all simt in fp32)
+    against the same weights on the CPU, normwise within 1e-4 (fp32) or
+    the CPU bf16 model tests' 2e-2."""
+    import copy
+
+    from repro_torch.models.model import build_model, reduce_config
+
+    cfg = reduce_config(ARCHS["llama-3.2-vision-11b"], d_model=256,
+                        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                        image_tokens=200, attention_impl="pallas",
+                        block_q=64, block_kv=64, dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(0)
+    for p in params.cross_blocks:
+        p.xgate.data.fill_(0.5)
+    rng = np.random.default_rng(15)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 300))),
+             "image_embeds": torch.from_numpy(rng.standard_normal(
+                 (2, 200, cfg.d_model), np.float32))}
+    variant = "wgmma" if dtype == "bfloat16" else "simt"
+    K.reset_launches()
+    W.reset_launches()
+    with torch.no_grad():
+        got = model.forward(params, {k: v.to(cuda_device)
+                                     for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == K.LAUNCHES_BY_VARIANT[variant] == 6
+    assert W.LAUNCHES == W.LAUNCHES_BY_VARIANT[variant] == 4
+    with torch.no_grad():
+        want = model.forward(copy.deepcopy(params).to("cpu"), batch).float()
+    got = got.float().cpu()
+    assert bool(got.isfinite().all())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= (2e-2 if dtype == "bfloat16" else 1e-4), rel
 
 
 @pytest.mark.cuda

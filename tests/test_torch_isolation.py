@@ -108,6 +108,18 @@ def test_moe_entry_points_refuse_to_run_without_a_card(no_card):
         params_from_numpy({}, reduce_config(ARCHS["granite-moe-1b-a400m"]))
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_multimodal_entry_points_refuse_to_run_without_a_card(no_card,
+                                                              arch):
+    model = build_model(ARCHS[arch])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.decode_init(2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({}, reduce_config(ARCHS[arch]))
+
+
 def test_serve_cli_refuses_to_run_without_a_card(no_card, monkeypatch):
     monkeypatch.setattr("sys.argv", ["serve", "generate", "--arch",
                                      "llama3.2-3b", "--test-mesh"])

@@ -215,6 +215,12 @@ def test_generate_cli_on_cpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_name_their_slice(arch):
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: ROADMAP.md queue A names"):
-        build_model(reduce_config(ARCHS[arch]))
+    """The multimodal families are served by their own slice
+    (``models/multimodal.py``): a Model with no batched prefill, whose
+    server fills the cross-attentive state token by token."""
+    cfg = reduce_config(ARCHS[arch])
+    model = build_model(cfg)
+    assert model.cfg is cfg and model.prefill_fn is None
+    assert all(callable(f) for f in (model.init, model.forward,
+                                     model.loss_fn, model.decode_init,
+                                     model.decode_fn))

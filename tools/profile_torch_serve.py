@@ -2,7 +2,9 @@
 """Device-time breakdown of the PyTorch port's serving path on one CUDA card.
 
     python3 tools/profile_torch_serve.py [--arch zamba2-7b | xlstm-1.3b |
-                                          granite-moe-1b-a400m]
+                                          granite-moe-1b-a400m |
+                                          llama-3.2-vision-11b |
+                                          whisper-tiny]
     python3 tools/profile_torch_serve.py --paper-trunk
     python3 tools/profile_torch_serve.py --train
 
@@ -14,7 +16,11 @@ llama3.2-3b; random weights from seed 0, bf16, ``attention_impl="pallas"``):
   SSD kernel in every mamba layer; for xlstm-1.3b the mLSTM kernel in every
   mLSTM block, beside the sLSTM blocks' loop over time; for
   granite-moe-1b-a400m the SwiGLU kernel once a layer for all 32 experts,
-  between the one-hot dispatch and combine products);
+  between the one-hot dispatch and combine products; for
+  llama-3.2-vision-11b with 1600 image embeddings from the seed, its 8
+  cross-attention calls through the flash kernel too; whisper-tiny at B =
+  8, S = 448 against 1500 frame embeddings, where only the encoder's
+  attention reaches the flash kernel);
 - four greedy decode steps after a prefill of 4 prompts (the ``generate``
   server's loop): 512 tokens each in one batched prefill, or, for a family
   without one, 128 tokens filled token by token.
@@ -226,12 +232,18 @@ def main() -> int:
     params = model.init(0)
     g = torch.Generator("cuda").manual_seed(7)
 
-    tokens = torch.randint(0, cfg.vocab, (2, 4096), generator=g,
-                           device="cuda")
+    b, s = (8, 448) if cfg.family == "audio" else (2, 4096)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device="cuda")}
+    if cfg.family in ("audio", "vlm"):          # the stubbed frontends
+        key, t = ("enc_frames", cfg.encoder_seq) if cfg.family == "audio" \
+            else ("image_embeds", cfg.image_tokens)
+        batch[key] = torch.randn((b, t, cfg.d_model), generator=g,
+                                 device="cuda").to(torch.bfloat16)
     prefill = make_prefill_step(model)
-    prefill(params, {"tokens": tokens})                  # warm-up
-    profiled(f"{cfg.name}_prefill_step_b2_s4096",
-             lambda: prefill(params, {"tokens": tokens}))
+    prefill(params, batch)                               # warm-up
+    profiled(f"{cfg.name}_prefill_step_b{b}_s{s}",
+             lambda: prefill(params, batch))
 
     b, plen = 4, 512 if model.prefill_fn is not None else 128
     prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
