@@ -232,11 +232,39 @@ them:
    path, as the reference's) and 8 SwiGLU launches, all wgmma, the
    logits moved by other frames, (e) its generate, and fp32 at full
    depth against the naive path.  The phase prints its wall time.
+22. train_multimodal: the multimodal families trained through ``Trainer``
+   with a producer that adds the stubbed frontends' embeddings (from a
+   seed), fp32 parameters and AdamW state, bf16 compute, the default
+   keep-all plan, every xgate at 0.5 (at 0 no gradient reaches a
+   cross-attention, nor whisper's encoder): (h) llama-3.2-vision-11b at
+   full width, depth 40 -> 10 (two super-blocks, each one checkpoint
+   region; 40 layers' fp32 state is 162 GB), train_4k's 4096 tokens
+   against 1600 image embeddings, batch 256 -> 2, 3 steps of 2
+   micro-batches; (i) whisper-tiny at full width and depth, 4096 decoder
+   tokens against 1500 frames, batch 256 -> 8 in 2 micro-batches of 4.
+   Gates: finite losses, the first within 1.0 of ln(vocab); every flash
+   (self, causal; cross, Sq != Skv; whisper's encoder) and SwiGLU launch
+   counted by shape, exactly, all wgmma; no forward through a twin (the
+   SwiGLU twin runs once in each backward); one region per super-block
+   (vlm) or block (whisper) of each micro-batch, each keeping exactly its
+   reckoned tags and inputs and replayed once; the peak within 80 GB
+   beside the reckoned parts; every cross-attention's and whisper's
+   encoder grads non-zero.  Each reports step s, tokens/s, 6NT against
+   the bf16 peak, the flash backward's host ms (cross calls apart) and,
+   from one more step under ``torch.profiler``, the device's idle share;
+   (j) fp32, every tag recomputed: the vlm at depth 5 (one super-block),
+   S = 1024 against 1600 image tokens, and whisper at full depth, S =
+   1024 against 1500 frames, the kernel path (flash and SwiGLU simt, each
+   launched again in the replays) against the twins in the wrappers'
+   place, the loss and every grad of the whole model normwise within
+   1e-4.  The two kernels are timed at the train steps' eight shapes for
+   their rows, and one cross-attention call's backward alone.
 
 The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
-20 (e), (f)) and generate's SwiGLU launches must
+20 (e), (f), 22 (h), (i)) and generate's SwiGLU launches must
 count under the wgmma variants only; in the fp32 parity phases (7, 10,
-13, 21) flash and SwiGLU count under simt and SSD and mLSTM under wgmma
+13, 21, 22 (j)) flash and SwiGLU count under simt and SSD and mLSTM under
+wgmma
 (``LAUNCHES_BY_VARIANT``).  Every phase prints one
 JSON line.  Any failed check exits non-zero.  TF32 is off for cuDNN and
 for matmuls throughout.  Before the kernel table comes the paper path's
@@ -441,6 +469,7 @@ def main() -> int:
           "the paper's path launched a kernel of the transformer path")
     train_rows = _train_rows(torch, fa, sw, gpu)
     train_rows += _train_recurrent_rows(torch, fa, ssd, ml, sw, gpu)
+    mm_train_rows = _train_multimodal_rows(torch, fa, sw, gpu)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
@@ -448,7 +477,7 @@ def main() -> int:
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
                                   mlstm_row, *sw_rows,
                                   granite_flash_row, *train_rows,
-                                  *mm_rows]}),
+                                  *mm_rows, *mm_train_rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3940,12 +3969,25 @@ def _mm_model(arch, **over):
     from repro_torch.models.model import build_model
 
     cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas", **over)
-    model = build_model(cfg)
-    params = model.init(0)
-    cross = params.cross_blocks if cfg.family == "vlm" else params.dec_blocks
-    for p in cross:
-        p.xgate.data.fill_(XGATE)
-    return cfg, model, params
+    model = _gated(build_model(cfg))
+    return cfg, model, model.init(0)
+
+
+def _gated(model):
+    """``model`` whose ``init`` sets every cross block's xgate to
+    ``XGATE``: at the reference's 0 no gradient reaches a cross-attention,
+    nor whisper's encoder."""
+    init = model.init
+
+    def gated_init(*args, **kw):
+        params = init(*args, **kw)
+        cross = params.cross_blocks if model.cfg.family == "vlm" \
+            else params.dec_blocks
+        for p in cross:
+            p.xgate.data.fill_(XGATE)
+        return params
+
+    return dataclasses.replace(model, init=gated_init)
 
 
 def _mm_extra(torch, cfg, b, g, dtype):
@@ -4012,12 +4054,17 @@ def _counted_prefill(torch, fa, sw, phase, step, params, batch):
     return logits, seconds, flash_calls, sw_calls
 
 
-def _expect_calls(phase, calls, expected):
-    """``calls`` (keys ending in the variant) equal ``expected``, a
-    {key: count} with every key's variant wgmma."""
+def _counts(calls):
     got = {}
     for c in calls:
         got[c] = got.get(c, 0) + 1
+    return got
+
+
+def _expect_calls(phase, calls, expected):
+    """``calls`` (keys ending in the variant) equal ``expected``, a
+    {key: count} with every key's variant wgmma."""
+    got = _counts(calls)
     check(got == expected, phase, f"launches {got}, expected {expected}")
 
 
@@ -4234,6 +4281,463 @@ def _mm_generate(torch, fa, sw, gpu, cfg, model, params, phase):
           "decode_tokens_per_s": n_req * gen_tokens / out.decode_s,
           "swiglu_launches": sw.LAUNCHES,
           "first_request_tokens": toks[0].tolist()})
+
+
+# ---------------------------------------------------------------------------
+# 22. train_multimodal: llama-3.2-vision-11b and whisper-tiny trained
+# ---------------------------------------------------------------------------
+
+# (h) llama-3.2-vision-11b at full width, depth 40 -> 10 (two super-blocks
+# of 4 self + 1 cross block: 3.316 B parameters, 53.1 GB of fp32 params,
+# grads and AdamW moments; all 40 layers need 162 GB), train_4k's 4096
+# tokens against 1600 image embeddings, global batch 256 -> 2 in 2
+# micro-batches; (i) whisper-tiny at full width and depth, 4096 decoder
+# tokens against 1500 frames, batch 256 -> 8 in 2 micro-batches of 4
+MM_TRAIN_SEQ, MM_TRAIN_STEPS, MM_TRAIN_MICRO = 4096, 3, 2
+VLM_TRAIN_DEPTH, VLM_TRAIN_BATCH, WHISPER_TRAIN_BATCH = 10, 2, 8
+# (j) fp32, every tag recomputed: the vlm at depth 5 (one super-block)
+# against 1600 image tokens, whisper at full depth against 1500 frames
+MM_FP32_SEQ, VLM_FP32_TRAIN_DEPTH = 1024, 5
+# the kernels' calls in one micro-batch of (h) and (i): flash (b, hq, hkv,
+# sq, skv, d, causal, block_q, block_kv), SwiGLU (e, m, k, f)
+MM_TRAIN_FLASH = {
+    "llama-3.2-vision-11b self-attention":
+        (1, 32, 8, 4096, 4096, 128, True, 512, 1024),
+    "llama-3.2-vision-11b cross-attention":
+        (1, 32, 8, 4096, 1600, 128, False, 512, 1024),
+    "whisper-tiny encoder": (4, 6, 6, 1500, 1500, 64, False, 512, 1024),
+    "whisper-tiny decoder self-attention":
+        (4, 6, 6, 4096, 4096, 64, True, 512, 1024),
+    "whisper-tiny cross-attention":
+        (4, 6, 6, 4096, 1500, 64, False, 512, 1024)}
+MM_TRAIN_SWIGLU = {"llama-3.2-vision-11b MLP": (1, 4096, 4096, 14336),
+                   "whisper-tiny encoder MLP": (1, 6000, 384, 1536),
+                   "whisper-tiny decoder MLP": (1, 16384, 384, 1536)}
+
+
+def _train_multimodal_rows(torch, fa, sw, gpu):
+    """The train_multimodal phase, then its eight kernel rows: each kernel
+    timed at its train step's shape, with the launches of (h) and (i)."""
+    t_start = time.perf_counter()
+    rows = {}
+    for path, shape in MM_TRAIN_FLASH.items():
+        rows[path] = _flash_times(torch, fa, gpu, shape, path.split(" ")[0])
+        rows[path]["path"] = f"{path}, train step (forward and replays)"
+    for path, case in MM_TRAIN_SWIGLU.items():
+        rows[path] = _swiglu_times(torch, sw, gpu, case, path)
+        rows[path]["path"] = f"{path}, train step (forward and replays)"
+    torch.cuda.empty_cache()
+    _cross_backward_times(torch, gpu)
+    flash_calls, sw_calls = phase_train_multimodal(torch, fa, sw, gpu)
+    for path, shape in MM_TRAIN_FLASH.items():
+        rows[path]["launches"] = sum(
+            1 for c in flash_calls if c[:7] == tuple(shape[:7]))
+    for path, case in MM_TRAIN_SWIGLU.items():
+        rows[path]["launches"] = sum(
+            1 for c in sw_calls if c[:4] == tuple(case))
+    emit({"phase": "train_multimodal", "ok": True,
+          "wall_s": time.perf_counter() - t_start,
+          "launches": {p: r["launches"] for p, r in rows.items()}})
+    return list(rows.values())
+
+
+def _cross_backward_times(torch, gpu):
+    """One cross-attention call's backward alone at each family's train
+    shape, bf16: ``flash_attention_bwd`` (the blockwise recompute, issued
+    op by op), its host time to issue and its time on the card's clock."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    out = {}
+    for path in ("llama-3.2-vision-11b cross-attention",
+                 "whisper-tiny cross-attention"):
+        b, hq, hkv, sq, skv, d, causal, bq, bkv = MM_TRAIN_FLASH[path]
+        g = torch.Generator("cuda").manual_seed(88)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g,
+                               device="cuda").to(torch.bfloat16)
+
+        q, k, v, do = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), \
+            rnd(b, skv, hkv, d), rnd(b, sq, hq, d)
+
+        def bwd():
+            return flash_ops.flash_attention_bwd(q, k, v, do, causal, bq,
+                                                 bkv)
+
+        bwd()
+        torch.cuda.synchronize()
+        host, card = [], []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            bwd()
+            e1.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            e1.synchronize()
+            card.append(e0.elapsed_time(e1))
+        out[path] = {"shape": [b, hq, hkv, sq, skv, d], "host_ms":
+                     statistics.median(host), "card_ms":
+                     statistics.median(card)}
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    emit({"phase": "cross_backward", "ok": True, "gpu": gpu,
+          "calls": out, "note": "flash_attention_bwd alone, bf16, median of "
+                                "3; host_ms is the time to issue it"})
+
+
+def _mm_producer(cfg, seq_len):
+    """``synthetic_lm_producer``'s tokens plus the stubbed frontend's
+    embeddings: (T, d) standard normals from the example's own seed."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import synthetic_lm_producer
+
+    tokens = synthetic_lm_producer(cfg.vocab, seq_len)
+    key, t = (("image_embeds", cfg.image_tokens) if cfg.family == "vlm"
+              else ("enc_frames", cfg.encoder_seq))
+
+    def produce(epoch, index, rng):
+        ex = tokens(epoch, index, rng)
+        g = np.random.default_rng((epoch * 7919 + index) & 0x7FFFFFFF)
+        ex[key] = g.standard_normal((t, cfg.d_model), dtype=np.float32)
+        return ex
+
+    return produce
+
+
+def _mm_region_tags(cfg, b, s):
+    """Per checkpoint region of one micro-batch of ``b`` sequences of
+    ``s`` tokens, bf16: (the bytes of each tag it keeps, its input bytes).
+    A vlm super-block keeps q and the attention output of each of its
+    ``per`` self blocks' attentions and of the cross block's two, and each
+    SwiGLU hidden; its input is x and the image.  whisper: the encoder's
+    blocks, then the decoder's (two attentions each; input x and the
+    encoder's output)."""
+    from repro_torch.models.multimodal import vlm_layout
+
+    def times(tags, attn, mlp):
+        return {"qkv": attn * tags["qkv"], "attn_out": attn * tags["attn_out"],
+                "mlp_hidden": mlp * tags["mlp_hidden"]}
+
+    row = cfg.d_model * 2
+    if cfg.family == "vlm":
+        n_super, per = vlm_layout(cfg)
+        kept = times(_tagged_bytes(cfg, b * s, 2), per + 2, per + 1)
+        return [(kept, (b * s + b * cfg.image_tokens) * row)] * n_super
+    ne, nd = b * cfg.encoder_seq, b * s
+    enc = (_tagged_bytes(cfg, ne, 2), ne * row)
+    dec = (times(_tagged_bytes(cfg, nd, 2), 2, 1), (nd + ne) * row)
+    return [enc] * cfg.encoder_layers + [dec] * cfg.n_layers
+
+
+def _mm_expected_calls(cfg, b, s, runs, again=False):
+    """{(flash or SwiGLU call key, variant): launches} of ``runs``
+    micro-batches of ``b`` x ``s``: each attention and MLP once in the
+    forward, and once more in its region's replay when ``again`` (every
+    tag recomputed)."""
+    from repro_torch.models.multimodal import vlm_layout
+
+    variant = "wgmma" if cfg.dtype == "bfloat16" else "simt"
+    hq, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = runs * (2 if again else 1)
+
+    def fkey(bb, sq, skv, causal):
+        return (bb, hq, kv, sq, skv, hd, causal, variant)
+
+    def skey(m):
+        return (1, m, cfg.d_model, cfg.d_ff, variant)
+
+    if cfg.family == "vlm":
+        n_super, per = vlm_layout(cfg)
+        layers = n_super * (per + 1)
+        flash = {fkey(b, s, s, True): layers * n,
+                 fkey(b, s, cfg.image_tokens, False): n_super * n}
+        return flash, {skey(b * s): layers * n}
+    t = cfg.encoder_seq
+    flash = {fkey(b, t, t, False): cfg.encoder_layers * n,
+             fkey(b, s, s, True): cfg.n_layers * n,
+             fkey(b, s, t, False): cfg.n_layers * n}
+    swiglu = {skey(b * t): cfg.encoder_layers * n,
+              skey(b * s): cfg.n_layers * n}
+    return flash, swiglu
+
+
+def _device_idle_share(torch, fn):
+    """(wall s, device busy s, idle share) of ``fn()`` under
+    ``torch.profiler``: busy is the kernels' device time (copies apart)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Memcpy") \
+                or e.key == "Command Buffer Full":
+            continue
+        busy_us += float(getattr(e, "self_device_time_total", 0.0)
+                         or getattr(e, "self_cuda_time_total", 0.0))
+    return wall, busy_us / 1e6, 1 - busy_us / 1e6 / wall
+
+
+class _HostTimed:
+    """Wraps ``flash_attention_bwd``: the host's time in each call, apart
+    for cross-attention's calls (Sq != Skv) and self-attention's."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, {"self": [], "cross": []}
+
+    def __call__(self, q, k, v, *rest):
+        t0 = time.perf_counter()
+        out = self.fn(q, k, v, *rest)
+        kind = "cross" if q.shape[1] != k.shape[1] else "self"
+        self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def phase_train_multimodal(torch, fa, sw, gpu):
+    """(h) llama-3.2-vision-11b and (i) whisper-tiny trained through
+    ``Trainer``; (j) the kernel path against the plain path in fp32.
+    Returns the flash and SwiGLU call keys of (h) and (i)."""
+    import gc
+
+    torch.cuda.empty_cache()
+    flash_calls, sw_calls = _train_mm_full(torch, fa, sw, gpu,
+                                           "llama-3.2-vision-11b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = _train_mm_full(torch, fa, sw, gpu, "whisper-tiny")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
+        _train_mm_fp32(torch, fa, sw, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return flash_calls + calls[0], sw_calls + calls[1]
+
+
+def _train_mm_full(torch, fa, sw, gpu, arch):
+    """(h) or (i): ``Trainer`` with a multimodal producer at full width,
+    the cuts above, the default keep-all plan, every xgate at ``XGATE``;
+    then one more step profiled for the device's idle share."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import remat
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    vlm = arch == "llama-3.2-vision-11b"
+    part = "h" if vlm else "i"
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas")
+    batch = VLM_TRAIN_BATCH if vlm else WHISPER_TRAIN_BATCH
+    cuts = {"global_batch": [256, batch, "the fp32 state and one "
+                             "micro-batch's activations fill the card"
+                             if vlm else "two micro-batches of 4 keep the "
+                             "logits (4 x 4096 x 51968) near 5 GB"]}
+    if vlm:
+        cfg = dataclasses.replace(cfg, n_layers=VLM_TRAIN_DEPTH)
+        cuts["n_layers"] = [40, VLM_TRAIN_DEPTH, "40 layers' fp32 params, "
+                            "grads and AdamW moments are 162 GB"]
+    b = batch // MM_TRAIN_MICRO
+    s = MM_TRAIN_SEQ
+    runs = MM_TRAIN_STEPS * MM_TRAIN_MICRO
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=s,
+                                global_batch=batch)
+    want_flash, want_sw = _mm_expected_calls(cfg, b, s, runs)
+    tags = _mm_region_tags(cfg, b, s)
+    n_mlp = sum(want_sw.values())
+    twins = {"flash": _Counted(fa.flash_attention_fwd_plain),
+             "swiglu": _Counted(sw.fused_swiglu_plain)}
+    timer = _HostTimed(flash_ops.flash_attention_bwd)
+    saved = (fa.flash_attention_fwd_plain, sw.fused_swiglu_plain,
+             flash_ops.flash_attention_bwd)
+    fa.flash_attention_fwd_plain = twins["flash"]
+    sw.fused_swiglu_plain = twins["swiglu"]
+    flash_ops.flash_attention_bwd = timer
+    try:
+        trainer = Trainer(_gated(build_model(cfg)), make_optimizer("adamw"),
+                          shape, TrainerConfig(steps=MM_TRAIN_STEPS,
+                                               log_every=1),
+                          producer=_mm_producer(cfg, s),
+                          microbatches=MM_TRAIN_MICRO)
+        _zero(fa, sw)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with remat.observe_regions() as stats, \
+                _launch_calls(fa, _flash_key) as flash_calls, \
+                _launch_calls(sw, _swiglu_key) as sw_calls:
+            out = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        twin_calls = {k: t.calls for k, t in twins.items()}
+        bwd_ms = {k: list(v) for k, v in timer.ms.items()}
+    finally:
+        (fa.flash_attention_fwd_plain, sw.fused_swiglu_plain,
+         flash_ops.flash_attention_bwd) = saved
+    check(fa.LAUNCHES == len(flash_calls) and sw.LAUNCHES == len(sw_calls),
+          "train_multimodal", "a launch escaped the recorder")
+    params, opt_state = out["params"], out["opt_state"]
+    named = dict(params.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    reached = {n: float(p.grad.abs().max()) for n, p in named.items()
+               if ".xattn." in n or n.startswith("enc_")}
+    losses = [h["loss"] for h in out["history"]]
+    times = [h["time_s"] for h in out["history"]]
+    step_s = statistics.median(times[1:])
+    tokens = s * batch
+
+    # one more step, profiled: the device's idle share
+    examples = [_mm_producer(cfg, s)(0, 1000 + i, None)
+                for i in range(batch)]
+    dev_batch = {k: torch.from_numpy(np.stack([ex[k] for ex in examples]))
+                 .cuda() for k in examples[0]}
+    prof_wall, busy_s, idle = _device_idle_share(
+        torch, lambda: trainer.step_fn(params, opt_state, dev_batch))
+    del out, params, opt_state, named, trainer, dev_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_micro = len(tags)
+    regions_ok = len(stats) == per_micro * runs and all(
+        st.replays == 1 and st.offloaded == {}
+        and st.kept == tags[i % per_micro][0]
+        and st.input_bytes == tags[i % per_micro][1]
+        for i, st in enumerate(stats))
+    kept_bytes = sum(sum(k.values()) + x for k, x in tags)
+    reckoned = {"params": 4 * n_params, "grads": 4 * n_params,
+                "adamw_moments": 8 * n_params,
+                "kept_tags_and_region_inputs": kept_bytes,
+                "loss_logits_bf16_and_fp32":
+                    b * s * padded_vocab(cfg) * (2 + 4)}
+    ok = (all(math.isfinite(v) for v in losses)
+          and abs(losses[0] - math.log(cfg.vocab)) <= 1.0
+          and _counts(flash_calls) == want_flash
+          and _counts(sw_calls) == want_sw
+          and twin_calls == {"flash": 0, "swiglu": n_mlp}
+          and regions_ok and peak <= 80e9
+          and bool(reached) and min(reached.values()) > 0)
+    cross_ms = bwd_ms["cross"]
+    emit({"phase": "train_multimodal", "part": part, "arch": arch, "ok": ok,
+          "gpu": gpu, "entry": "Trainer(build_model(cfg), adamw, shape, "
+                               "TrainerConfig(steps), producer=..., "
+                               "microbatches=2).run()",
+          "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+          "seq": s, "batch": batch, "microbatches": MM_TRAIN_MICRO,
+          "steps": MM_TRAIN_STEPS, "xgate": XGATE, "cuts": cuts,
+          "params": n_params, "losses": losses,
+          "ln_vocab": math.log(cfg.vocab), "step_s": times,
+          "step_s_median_after_1": step_s, "tokens_per_s": tokens / step_s,
+          "mfu_6nt": 6 * n_params * tokens / step_s
+          / PEAK_FLOPS["bfloat16"],
+          "wall_s": wall, "peak_bytes": peak, "reckoned_bytes": reckoned,
+          "regions": len(stats), "regions_per_microbatch": per_micro,
+          "region_kept_bytes": [t[0] for t in tags[:2]] + (
+              [tags[-1][0]] if not vlm else []),
+          "measured_kept_bytes": [st.kept for st in stats[:2]]
+          + ([stats[per_micro - 1].kept] if stats and not vlm else []),
+          "regions_ok": regions_ok,
+          "flash_bwd_host_ms_per_step": {
+              k: sum(v) / MM_TRAIN_STEPS for k, v in bwd_ms.items()},
+          "flash_bwd_cross_host_ms_per_call":
+              statistics.median(cross_ms) if cross_ms else None,
+          "flash_bwd_host_share_of_wall":
+              sum(map(sum, bwd_ms.values())) / 1e3 / sum(times),
+          "profiled_step_s": prof_wall, "profiled_device_busy_s": busy_s,
+          "device_idle_share": idle,
+          "kernel_launches": {"flash": len(flash_calls),
+                              "swiglu": len(sw_calls)},
+          "launches_by_call": {str(k): v for k, v in
+                               _counts(flash_calls + sw_calls).items()},
+          "expected_by_call": {str(k): v for k, v in
+                               {**want_flash, **want_sw}.items()},
+          "twin_calls": twin_calls,
+          "min_cross_or_encoder_grad_max": min(reached.values())
+          if reached else None})
+    check(ok, "train_multimodal", f"({part}) {arch}: losses {losses}, "
+          f"flash {_counts(flash_calls)} vs {want_flash}, SwiGLU "
+          f"{_counts(sw_calls)} vs {want_sw}, twins {twin_calls}, regions "
+          f"{regions_ok} ({len(stats)}), peak {peak}")
+    return flash_calls, sw_calls
+
+
+def _train_mm_fp32(torch, fa, sw, arch):
+    """(j) fp32 at full width, every tag recomputed (each kernel launched
+    again in its region's replay), every xgate at ``XGATE``: the kernel
+    path (flash and SwiGLU simt) against the plain path (the twins in the
+    wrappers' place) on the card, the loss within 1e-4 and every grad of
+    the whole model normwise within 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.model import build_model
+
+    vlm = arch == "llama-3.2-vision-11b"
+    over = dict(n_layers=VLM_FP32_TRAIN_DEPTH) if vlm else {}
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas",
+                              dtype="float32", remat_budget_bytes=0, **over)
+    model = _gated(build_model(cfg))
+    params = model.init(0, trainable=True)
+    b = 1 if vlm else 2
+    g = torch.Generator("cuda").manual_seed(47)
+    toks = torch.randint(0, cfg.vocab, (b, MM_FP32_SEQ + 1), generator=g,
+                         device="cuda")
+    key, extra = _mm_extra(torch, cfg, b, g, torch.float32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], key: extra}
+    want_flash, want_sw = _mm_expected_calls(cfg, b, MM_FP32_SEQ, 1,
+                                             again=True)
+    flash_fwd, swiglu_fwd = flash_ops.flash_attention_fwd, sw._forward
+    try:
+        _zero(fa, sw)
+        with _launch_calls(fa, _flash_key) as flash_calls, \
+                _launch_calls(sw, _swiglu_key) as sw_calls:
+            loss, grads = _loss_and_grads(torch, model, params, batch)
+        flash_ops.flash_attention_fwd = fa.flash_attention_fwd_plain
+        sw._forward = sw.fused_swiglu_plain
+        _zero(fa, sw)
+        want_loss, want = _loss_and_grads(torch, model, params, batch)
+        plain_launches = fa.LAUNCHES + sw.LAUNCHES
+    finally:
+        flash_ops.flash_attention_fwd, sw._forward = flash_fwd, swiglu_fwd
+    errs = {n: ((grads[n] - w).abs().max() / w.abs().max()).item()
+            for n, w in want.items() if bool(w.any())}
+    zero = [n for n, w in want.items() if not bool(w.any())]
+    loss_rel = abs((loss - want_loss) / want_loss).item()
+    worst = max(errs, key=errs.get)
+    ok = (loss_rel <= GRAD_REL_TOL and errs[worst] <= GRAD_REL_TOL
+          and not zero and _counts(flash_calls) == want_flash
+          and _counts(sw_calls) == want_sw and plain_launches == 0)
+    emit({"phase": "train_multimodal", "part": "j", "arch": arch, "ok": ok,
+          "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+          "batch": b, "seq": MM_FP32_SEQ,
+          "kv_tokens": cfg.image_tokens if vlm else cfg.encoder_seq,
+          "xgate": XGATE, "loss": loss.item(), "loss_rel": loss_rel,
+          "max_grad_rel": errs[worst], "worst_grad": worst,
+          "zero_grads": zero, "tol": GRAD_REL_TOL,
+          "kernel_launches": {"flash": len(flash_calls),
+                              "swiglu": len(sw_calls)},
+          "launches_by_call": {str(k): v for k, v in
+                               _counts(flash_calls + sw_calls).items()},
+          "plain_path_launches": plain_launches})
+    check(ok, "train_multimodal", f"(j) {arch}: loss rel {loss_rel}, grad "
+          f"{worst} {errs[worst]}, zero grads {zero}, launches "
+          f"{_counts(flash_calls)} vs {want_flash}")
+    del params, grads, want
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

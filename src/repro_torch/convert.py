@@ -173,9 +173,11 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
 
 def lm_leaf_paths(cfg: ModelConfig, tree):
     """(port parameter name, reference tree path, stacked layer or None)
-    of every leaf of an LM of any ported family: a stacked leaf (``blocks``,
-    ``mblocks``, ``tail``, ``sblocks``) once per layer, zamba's one
-    ``shared`` block once."""
+    of every leaf of an LM of any ported family, in the reference's tree
+    order: a stacked leaf (``blocks``, ``mblocks``, ``tail``, ``sblocks``,
+    ``enc_blocks``, ``dec_blocks``, ``self_blocks``, ``cross_blocks``)
+    once per layer, zamba's one ``shared`` block once.  A family without a
+    branch here raises: its tree would be walked as another's."""
     yield "embed", ("embed", "table"), None
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
@@ -187,7 +189,22 @@ def lm_leaf_paths(cfg: ModelConfig, tree):
         yield from _block_paths(cfg, "shared", "shared", None)
         for i in range(tail):
             yield from _mamba_paths(f"tail.{i}", "tail", i)
-    else:
+    elif cfg.family == "audio":
+        for i in range(cfg.encoder_layers):
+            yield from _block_paths(cfg, f"enc_blocks.{i}", "enc_blocks", i)
+        yield "enc_ln", ("enc_ln", "scale"), None
+        for i in range(cfg.n_layers):
+            yield from _block_paths(cfg, f"dec_blocks.{i}", "dec_blocks", i,
+                                    cross=True)
+    elif cfg.family == "vlm":
+        n_super, per = vlm_layout(cfg)
+        for r in range(n_super * per):
+            yield from _block_paths(cfg, f"self_blocks.{r}", "self_blocks",
+                                    r)
+        for i in range(n_super):
+            yield from _block_paths(cfg, f"cross_blocks.{i}",
+                                    "cross_blocks", i, cross=True)
+    elif cfg.family == "ssm":
         n_m, n_s = xlstm_counts(cfg)
         for root, kind, names, n in (("mblocks", "mlstm", _MLSTM, n_m),
                                      ("sblocks", "slstm", _SLSTM, n_s)):
@@ -200,14 +217,18 @@ def lm_leaf_paths(cfg: ModelConfig, tree):
                 for m in f32:
                     yield f"{b}.{kind}.{m}", (root, kind, m), i
                 yield f"{b}.{kind}.norm", (root, kind, "norm", "scale"), i
+    else:
+        raise ValueError(f"no leaf paths for family {cfg.family!r}")
     yield "ln_f", ("ln_f", "scale"), None
     if "unembed" in tree:
         yield "unembed", ("unembed", "kernel"), None
 
 
-def _block_paths(cfg: ModelConfig, b: str, root: str, i):
+def _block_paths(cfg: ModelConfig, b: str, root: str, i, *,
+                 cross: bool = False):
     """The leaves of one decoder block: layer ``i`` of the stacked
-    ``root``, or the one block ``root`` when ``i`` is None."""
+    ``root``, or the one block ``root`` when ``i`` is None; a ``cross``
+    block adds ``ln_x``, ``xattn`` and the scalar ``xgate``."""
     yield f"{b}.ln1", (root, "ln1", "scale"), i
     for n in _ATTN:
         yield f"{b}.attn.{n}", (root, "attn", n, "kernel"), i
@@ -219,6 +240,11 @@ def _block_paths(cfg: ModelConfig, b: str, root: str, i):
     else:
         for n in _MLP:
             yield f"{b}.mlp.{n}", (root, "mlp", n, "kernel"), i
+    if cross:
+        yield f"{b}.ln_x", (root, "ln_x", "scale"), i
+        for n in _ATTN:
+            yield f"{b}.xattn.{n}", (root, "xattn", n, "kernel"), i
+        yield f"{b}.xgate", (root, "xgate"), i
 
 
 def _mamba_paths(b: str, root: str, i: int):
@@ -238,7 +264,9 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
     fp32 and bf16 moments are sliced per layer.  An int8 moment is one
     quantised leaf over all layers of a stacked parameter; its blocks are
     split between the layers, which is exact when a layer's element count
-    is a whole number of blocks and raises otherwise."""
+    is a whole number of blocks, and for a stacked scalar (a cross block's
+    ``xgate``: each layer's value one element of a block the layers share,
+    carried with that block's scale); otherwise it raises."""
     dev = resolve_device(device)
     mu = state["mu"]
 
@@ -252,14 +280,7 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
         if isinstance(a, dict):                        # int8 {"q", "scale"}
             q, scale = np.asarray(a["q"]), np.asarray(a["scale"])
             if i is not None:
-                if n_layer % QBLOCK:
-                    raise ValueError(
-                        f"a layer of {n_layer} elements is not a whole "
-                        f"number of {QBLOCK}-element blocks: the int8 "
-                        "state does not split between the layers")
-                rows = n_layer // QBLOCK
-                q, scale = q[i * rows:(i + 1) * rows], \
-                    scale[i * rows:(i + 1) * rows]
+                q, scale = _int8_layer(q, scale, i, n_layer)
             return {"q": torch.from_numpy(np.array(q)).to(dev),
                     "scale": torch.from_numpy(
                         np.array(scale, np.float32)).to(dev)}
@@ -280,6 +301,22 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
     return {"mu": out, "count": count}
 
 
+def _int8_layer(q, scale, i: int, n_layer: int):
+    """Layer ``i``'s (q, scale) blocks, in the port's layout, of a stacked
+    leaf's int8 blocks ``q`` (nb, QBLOCK) and ``scale`` (nb, 1)."""
+    if n_layer % QBLOCK == 0:
+        rows = n_layer // QBLOCK
+        return q[i * rows:(i + 1) * rows], scale[i * rows:(i + 1) * rows]
+    if n_layer != 1:
+        raise ValueError(
+            f"a layer of {n_layer} elements is not a whole number of "
+            f"{QBLOCK}-element blocks: the int8 state does not split "
+            "between the layers")
+    one = np.zeros((1, QBLOCK), q.dtype)
+    one[0, 0] = q.reshape(-1)[i]
+    return one, scale[i // QBLOCK][None]
+
+
 def _param_shape(cfg: ModelConfig, path):
     """One layer's shape of the stacked parameter at ``path``."""
     d, hd = cfg.d_model, cfg.head_dim
@@ -287,10 +324,12 @@ def _param_shape(cfg: ModelConfig, path):
         return (d,)
     if path[1] in ("ssm", "mlstm", "slstm"):
         return _mixer_shapes(cfg, path[1])[path[2]]
+    if path[1] == "xgate":                 # a cross block's scalar gate
+        return ()
     name = path[-2] if path[-1] in ("kernel", "scale") else path[-1]
-    if path[1] in ("ln1", "ln2"):
+    if path[1] in ("ln1", "ln2", "ln_x"):
         return (d,)
-    if path[1] == "attn":
+    if path[1] in ("attn", "xattn"):
         heads = cfg.n_heads if name in ("wq", "wo") else cfg.n_kv_heads
         return (heads * hd, d) if name == "wo" else (d, heads * hd)
     if path[1] == "moe":

@@ -9,13 +9,19 @@ Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
 ``synthetic_lm_producer``, each block checkpointed as the reference's
 ``jax.checkpoint`` calls do (a transformer block under the memory plan's
 policy; a mamba, mLSTM or sLSTM block with nothing saved).  Every ported
-family trains: ``--arch llama3.2-3b``, ``granite-moe-1b-a400m``,
+LM family trains here: ``--arch llama3.2-3b``, ``granite-moe-1b-a400m``,
 ``zamba2-7b`` (its SSD scans through the SSD kernel, its shared block
 through flash and SwiGLU) or ``xlstm-1.3b`` (its mLSTM scans through the
-mLSTM kernel).  Weights are random from seed 0.  It runs on the card;
-``--device cpu`` runs the plain PyTorch path on the host.  Attention goes
-through the flash kernel (``attention_impl="pallas"``; the config's own
-default is the blockwise formulation).
+mLSTM kernel).  The multimodal families (``whisper-tiny``,
+``llama-3.2-vision-11b``) train too, but their batches carry the stubbed
+frontends' ``enc_frames`` or ``image_embeds``, which
+``synthetic_lm_producer`` does not make (nor does the reference ship a
+producer that does): this launcher refuses them, and a caller trains them
+through ``Trainer(..., producer=...)``.  Weights are random from seed
+0.  It runs on the card; ``--device cpu`` runs the plain PyTorch path on
+the host.  Attention goes through the flash kernel
+(``attention_impl="pallas"``; the config's own default is the blockwise
+formulation).
 
 ``--test-mesh`` keeps its reference meaning: the reduced config at
 sequence 64, batch 8.  The pod layer is not ported (ROADMAP item 11):
@@ -27,6 +33,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Dict, Optional, Sequence
+
+
+# the batch key each multimodal family needs beside tokens and targets
+_FRONTEND_INPUTS = {"audio": "enc_frames (B, encoder_seq, d_model)",
+                    "vlm": "image_embeds (B, image_tokens, d_model)"}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,6 +80,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = ARCHS[args.arch]
+    if cfg.family in _FRONTEND_INPUTS:
+        raise SystemExit(
+            f"{args.arch} trains on batches that also hold "
+            f"{_FRONTEND_INPUTS[cfg.family]}, the stubbed frontend's "
+            "embeddings, which the synthetic token producer does not make: "
+            "train it through repro_torch.train.trainer.Trainer(..., "
+            "producer=...) with a producer that adds them")
     shape = SHAPES[args.shape]
     if shape.kind != "train":
         raise SystemExit("use repro_torch.launch.serve for serving shapes")

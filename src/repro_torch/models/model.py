@@ -17,10 +17,10 @@ T_enc, d), for "vlm" ``image_embeds`` (B, n_img, d): the stubbed
 frontends' embeddings.  ``prefill_fn`` is None for the hybrid and ssm
 families, whose decode state is recurrent, and for the multimodal ones,
 whose decode state is cross-attentive, as in the reference: servers fill
-it token by token through ``decode_fn``.  Training (``loss_fn``,
-``init(..., trainable=True)``: float32 parameters with gradients) is
-ported for the first four families; the multimodal ``loss_fn`` gives the
-loss value (``repro_torch.models.multimodal``).
+it token by token through ``decode_fn``.  Every family trains
+(``loss_fn``, ``init(..., trainable=True)``: float32 parameters with
+gradients); a multimodal batch also carries its frontend's embeddings
+(``repro_torch.models.multimodal``).
 
 ``init`` and ``decode_init`` run on the CUDA card unless ``device`` says
 otherwise, and raise without one (see ``repro_torch.device``).

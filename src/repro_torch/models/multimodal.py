@@ -30,14 +30,20 @@ a frontend) writes them into the state.  The self-attention caches are
 written in place.  Neither family has a batched prefill: servers fill the
 state token by token through the decode step.
 
-The loss functions give the reference's loss value.  Training these
-families (the VLM's super-block checkpoint regions, the encoder's under
-the memory plan) is not ported yet: under autograd every activation is
-held.
+The loss functions are the reference's, and both families train (fp32
+parameters with ``init(..., trainable=True)``).  Under autograd with
+``cfg.remat`` every checkpoint region runs under the memory plan's policy
+(``transformer.memory_plan(cfg, B * S)``, the reference's
+``_remat_policy``): each encoder and decoder block of the encoder-decoder
+(``scan_blocks``; the decoder's regions take the encoder's output as an
+input, so its gradient sums over them), and each VLM super-block as one
+region, as the reference's ``jax.checkpoint(super_body)``.  Serving (no
+autograd) runs the blocks plainly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -46,10 +52,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
-from repro_torch.models.transformer import (Block, Tree, _mlp_residual,
-                                            _param, block_forward,
-                                            block_init, gated_cross_residual,
-                                            lm_logits, padded_vocab,
+from repro_torch.models.transformer import (Block, Tree, _Checkpointed,
+                                            _mlp_residual, _param,
+                                            block_forward, block_init,
+                                            gated_cross_residual, lm_logits,
+                                            memory_plan, padded_vocab,
                                             scan_blocks, softmax_xent)
 
 
@@ -260,18 +267,36 @@ class VisionLM(nn.Module):
 def vlm_forward(cfg: ModelConfig, params: VisionLM, tokens: torch.Tensor,
                 image_embeds: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S), image_embeds: (B, n_img, d) -> logits (B, S,
-    padded_vocab)."""
+    padded_vocab).  Under autograd with ``cfg.remat`` each super-block is
+    one checkpoint region under the memory plan's policy, as the
+    reference's ``jax.checkpoint(super_body)``."""
     b, s = tokens.shape
     n_super, per = vlm_layout(cfg)
     dt = layers.dtype_of(cfg.dtype)
     x = layers.embed(params.embed, tokens, dt)
     positions = _positions(b, s, tokens.device)
     img = image_embeds.to(dt)
+    run = _Checkpointed(cfg)
+    policy = memory_plan(cfg, b * s).offload_policy if run.on else None
     for i in range(n_super):
-        for p in params.self_blocks[i * per:(i + 1) * per]:
-            x = block_forward(cfg, p, x, positions)
-        x = block_forward(cfg, params.cross_blocks[i], x, positions, img)
+        body = functools.partial(
+            _super_block, cfg, params.self_blocks[i * per:(i + 1) * per],
+            params.cross_blocks[i])
+        x = run(policy, body, x, positions, img)
     return lm_logits(cfg, params, x)
+
+
+def _super_block(cfg: ModelConfig, self_blocks, cross: Block,
+                 x: torch.Tensor, positions: torch.Tensor,
+                 img: torch.Tensor) -> torch.Tensor:
+    """The reference's ``super_body``: ``self_blocks`` in turn, then the
+    cross block attending to ``img``.  Its auxiliary loss, which the
+    reference's ``vlm_loss`` drops (and which is 0 for these dense
+    blocks), is not formed.  It opens no region of its own:
+    ``core/remat.py`` does not nest them."""
+    for p in self_blocks:
+        x = block_forward(cfg, p, x, positions)
+    return block_forward(cfg, cross, x, positions, img)
 
 
 def vlm_loss(cfg: ModelConfig, params: VisionLM, batch) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The training path's kernels on the card: the flash and SwiGLU backwards
-against their plain twins, the SSD and mLSTM scans' Functions against
-autograd through ``ssd_chunked`` and ``mlstm_chunked``, and one train step
-of a reduced LM (dense, MoE, hybrid, xLSTM) with the kernels against the
-same step with the twins in their place.
+against their plain twins (flash also at Sq != Skv, as cross-attention
+calls it), the SSD and mLSTM scans' Functions against autograd through
+``ssd_chunked`` and ``mlstm_chunked``, and one train step of a reduced
+model (dense, MoE, hybrid, xLSTM, and the multimodal families) with the
+kernels against the same step with the twins in their place.
 
 Needs a CUDA card (sm_90a); every case skips without one.  This file
 imports no JAX, so it runs on the card's machine:
@@ -73,6 +74,32 @@ def test_flash_backward_matches_the_twin(cuda_device, dtype, tol, causal):
     assert _rel(out, twin) <= tol
     for g, w in zip(got, want):
         assert g.dtype == dtype and _rel(g, w) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("sq,skv", [(300, 200), (200, 300)])
+def test_cross_flash_backward_matches_the_twin(cuda_device, dtype, tol, sq,
+                                               skv):
+    """Cross-attention (non-causal, Sq != Skv, both ragged against the
+    64-row tiles): dq, dk, dv of the wrapper against autograd through the
+    kernel's plain twin, GQA 3:1, normwise."""
+    q, k, v = _leaves([(2, sq, 6, 64), (2, skv, 2, 64), (2, skv, 2, 64)],
+                      dtype, cuda_device, 4)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
+    before = K.LAUNCHES
+    out = flash_ops.flash_attention(q, k, v, causal=False, block_q=64,
+                                    block_kv=128)
+    assert K.LAUNCHES == before + 1
+    got = torch.autograd.grad(out, (q, k, v), do)
+    twin = K.flash_attention_fwd_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=False, block_q=64, block_kv=128).transpose(1, 2)
+    want = torch.autograd.grad(twin, (q, k, v), do)
+    assert _rel(out, twin) <= tol
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape and _rel(g, w) <= tol
 
 
 @pytest.mark.cuda
@@ -322,3 +349,67 @@ def test_offload_on_the_card_matches_keep_all(cuda_device, arch):
         assert all(s.offloaded and len(s.fences) == len(s.offloaded)
                    for s in stats)
         assert remat.fence_wait_ms(stats) >= 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_multimodal_train_step_kernel_path_matches_plain_path(cuda_device,
+                                                              arch,
+                                                              monkeypatch):
+    """One fp32 AdamW step of a reduced multimodal model (head dim 64, S =
+    256 > block_q, 200 image tokens or encoder frames, every xgate 0.5),
+    every tag recomputed: the kernels (simt) in every self- and
+    cross-attention and MLP, forward and replay, against the twins in the
+    wrappers' place; the loss, grad norm and every gradient normwise
+    within 1e-4, the cross-attentions' and whisper's encoder grads
+    non-zero."""
+    vlm = arch == "llama-3.2-vision-11b"
+    extra = dict(image_tokens=200) if vlm else dict(encoder_seq=200)
+    cfg = reduce_config(ARCHS[arch], d_model=256, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=512, vocab=512,
+                        attention_impl="pallas", block_q=64, block_kv=64,
+                        dtype="float32", remat=True, remat_budget_bytes=0,
+                        **extra)
+    model = build_model(cfg)
+    g = torch.Generator(cuda_device).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (2, 257), generator=g,
+                         device=cuda_device)
+    key, t = ("image_embeds", cfg.image_tokens) if vlm \
+        else ("enc_frames", cfg.encoder_seq)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             key: torch.randn((2, t, cfg.d_model), generator=g,
+                              device=cuda_device)}
+
+    def step():
+        params = model.init(0, device=cuda_device, trainable=True)
+        for p in (params.cross_blocks if vlm else params.dec_blocks):
+            p.xgate.data.fill_(0.5)
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = opt.init(dict(params.named_parameters()))
+        bundle = make_train_step(model, opt, ShapeConfig("t", 256, 2,
+                                                         "train"))
+        params, _, metrics = bundle.fn(params, state, batch)
+        return params, metrics
+
+    K.reset_launches()
+    W.reset_launches()
+    got, got_m = step()
+    if vlm:
+        n_flash = cfg.n_layers + cfg.n_layers // cfg.cross_attn_every
+        n_mlp = cfg.n_layers
+    else:
+        n_flash = cfg.encoder_layers + 2 * cfg.n_layers
+        n_mlp = cfg.encoder_layers + cfg.n_layers
+    assert K.LAUNCHES == K.LAUNCHES_BY_VARIANT["simt"] == 2 * n_flash
+    assert W.LAUNCHES == W.LAUNCHES_BY_VARIANT["simt"] == 2 * n_mlp
+    monkeypatch.setattr(flash_ops, "flash_attention_fwd",
+                        K.flash_attention_fwd_plain)
+    monkeypatch.setattr(W, "_forward", W.fused_swiglu_plain)
+    want, want_m = step()
+    for name in ("loss", "grad_norm"):
+        assert _rel(got_m[name], want_m[name]) <= 1e-4, name
+    want_p = dict(want.named_parameters())
+    for name, p in got.named_parameters():
+        assert _rel(p.grad, want_p[name].grad) <= 1e-4, name
+        if ".xattn." in name or name.startswith("enc_"):
+            assert bool(p.grad.abs().max() > 0), name

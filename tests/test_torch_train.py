@@ -191,19 +191,29 @@ def test_moe_aux_loss_is_carried():
     torch.testing.assert_close(loss, xent + 0.01 * aux, rtol=0, atol=0)
 
 
-def _flash_inputs(dtype, seed=0, hq=4, hkv=2, d=32):
+def _flash_inputs(dtype, seed=0, hq=4, hkv=2, d=32, sq=S, skv=S):
     rng = np.random.default_rng(seed)
-    shapes = [(B, S, hq, d), (B, S, hkv, d), (B, S, hkv, d), (B, S, hq, d)]
+    shapes = [(B, sq, hq, d), (B, skv, hkv, d), (B, skv, hkv, d),
+              (B, sq, hq, d)]
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
-@pytest.mark.parametrize("causal", [True, False])
+# (causal, Sq, Skv): self-attention both ways at S = 48, and
+# cross-attention (non-causal) of 100 queries against 72 keys, ragged
+# against the 32-row blocks; causal attention only at Sq == Skv (the
+# kernel's mask is top-left, the reference's oracle's bottom-right)
+FLASH_GRAD_CASES = {"True": (True, S, S), "False": (False, S, S),
+                    "cross-100x72": (False, 100, 72)}
+
+
+@pytest.mark.parametrize("case", list(FLASH_GRAD_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_grads_match_jax_vjp(dtype, causal):
+def test_flash_grads_match_jax_vjp(dtype, case):
     """dq, dk, dv of the port's flash wrapper (GQA, 2 groups) against
     ``jax.vjp`` of the reference's ``flash_attention`` (the Pallas kernel
     in interpret mode forward, the blockwise recompute backward)."""
-    q, k, v, do = _flash_inputs(dtype)
+    causal, sq, skv = FLASH_GRAD_CASES[case]
+    q, k, v, do = _flash_inputs(dtype, sq=sq, skv=skv)
     jdt = getattr(jnp, dtype)
     fn = lambda q, k, v: jax_flash(q, k, v, causal=causal, block_q=32,
                                    block_kv=32)
@@ -218,6 +228,7 @@ def test_flash_grads_match_jax_vjp(dtype, causal):
     _close(got_out, out, dtype)
     for g, w, name in zip(got, want, "qkv"):
         assert g.dtype == targs[0].dtype, name
+        assert g.shape == w.shape, name
         _close(g, w, dtype)
 
 
