@@ -259,6 +259,34 @@ them:
    place, the loss and every grad of the whole model normwise within
    1e-4.  The two kernels are timed at the train steps' eight shapes for
    their rows, and one cross-attention call's backward alone.
+23. examples (run after 18, the paper's phases): the three examples of
+   ``examples/torch_*.py`` on the card at their default sizes, each with
+   its own assertions (``torch_quickstart``: the reduced LM trained 30
+   steps, checkpointed and resumed to 40, its loss falling, the graph
+   plan, the verifier catching a dropped Prefetch, the async replay,
+   vgg16's optimizer-offload plan, the serving and interleaved two-QoS
+   serving demos; ``torch_personalize_transfer``: Fig. 12's planned
+   peaks and 60 epochs of resnet18_transfer's head on 4 x 5 sketches,
+   the loss falling; ``torch_tts_unroll``: 300 clipped SGD iterations of
+   the E-shared unrolled tacotron2 decoder, the loss below 0.9 of its
+   start).  Gates: the paper's graph path launches no kernel of the
+   transformer path; the quickstart's reduced LM (S = 64, the naive
+   attention path) launches the SwiGLU kernel exactly once a layer per
+   train step's forward and nothing else.  Each example's output goes to
+   ``build/example_logs/<example>.log``.
+24. roofline (last): ``launch/hw.py``'s ``measure()`` (an 8192-cubed bf16
+   GEMM and a 4 GiB device copy) beside the data-sheet peaks, then the
+   cost probe (``launch/probe.py``: one micro-batch at 1 and 2 periods in
+   probe mode, FLOPs from ``FlopCounterMode``, bytes from the eager ops,
+   the kernels' analytic terms from ``launch/costs.py``) and the roofline
+   row (``launch/roofline.py``) of each cell an earlier phase timed:
+   llama3.2-3b's train step (a) and the B = 2, S = 4096 prefill steps of
+   llama3.2-3b, granite-moe-1b-a400m, zamba2-7b and xlstm-1.3b, each
+   row's ``mfu`` from that phase's step time.  Gates: no kernel launched
+   in probe mode, a third probe at 3 periods within 1e-6 of the
+   extrapolation (the train step), one llama3.2-3b forward period's
+   matmul FLOPs within 1% of the count reckoned from the config, every
+   ``mfu`` and ``roofline_fraction`` at most 1.
 
 The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
 20 (e), (f), 22 (h), (i)) and generate's SwiGLU launches must
@@ -294,11 +322,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W
-# (tfloat32: the tensor cores on tf32 operands, the rate of each pass
-# of a 3xTF32 product)
-PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
+# The card's published peaks are ``repro_torch.launch.hw``'s and the
+# kernels' per-launch operations and bytes ``repro_torch.launch.costs``'s;
+# both are imported once ``main`` has found the sources.
 
 FLASH_CASES = [
     # (b, hq, hkv, sq, skv, d, causal, block_q, block_kv), tests/test_kernels.py
@@ -389,6 +415,8 @@ PAIRED_STATS = ("swap_outs", "prefetches", "inplace_prefetches", "dma_bytes",
 # Both sum in fp32 in another order through 28 layers; computing either in
 # bf16 (or TF32) gives errors near 1e-2.
 LOGITS_REL_TOL = 1e-3
+# step seconds measured by the phases, by cell, for the roofline's mfu
+STEP_S = {}
 
 
 def emit(obj) -> None:
@@ -467,9 +495,11 @@ def main() -> int:
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
     check(all(m.LAUNCHES == 0 for m in (fa, ssd, ml, sw)), "paper_path",
           "the paper's path launched a kernel of the transformer path")
+    phase_examples(torch, (fa, ssd, ml, sw), gpu)
     train_rows = _train_rows(torch, fa, sw, gpu)
     train_rows += _train_recurrent_rows(torch, fa, ssd, ml, sw, gpu)
     mm_train_rows = _train_multimodal_rows(torch, fa, sw, gpu)
+    phase_roofline(torch, (fa, ssd, ml, sw), gpu)
 
     emit({"phase": "done", "ok": True,
           "wall_s": time.perf_counter() - t_start})
@@ -564,22 +594,18 @@ def _in_turns(torch, fns):
     return [min(t) for t in times]
 
 
+def _peak_flops(dtype_name):
+    from repro_torch.launch import hw
+    return hw.PEAK_FLOPS[dtype_name]
+
+
 def flash_bound(case, dtype_name):
     """Least time (ms) the card needs for one call: the larger of the
     operations this call's mask keeps over the dtype's peak and the bytes
-    of q, k, v and o over HBM bandwidth."""
-    b, hq, hkv, sq, skv, d, causal = case[:7]
-    if causal:   # top-left: query row i sees keys 0..i
-        pairs = sum(min(i + 1, skv) for i in range(sq))
-    else:
-        pairs = sq * skv
-    flops = 4 * d * b * hq * pairs
-    nbytes = (2 if dtype_name == "bfloat16" else 4) * d * (
-        2 * b * hq * sq + 2 * b * hkv * skv)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes"), flops
+    of q, k, v and o over HBM bandwidth (``costs.flash_launch``)."""
+    from repro_torch.launch import costs, hw
+    flops, nbytes = costs.flash_launch(case, dtype_name)
+    return (*hw.bound_ms(flops, nbytes, dtype_name), flops)
 
 
 # ---------------------------------------------------------------------------
@@ -706,21 +732,10 @@ def ssd_bound(case):
     for this work on this card.  B and C are one group, so C Bᵀ (2n per
     kept pair) is counted once per (batch, chunk); the decay-weighted
     product with X (2p per kept pair) and the state (2 Q n p) once per
-    (batch, chunk, head)."""
-    b, s, h, p, n, chunk = case
-    q = min(chunk, s)
-    nc = -(-s // q)
-    ctas = b * nc * h
-    pairs = q * (q + 1) // 2
-    flops = b * nc * pairs * 2 * n + ctas * (pairs * 2 * p + 2 * q * n * p)
-    floats = (2 * b * nc * q * h * p          # x, y
-              + b * nc * q * h + h            # dt, A_log
-              + 2 * b * nc * q * n            # B, C
-              + ctas * n * p + ctas)          # states, chunk_lf
-    t_ops = flops / PEAK_FLOPS["tfloat32"]
-    t_bytes = 4 * floats / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
+    (batch, chunk, head) (``costs.ssd_launch``)."""
+    from repro_torch.launch import costs, hw
+    flops, nbytes = costs.ssd_launch(case)
+    return (*hw.bound_ms(flops, nbytes, "tfloat32"), flops, nbytes)
 
 
 def _ssd_inputs(torch, case, seed):
@@ -857,21 +872,10 @@ def mlstm_bound(case):
     HBM bandwidth.  The tf32 peak, not the fp32 CUDA-core one, because the
     tensor cores compute the same fp32-accurate products (3xTF32, each
     pass counted at the full rate): it is the least time for this work on
-    this card."""
-    b, s, h, p, chunk = case
-    q = min(chunk, s)
-    nc = -(-s // q)
-    units = b * nc * h
-    pairs = q * (q + 1) // 2
-    flops = units * (2 * pairs * 2 * p + 2 * q * p * p + 2 * q * p)
-    rows = b * nc * q * h
-    floats = (4 * rows * p                    # q, k, v, y_intra
-              + 4 * rows                      # li, lf, n_intra, m_intra
-              + units * (p * p + p + 2))      # states, norms, 2 scalars
-    t_ops = flops / PEAK_FLOPS["tfloat32"]
-    t_bytes = 4 * floats / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes"), flops, 4 * floats
+    this card (``costs.mlstm_launch``)."""
+    from repro_torch.launch import costs, hw
+    flops, nbytes = costs.mlstm_launch(case)
+    return (*hw.bound_ms(flops, nbytes, "tfloat32"), flops, nbytes)
 
 
 def _mlstm_inputs(torch, case, seed):
@@ -936,15 +940,10 @@ def phase_mlstm_kernels(torch, ml, gpu):
 def swiglu_bound(case, dtype_name):
     """Least time (ms) the card needs for one fused SwiGLU call: the larger
     of the two products' 4 E M K F flops over the dtype's peak and the
-    bytes of x, Wg, Wu and h over HBM bandwidth."""
-    e, m, k, f = case
-    flops = 4 * e * m * k * f
-    nbytes = (2 if dtype_name == "bfloat16" else 4) * e * (
-        m * k + 2 * k * f + m * f)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    bytes of x, Wg, Wu and h over HBM bandwidth (``costs.swiglu_launch``)."""
+    from repro_torch.launch import costs, hw
+    flops, nbytes = costs.swiglu_launch(case, dtype_name)
+    return (*hw.bound_ms(flops, nbytes, dtype_name), flops, nbytes)
 
 
 def _swiglu_inputs(torch, case, dtype, seed):
@@ -1109,6 +1108,7 @@ def phase_prefill(torch, fa, sw, gpu):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
+    STEP_S["llama3.2-3b prefill"] = step_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     arg_kernel = logits[..., :cfg.vocab].argmax(-1)
     del logits
@@ -1268,6 +1268,7 @@ def phase_zamba(torch, fa, ssd, sw, gpu):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
+    STEP_S["zamba2-7b prefill"] = step_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del logits
     emit({"phase": "zamba_prefill", "ok": True, "gpu": gpu,
@@ -1403,6 +1404,7 @@ def phase_xlstm(torch, ml, gpu):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
+    STEP_S["xlstm-1.3b prefill"] = step_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "xlstm_prefill", "ok": True, "gpu": gpu,
           "arch": cfg.name, "layers": cfg.n_layers,
@@ -1537,6 +1539,7 @@ def phase_granite(torch, fa, sw, gpu):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
+    STEP_S["granite-moe-1b-a400m prefill"] = step_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "granite_prefill", "ok": True, "gpu": gpu,
           "arch": cfg.name, "layers": cfg.n_layers,
@@ -2956,6 +2959,7 @@ def _train_full(torch, fa, sw, gpu, launch_train, remat, twins):
     torch.cuda.empty_cache()
     expected = _expected_launches(plan, cfg.n_layers, runs)
     step_s = statistics.median(times[1:])
+    STEP_S["llama3.2-3b train"] = step_s
     tokens = TRAIN_SEQ * TRAIN_BATCH
     vocab_bytes = micro_tokens * cfg.vocab * (2 + 4)
     reckoned = {"params": 4 * n_params, "grads": 4 * n_params,
@@ -2980,7 +2984,8 @@ def _train_full(torch, fa, sw, gpu, launch_train, remat, twins):
           "params": n_params, "losses": losses, "ln_vocab": math.log(cfg.vocab),
           "step_s": times, "step_s_median_2_3": step_s,
           "tokens_per_s": tokens / step_s,
-          "mfu_6nt": 6 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+          "mfu_6nt": 6 * n_params * tokens / step_s
+          / _peak_flops("bfloat16"),
           "peak_source": "NVIDIA H100 SXM data sheet, dense bf16, 989 "
                          "TFLOP/s at 700 W",
           "wall_s": wall, "peak_bytes": peak, "reckoned_bytes": reckoned,
@@ -3559,7 +3564,7 @@ def _train_recurrent_full(torch, fa, ssd, ml, sw, gpu, arch):
           "step_s": times, "step_s_median_after_1": step_s,
           "tokens_per_s": seq * REC_BATCH / step_s,
           "mfu_6nt": 6 * n_params * seq * REC_BATCH / step_s
-          / PEAK_FLOPS["bfloat16"],
+          / _peak_flops("bfloat16"),
           "wall_s": wall, "peak_bytes": peak,
           "reckoned_bytes": {"params": 4 * n_params, "grads": 4 * n_params,
                              "adamw_moments": 8 * n_params,
@@ -4644,7 +4649,7 @@ def _train_mm_full(torch, fa, sw, gpu, arch):
           "ln_vocab": math.log(cfg.vocab), "step_s": times,
           "step_s_median_after_1": step_s, "tokens_per_s": tokens / step_s,
           "mfu_6nt": 6 * n_params * tokens / step_s
-          / PEAK_FLOPS["bfloat16"],
+          / _peak_flops("bfloat16"),
           "wall_s": wall, "peak_bytes": peak, "reckoned_bytes": reckoned,
           "regions": len(stats), "regions_per_microbatch": per_micro,
           "region_kept_bytes": [t[0] for t in tags[:2]] + (
@@ -4738,6 +4743,158 @@ def _train_mm_fp32(torch, fa, sw, arch):
           f"{_counts(flash_calls)} vs {want_flash}")
     del params, grads, want
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 23. the paper's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart", "torch_personalize_transfer",
+            "torch_tts_unroll")
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quickstart_swiglu_launches(quickstart):
+    """The SwiGLU launches the quickstart's reduced LM (2 layers) makes:
+    one a layer in each train step's forward, ``resume_steps`` steps in
+    all (``train_steps``, then the rest after the restart from the last
+    checkpoint; the keep-all plan replays nothing, the backward is the
+    twin's).  Its S = 64 takes the naive attention path: no flash."""
+    import inspect
+
+    steps = inspect.signature(quickstart.main).parameters["resume_steps"]
+    return 2 * steps.default
+
+
+def phase_examples(torch, kernels, gpu):
+    """The three examples' ``main`` on the card at their default sizes,
+    each with its own assertions (a falling loss among them); their
+    output is kept in build/example_logs/ and their wall times printed.  The
+    paper's graph path launches no kernel of the transformer path; the
+    quickstart's reduced LM launches only the SwiGLU kernel, as many times
+    as its train steps' forwards."""
+    out_dir = ROOT / "build" / "example_logs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    walls, summary, launches = {}, {}, {}
+    for name in EXAMPLES:
+        log = out_dir / f"{name}.log"
+        _zero(*kernels)
+        t0 = time.perf_counter()
+        example = _example(name)
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            out = example.main()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {m.__name__.split(".")[-2]: m.LAUNCHES
+                          for m in kernels}
+        want = dict.fromkeys(launches[name], 0)
+        if name == "torch_quickstart":
+            want["fused_swiglu"] = _quickstart_swiglu_launches(example)
+        check(launches[name] == want, "examples",
+              f"{name} launched {launches[name]}, expected {want}")
+        if name == "torch_quickstart":
+            summary[name] = {"loss_first": out["train"]["first"],
+                             "loss_final": out["train"]["final"],
+                             "async_overlap": out["async"]
+                             ["achieved_overlap"],
+                             "served": out["serve"]["serve"]["completed"]}
+        else:
+            summary[name] = {"loss_first": out["losses"][0],
+                             "loss_last": out["losses"][-1],
+                             "steps": len(out["losses"])}
+    _zero(*kernels)
+    emit({"phase": "examples", "ok": True, "gpu": gpu, "wall_s": walls,
+          "launches": launches, "results": summary})
+
+
+# ---------------------------------------------------------------------------
+# 24. the roofline of the timed cells
+# ---------------------------------------------------------------------------
+
+# (arch, kind, sequence, batch, micro-batches): the cells whose steps the
+# earlier phases timed (train (a); the prefill phases at B 2, S 4096)
+ROOFLINE_CELLS = [("llama3.2-3b", "train", 4096, 2, 2),
+                  ("llama3.2-3b", "prefill", 4096, 2, 1),
+                  ("granite-moe-1b-a400m", "prefill", 4096, 2, 1),
+                  ("zamba2-7b", "prefill", 4096, 2, 1),
+                  ("xlstm-1.3b", "prefill", 4096, 2, 1)]
+LINEARITY_TOL = 1e-6
+MATMUL_TOL = 0.01
+
+
+def phase_roofline(torch, kernels, gpu):
+    """``hw.measure()`` beside the data sheet, then each timed cell's cost
+    probe (``launch/probe.py``, in probe mode: no kernel may launch) and
+    roofline row, its ``mfu`` from the step time its phase measured.
+    Gates: a third probe at 3 periods within ``LINEARITY_TOL`` of the
+    extrapolation (llama3.2-3b's train step, AdamW and replays included),
+    one llama3.2-3b forward period's matmul FLOPs within ``MATMUL_TOL`` of
+    the count reckoned from the config's shapes, every ``mfu`` and
+    ``roofline_fraction`` at most 1."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hw, probe, roofline
+
+    t_phase = time.perf_counter()
+    rates = hw.measure()
+    emit({"phase": "roofline", "part": "rates", "ok": True, "gpu": gpu,
+          **rates})
+    check(rates["gemm_bf16"]["of_peak"] <= 1 and rates["copy"]["of_peak"]
+          <= 1, "roofline", f"a measured rate above the data sheet {rates}")
+    rows = []
+    for arch, kind, seq, batch, micro in ROOFLINE_CELLS:
+        cfg = ARCHS[arch]
+        shape = ShapeConfig(f"{kind}_{seq // 1024}k", seq, batch, kind)
+        _zero(*kernels)
+        t0 = time.perf_counter()
+        p = probe.run_probe(cfg, shape, microbatches=micro)
+        probe_s = time.perf_counter() - t0
+        launched = {m.__name__.split(".")[-2]: m.LAUNCHES for m in kernels}
+        check(not any(launched.values()), "roofline",
+              f"{arch} {kind}: probe mode launched kernels {launched}")
+        step_s = STEP_S[f"{arch} {kind}"]
+        row = roofline.analyze(arch, shape, p["flops"], p["bytes"],
+                               step_s=step_s, card=hw.peaks())
+        row.update(gpu=gpu, microbatches=micro, probe_s=probe_s,
+                   counted_flops=p["counted_flops"],
+                   counted_bytes=p["counted_bytes"],
+                   kernel_true=p["kernel_true"]["parts"],
+                   update=p.get("update"),
+                   flops_per_period=p["flops_per_period"],
+                   bytes_per_period=p["bytes_per_period"],
+                   peak_bytes=p["peak_bytes"],
+                   param_bytes=p["param_bytes"])
+        if (arch, kind) == ("llama3.2-3b", "train"):
+            miss = probe.check_linearity(cfg, shape, p)
+            row["linearity_miss"] = miss
+            check(max(miss.values()) <= LINEARITY_TOL, "roofline",
+                  f"3-period probe off the extrapolation by {miss}")
+        if (arch, kind) == ("llama3.2-3b", "prefill"):
+            want = probe.forward_period_matmul_flops(cfg, batch * seq)
+            rel = abs(p["flops_per_period"] - want) / want
+            row["period_matmul_flops_reckoned"] = want
+            row["period_matmul_rel_err"] = rel
+            check(rel <= MATMUL_TOL, "roofline",
+                  f"one forward period's matmul FLOPs "
+                  f"{p['flops_per_period']} vs reckoned {want}")
+        check(row["mfu"] <= 1 and row["roofline_fraction"] <= 1, "roofline",
+              f"{arch} {kind}: mfu {row['mfu']} roofline "
+              f"{row['roofline_fraction']}")
+        emit({"phase": "roofline", "part": "cell", "ok": True, **row})
+        rows.append(row)
+        torch.cuda.empty_cache()
+    emit({"phase": "roofline", "ok": True, "gpu": gpu,
+          "wall_s": time.perf_counter() - t_phase,
+          "table": roofline.format_table(rows)})
 
 
 if __name__ == "__main__":

@@ -74,8 +74,8 @@ class CheckpointManager:
                  host_id: int = 0, n_hosts: int = 1):
         if n_hosts != 1 or host_id != 0:
             raise NotImplementedError(
-                "multi-host checkpoints belong to the pod layer, which is "
-                "not ported yet (ROADMAP item 11)")
+                "multi-host checkpoints belong to the pod layer, out of scope "
+                "on one card (ROADMAP item 11)")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
@@ -171,7 +171,7 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restoring onto a mesh (elastic re-shard) belongs to the "
-                "pod layer, which is not ported yet (ROADMAP item 11)")
+                "pod layer, out of scope on one card (ROADMAP item 11)")
         leaves, data_state = self.read(step)
         with torch.no_grad():
             for name, tgt in flatten_with_paths(target_tree):

@@ -1,0 +1,200 @@
+"""Dry run: the cost probe of every (arch x shape) cell on one card.
+
+    python -m repro_torch.launch.dryrun [--arch A] [--shape S] [--force] \
+        [--microbatch N] [--device cpu] [--out DIR]
+
+The single-card counterpart of ``repro/launch/dryrun.py``, which lowers
+and compiles each cell against a TPU pod mesh.  Here each cell runs its
+cost probe (``launch/probe.py``: one micro-batch at one and two periods,
+in probe mode, extrapolated) and writes one JSON record to
+``build/torch_dryrun/<arch>__<shape>__1gpu.json``:
+
+* ``status``: ``ok``; ``skipped`` (``shape_applicable``);
+  ``does_not_fit`` (one period at the smallest micro-batch exceeds the
+  card's memory); ``error`` with its traceback;
+* ``probe``: the extrapolated FLOPs and bytes with their parts;
+* ``microbatch`` (sequences) and ``microbatches``: the cut of the
+  shape's global batch the step is counted at.  Train and prefill take
+  one sequence at a time; a decode step takes the largest power of two
+  whose parameters and decode state fit the card;
+* ``reckoned``: the resident bytes of the full-depth step (parameters,
+  plus grads and AdamW state for train, plus the KV or SSM state at the
+  micro-batch for decode) against the card's memory;
+* ``measured_peak_bytes``: on the card, the probes' ``max_memory_allocated``
+  extrapolated to full depth (None on the CPU);
+* ``timing``: the probe's seconds.
+
+It runs on the card unless given ``--device cpu``; at full size a cell
+needs the card's memory, so the CPU takes reduced configs
+(``launch.train --dry-run --test-mesh --device cpu``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+import traceback
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+from torch.utils._pytree import tree_leaves
+
+from repro_torch.configs import ARCHS, SHAPES, shape_applicable
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import hw
+from repro_torch.launch.probe import run_probe
+
+RESULTS = Path(__file__).resolve().parents[3] / "build" / "torch_dryrun"
+MESH = "1gpu"
+
+
+def _decode_state_bytes(cfg: ModelConfig, batch: int, max_seq: int) -> int:
+    """Bytes of the full-depth decode state at ``batch``, allocated on the
+    meta device (shapes only)."""
+    from repro_torch.models.model import build_model
+    state = build_model(cfg).decode_init(batch, max_seq, device="meta")
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def choose_microbatch(cfg: ModelConfig, shape: ShapeConfig,
+                      capacity: float) -> Optional[int]:
+    """Sequences per micro-batch: 1 for train and prefill; for decode the
+    largest power of two dividing the batch whose serving parameters
+    (``param_count`` in the compute dtype) and decode state fit
+    ``capacity`` bytes, or None if one sequence does not."""
+    if shape.kind != "decode":
+        return 1
+    params = cfg.param_count() * 2
+    b = 1
+    while b * 2 <= shape.global_batch and shape.global_batch % (b * 2) == 0:
+        b *= 2
+    while b >= 1:
+        if params + _decode_state_bytes(cfg, b, shape.seq_len) <= capacity:
+            return b
+        b //= 2
+    return None
+
+
+def reckoned_bytes(probe: Dict, kind: str, capacity: float) -> Dict:
+    """The step's resident bytes at full depth: the parameters as the
+    model holds them, fp32 grads and two fp32 AdamW moments for train,
+    the decode state for decode."""
+    params = probe["param_bytes"]
+    out = {"param_bytes": params, "grad_bytes": 0.0, "optimizer_bytes": 0.0,
+           "state_bytes": 0.0}
+    if kind == "train":
+        out["grad_bytes"] = params
+        out["optimizer_bytes"] = 2 * params
+    if kind == "decode":
+        out["state_bytes"] = probe["state_bytes"] / probe["microbatches"]
+    out["total_bytes"] = sum(out.values())
+    out["capacity_bytes"] = capacity
+    out["fits"] = out["total_bytes"] <= capacity
+    return out
+
+
+def run_cell(arch: str, shape_name: str, out_dir: Path = RESULTS, *,
+             force: bool = False, microbatch: Optional[int] = None,
+             device: DeviceLike = None, cfg: Optional[ModelConfig] = None,
+             shape: Optional[ShapeConfig] = None) -> Dict:
+    """Probe one cell and write its record (or return the one on disk
+    unless ``force``).  ``cfg`` and ``shape`` override the registry's (a
+    reduced config for the CPU)."""
+    out_path = Path(out_dir) / f"{arch}__{shape_name}__{MESH}.json"
+    if out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+    cfg = cfg or ARCHS[arch]
+    shape = shape or SHAPES[shape_name]
+    ok, why = shape_applicable(cfg, shape)
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": MESH,
+                 "kind": shape.kind, "seq_len": shape.seq_len,
+                 "global_batch": shape.global_batch,
+                 "status": "skipped", "skip_reason": why}
+    if ok:
+        dev = resolve_device(device)
+        on_card = dev.type == "cuda"
+        capacity = hw.peaks().hbm_bytes if on_card else hw.HBM_BYTES
+        rec["device"] = torch.cuda.get_device_name(dev) if on_card \
+            else "cpu"
+        try:
+            rec.update(_probe_cell(cfg, shape, dev, capacity, microbatch))
+        except torch.cuda.OutOfMemoryError as e:
+            rec.update({"status": "does_not_fit", "error": str(e)})
+        except Exception as e:  # noqa: BLE001 (record the failure, go on)
+            rec.update({"status": "error", "error": str(e),
+                        "traceback": traceback.format_exc()[-4000:]})
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(rec, indent=2))
+    return rec
+
+
+def _probe_cell(cfg, shape, dev, capacity, microbatch) -> Dict:
+    from repro_torch.launch.roofline import matmul_params
+    mb = microbatch or choose_microbatch(cfg, shape, capacity)
+    if mb is None:
+        return {"status": "does_not_fit",
+                "error": "one sequence's decode state and the parameters "
+                         "exceed the card's memory"}
+    if shape.global_batch % mb:
+        raise ValueError(f"batch {shape.global_batch} does not split into "
+                         f"micro-batches of {mb}")
+    t0 = time.perf_counter()
+    probe = run_probe(cfg, shape, microbatches=shape.global_batch // mb,
+                      device=dev)
+    seconds = time.perf_counter() - t0
+    return {"status": "ok", "microbatch": mb,
+            "microbatches": shape.global_batch // mb,
+            "param_count": cfg.param_count(),
+            "active_param_count": cfg.active_param_count(),
+            "matmul_param_count": matmul_params(cfg),
+            "probe": probe,
+            "reckoned": reckoned_bytes(probe, shape.kind, capacity),
+            "measured_peak_bytes": probe["peak_bytes"],
+            "timing": {"probe_s": seconds}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=None, help="arch id (default: all)")
+    ap.add_argument("--shape", default=None, help="shape (default: all)")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--microbatch", type=int, default=None,
+                    help="sequences per micro-batch (default: see module)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--out", default=str(RESULTS))
+    args = ap.parse_args(argv)
+    archs = [args.arch] if args.arch else list(ARCHS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    counts: Dict[str, int] = {}
+    for arch in archs:
+        for shape in shapes:
+            rec = run_cell(arch, shape, Path(args.out), force=args.force,
+                           microbatch=args.microbatch, device=args.device)
+            counts[rec["status"]] = counts.get(rec["status"], 0) + 1
+            print(summary_line(rec), flush=True)
+    print(f"\ndone: {counts}")
+    return 1 if counts.get("error") else 0
+
+
+def summary_line(rec: Dict) -> str:
+    tag = f"{rec['arch']:24s} {rec['shape']:12s}"
+    if rec["status"] == "ok":
+        p, r = rec["probe"], rec["reckoned"]
+        peak = rec["measured_peak_bytes"]
+        return (f"OK    {tag} mb={rec['microbatch']}x{rec['microbatches']} "
+                f"flops={p['flops']:.3e} bytes={p['bytes']:.3e} "
+                f"reckoned={r['total_bytes'] / 1e9:.2f}GB "
+                f"peak={'n/a' if peak is None else f'{peak / 1e9:.2f}GB'} "
+                f"probe={rec['timing']['probe_s']:.1f}s")
+    if rec["status"] == "skipped":
+        return f"SKIP  {tag} ({rec['skip_reason'][:60]})"
+    return f"{rec['status'].upper():5s} {tag} {rec.get('error', '')[:120]}"
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.train --arch llama3.2-3b --shape train_4k \
         --steps 3 --batch 2 --microbatches 2 [--ckpt-dir D] \
-        [--heartbeat-dir H] [--device cpu] [--test-mesh]
+        [--heartbeat-dir H] [--device cpu] [--test-mesh] [--dry-run]
 
 Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
 ``model.loss_fn`` with AdamW (the reference's defaults, fp32 state) on
@@ -24,8 +24,12 @@ the host.  Attention goes through the flash kernel
 formulation).
 
 ``--test-mesh`` keeps its reference meaning: the reduced config at
-sequence 64, batch 8.  The pod layer is not ported (ROADMAP item 11):
-``--dry-run``, ``--multi-pod`` and ``--distributed`` raise.
+sequence 64, batch 8.  ``--dry-run`` runs the cell's cost probe instead of
+training (``launch/dryrun.py``: one micro-batch of ``--batch`` /
+``--microbatches`` sequences, or by default of one sequence, the record
+written under ``--dryrun-dir``) and returns its record.  ``--multi-pod``
+and ``--distributed`` raise: a pod mesh and a multi-host run have no
+meaning on one card (ROADMAP item 11 records them out of scope).
 """
 
 from __future__ import annotations
@@ -57,22 +61,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--test-mesh", action="store_true",
                     help="reduced config at sequence 64, batch 8")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (ROADMAP item 11)")
+                    help="out of scope on one card (ROADMAP item 11)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported (ROADMAP item 11)")
+                    help="run the cell's cost probe instead of training")
+    ap.add_argument("--dryrun-dir", default=None,
+                    help="where --dry-run writes its record (default: "
+                         "build/torch_dryrun)")
     ap.add_argument("--distributed", action="store_true",
-                    help="not ported (ROADMAP item 11)")
+                    help="out of scope on one card (ROADMAP item 11)")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parser().parse_args(argv)
-    for flag in ("dry_run", "multi_pod", "distributed"):
+    for flag in ("multi_pod", "distributed"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs the pod layer (mesh, "
-                "sharding, multi-host), which is not ported yet (ROADMAP "
-                "item 11)")
+                f"--{flag.replace('_', '-')} needs a pod mesh or several "
+                "hosts, which are out of scope on one card (ROADMAP item "
+                "11)")
 
     from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.models.model import build_model, reduce_config
@@ -80,13 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = ARCHS[args.arch]
-    if cfg.family in _FRONTEND_INPUTS:
-        raise SystemExit(
-            f"{args.arch} trains on batches that also hold "
-            f"{_FRONTEND_INPUTS[cfg.family]}, the stubbed frontend's "
-            "embeddings, which the synthetic token producer does not make: "
-            "train it through repro_torch.train.trainer.Trainer(..., "
-            "producer=...) with a producer that adds them")
     shape = SHAPES[args.shape]
     if shape.kind != "train":
         raise SystemExit("use repro_torch.launch.serve for serving shapes")
@@ -100,6 +100,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if shape.global_batch % args.microbatches:
         raise SystemExit(f"batch {shape.global_batch} does not split into "
                          f"{args.microbatches} micro-batches")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        # without --batch or --microbatches, the dry run's own cut (one
+        # sequence a micro-batch for train): a probe of train_4k's whole
+        # 256 x 4096 batch at once does not fit the card
+        split = args.batch is not None or args.microbatches > 1
+        rec = dryrun.run_cell(
+            args.arch, args.shape, args.dryrun_dir or dryrun.RESULTS,
+            force=True, device=args.device, cfg=cfg, shape=shape,
+            microbatch=shape.global_batch // args.microbatches if split
+            else None)
+        print(dryrun.summary_line(rec))
+        return rec
+
+    if cfg.family in _FRONTEND_INPUTS:
+        raise SystemExit(
+            f"{args.arch} trains on batches that also hold "
+            f"{_FRONTEND_INPUTS[cfg.family]}, the stubbed frontend's "
+            "embeddings, which the synthetic token producer does not make: "
+            "train it through repro_torch.train.trainer.Trainer(..., "
+            "producer=...) with a producer that adds them")
 
     tcfg = TrainerConfig(steps=args.steps, log_every=1,
                          ckpt_dir=args.ckpt_dir,

@@ -7,7 +7,9 @@ cross-attention when it is given ``kv_x`` (keys and values projected
 from the encoder's output or the image embeddings, non-causal, no rope),
 and keeps the reference's dispatch: naive when the query length ``s <=
 cfg.block_q`` (whatever the key length), else the flash kernel for
-``attention_impl="pallas"`` and blockwise for "blockwise".  The kernel
+``attention_impl="pallas"`` and blockwise for "blockwise";
+``attention_impl="skip"`` is the reference's cost-probe mode (no mixing,
+no kernel: ``launch/probe.py``).  The kernel
 takes GQA and Sq != Skv natively, so it gets the un-repeated K/V (same
 function, less memory).
 
@@ -197,10 +199,17 @@ def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
     q = tag("qkv", q)
     causal = causal and kv_x is None
     impl = cfg.attention_impl
-    if impl not in ("naive", "pallas", "blockwise"):
-        # "skip" is the reference's cost-probe mode (launch/probe.py)
-        raise NotImplementedError(f"attention_impl {impl!r} is not ported")
-    if impl == "pallas" and s > cfg.block_q:
+    if impl not in ("naive", "pallas", "blockwise", "skip"):
+        raise ValueError(f"unknown attention_impl {impl!r}")
+    if impl == "skip":
+        # cost-probe mode (launch/probe.py): no S^2 mixing and no kernel;
+        # the flash kernel's cost is added analytically (launch/costs.py).
+        # The reference's o = q + v is defined where Sq == Skv; a cross
+        # call with other lengths (where the reference's sum cannot
+        # broadcast) adds v's mean over the keys instead
+        v = _repeat_kv(v, h // kv)
+        o = q + (v if skv == s else v.mean(dim=1, keepdim=True))
+    elif impl == "pallas" and s > cfg.block_q:
         o = flash_attention(q, k, v, causal=causal, block_q=cfg.block_q,
                             block_kv=cfg.block_kv)
     elif impl == "blockwise" and s > cfg.block_q:

@@ -161,13 +161,19 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(params, x: torch.Tensor,
-           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+           compute_dtype: torch.dtype = torch.bfloat16, *,
+           skip: bool = False) -> torch.Tensor:
     """down(silu(x gate) * (x up)).  The gate/up half is the fused SwiGLU
     kernel's function (``kernels/fused_swiglu``: the sm_90a kernel on the
     card, its plain twin on the CPU): fp32 products and epilogue, rounded
     once to the compute dtype, where the reference's op-by-op jnp rounds
     g, u and each step of silu (about an ulp of h apart in bf16).  The
-    down projection stays a matmul, as the reference leaves it to XLA."""
+    down projection stays a matmul, as the reference leaves it to XLA.
+
+    ``skip`` is the reference's cost-probe mode (``cfg.mlp_skip``): x
+    itself, the kernel's cost added analytically (``launch/costs.py``)."""
+    if skip:
+        return x
     dt = compute_dtype
     h = fused_swiglu(x.to(dt), params["gate"].to(dt), params["up"].to(dt))
     h = tag("mlp_hidden", h)

@@ -16,8 +16,11 @@ SwiGLU kernel's function, and all experts of a layer go through
 (E, d, f)); the down projection and the dispatch/combine products stay
 matmuls, as the reference leaves them to XLA.  ``expert_in`` and
 ``mlp_hidden`` are tagged where the reference tags them; its
-``constrain`` annotations are the identity on one device and are dropped,
-and its cost-probe ``moe_ffn_skip`` mode is not ported.
+``constrain`` annotations are the identity on one device and are dropped.
+The reference's cost-probe ``moe_ffn_skip`` mode (``launch/probe.py``)
+bypasses the expert FFN of the ``einsum`` dispatch (expert_out =
+expert_in), as the reference's does; the ``gather`` dispatch ignores it,
+as the reference's does.
 """
 
 from __future__ import annotations
@@ -80,9 +83,6 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     long sequences are regrouped before routing (routing is per token, so
     this is exact; capacity is per group).
     """
-    if cfg.moe_ffn_skip:
-        # the reference's cost-probe mode (launch/probe.py)
-        raise NotImplementedError("moe_ffn_skip is not ported")
     if cfg.moe_impl not in ("einsum", "gather"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     dt = layers.dtype_of(cfg.dtype)
@@ -146,6 +146,11 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xs)    # (E,G,C,d)
     expert_in = tag("expert_in", expert_in)
-    expert_out = _expert_ffn(params, expert_in, dt)             # (E,G,C,d)
+    if cfg.moe_ffn_skip:
+        # cost-probe mode: the fused expert FFN's cost is added
+        # analytically (launch/costs.py)
+        expert_out = expert_in
+    else:
+        expert_out = _expert_ffn(params, expert_in, dt)         # (E,G,C,d)
     out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
     return out.reshape(b0, s0, d).to(dt), aux_loss.float()

@@ -15,7 +15,8 @@ Parameters are a dict per layer (held by ``zamba.MambaLayer``): the dense
 ``in_proj``/``out_proj`` in the compute dtype to serve and in
 ``param_dtype`` (float32) to train, ``conv``, ``A_log``, ``D``,
 ``dt_bias`` and the ``norm`` scale in float32.  The reference's cost-probe
-``mixer_skip`` mode is not ported.
+``mixer_skip`` mode (``launch/probe.py``) bypasses the scan: y = x in
+float32, and no kernel is launched.
 """
 
 from __future__ import annotations
@@ -133,9 +134,6 @@ def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
 
 def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Prefill path."""
-    if cfg.mixer_skip:
-        # the reference's cost-probe mode (launch/probe.py)
-        raise NotImplementedError("mixer_skip is not ported")
     dt_ = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     di, n, h, p = _widths(cfg)
@@ -154,7 +152,12 @@ def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
     dt = layers.softplus(dt.float() + params["dt_bias"][None, None])  # b,s,h
     xh = tag("ssm_in", xin.reshape(b, s, h, p))
-    y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
+    if cfg.mixer_skip:
+        # cost-probe mode: the SSD kernel's cost is added analytically
+        # (launch/costs.py)
+        y = xh.float()
+    else:
+        y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(dt_)
     y = layers.rmsnorm(params["norm"], y * layers.silu(z), cfg.norm_eps)

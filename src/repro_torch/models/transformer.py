@@ -157,7 +157,8 @@ def _mlp_residual(cfg: ModelConfig, p: Block, h: torch.Tensor
     if cfg.is_moe:
         mo, aux = moe.moe_forward(cfg, p.moe, hn)
     else:
-        mo = layers.swiglu(p.mlp, hn, layers.dtype_of(cfg.dtype))
+        mo = layers.swiglu(p.mlp, hn, layers.dtype_of(cfg.dtype),
+                           skip=cfg.mlp_skip)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return tag("block_out", h + tag("mlp_out", mo)), aux
 

@@ -20,7 +20,8 @@ Parameters are a dict per block (held by ``transformer.MLSTMBlock`` and
 and in ``param_dtype`` (float32) to train; the gate
 projection ``w_if``, its bias ``b_if``, the sLSTM ``bias`` and the norm
 scales in float32 (the reference casts ``bias`` to the compute dtype at
-use).  The reference's cost-probe ``mixer_skip`` mode is not ported.
+use).  The reference's cost-probe ``mixer_skip`` mode (``launch/probe.py``)
+bypasses the mLSTM scan: y = q + v in float32, and no kernel is launched.
 """
 
 from __future__ import annotations
@@ -171,9 +172,6 @@ def _gates(params, xl: torch.Tensor):
 
 def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Prefill path."""
-    if cfg.mixer_skip:
-        # the reference's cost-probe mode (launch/probe.py)
-        raise NotImplementedError("mixer_skip is not ported")
     dt = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     di, h, p = _widths(cfg)
@@ -184,7 +182,12 @@ def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     v = layers.dense(params["wv"], xl, dt).reshape(b, s, h, p)
     q = tag("qkv", q)
     i_gate, f_gate = _gates(params, xl)                  # (b,s,h) each
-    y = mlstm_scan(q.float(), k.float(), v.float(), i_gate, f_gate)
+    if cfg.mixer_skip:
+        # cost-probe mode: the mLSTM kernel's cost is added analytically
+        # (launch/costs.py)
+        y = (q + v).float()
+    else:
+        y = mlstm_scan(q.float(), k.float(), v.float(), i_gate, f_gate)
     y = tag("attn_out", y.reshape(b, s, di).to(dt))
     y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
     y = y * layers.silu(xr)

@@ -21,8 +21,8 @@ The trees here are nested dicts, lists and tuples of tensors; a map walks
 the structure of its first tree and indexes the others by the same keys
 (``jax.tree_util``'s ``flatten_up_to``).  The reference's
 ``compressed_psum_pod`` (an all-gather over the pod axis inside
-``shard_map``) belongs to the pod layer and is not ported.
-"""
+``shard_map``) belongs to the pod layer, out of scope on one card
+(ROADMAP item 11)."""
 
 from __future__ import annotations
 

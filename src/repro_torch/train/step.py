@@ -62,7 +62,11 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
             part = model.loss_fn(params, chunk)
             part.backward()
             loss = loss + part.detach()
-        grads = {n: p.grad for n, p in named.items()}
+        # a parameter the loss does not reach (in probe mode: the
+        # bypassed kernels' weights) gets a zero gradient, as jax.grad
+        # gives
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in named.items()}
         if microbatches > 1:
             for g in grads.values():
                 g.div_(microbatches)

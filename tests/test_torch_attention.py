@@ -98,10 +98,20 @@ def test_attention_forward_dispatch(dtype, tol, impl, seq):
 
 
 def test_attention_forward_rejects_unported_impl():
-    _, tcfg = _cfgs(attention_impl="skip", dtype="float32")
-    _, tp = _params(_cfgs()[0])
-    with pytest.raises(NotImplementedError, match="skip"):
-        ta.attention_forward(tcfg, tp, torch.zeros(1, 8, 64),
+    """An unknown impl raises; "skip", the reference's cost-probe mode, is
+    ported and computes the reference's o = q + v (GQA: v repeated)."""
+    jcfg, tcfg = _cfgs(attention_impl="skip", dtype="float32", n_kv_heads=2)
+    jp, tp = _params(jcfg)
+    x = np.random.default_rng(3).standard_normal((2, 8, 64), np.float32)
+    pos = np.broadcast_to(np.arange(8)[None], (2, 8)).copy()
+    want = jax.jit(lambda p, x, pos: ja.attention_forward(
+        jcfg, p, x, positions=pos))(jp, jnp.asarray(x), jnp.asarray(pos))
+    got = ta.attention_forward(tcfg, tp, torch.from_numpy(x),
+                               positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    _, bad = _cfgs(attention_impl="nope", dtype="float32", n_kv_heads=2)
+    with pytest.raises(ValueError, match="nope"):
+        ta.attention_forward(bad, tp, torch.zeros(1, 8, 64),
                              positions=torch.arange(8)[None])
 
 

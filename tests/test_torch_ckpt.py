@@ -290,12 +290,19 @@ def test_launch_train_test_mesh_on_the_cpu(capsys):
     assert "remat_saved" not in out["memory_plan"]   # reduced: remat off
 
 
-@pytest.mark.parametrize("flag", ["--dry-run", "--multi-pod",
-                                  "--distributed"])
+# --dry-run runs the cost probe on one card (tests/test_torch_probe.py);
+# a dry run of the pod mesh still raises, as the pod flags do
+POD_FLAGS = {"--dry-run": ["--dry-run", "--multi-pod"],
+             "--multi-pod": ["--multi-pod"],
+             "--distributed": ["--distributed"]}
+
+
+@pytest.mark.parametrize("flag", list(POD_FLAGS))
 def test_launch_train_pod_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="item 11"):
         launch_train.main(["--arch", "llama3.2-3b", "--test-mesh",
-                           "--device", "cpu", "--steps", "1", flag])
+                           "--device", "cpu", "--steps", "1",
+                           *POD_FLAGS[flag]])
 
 
 def test_launch_train_refuses_without_a_card():

@@ -19,7 +19,10 @@ from repro_torch.models.model import build_model, reduce_config  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("torch_*.py")) \
+    + [ROOT / "tools" / "lint_invariants_torch.py"] \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 torch.set_num_threads(1)

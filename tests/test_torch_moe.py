@@ -223,11 +223,20 @@ def test_max_group_regroup(impl):
 
 
 def test_moe_ffn_skip_and_unknown_impls_are_refused():
+    """Unknown dispatch implementations are refused; ``moe_ffn_skip``, the
+    reference's cost-probe mode, is ported: the einsum dispatch bypasses
+    the expert FFN (expert_out = expert_in) as the reference's does."""
     tcfg, jcfg = _configs(dtype="float32")
-    _, tp = _layer_params(jcfg, "float32")
-    tx, _ = _x((1, 8, 64), "float32")
-    with pytest.raises(NotImplementedError, match="moe_ffn_skip"):
-        moe.moe_forward(dataclasses.replace(tcfg, moe_ffn_skip=True), tp, tx)
+    jp, tp = _layer_params(jcfg, "float32")
+    tx, jx = _x((2, 8, 64), "float32")
+    skip_t = dataclasses.replace(tcfg, moe_ffn_skip=True)
+    skip_j = dataclasses.replace(jcfg, moe_ffn_skip=True)
+    want, want_aux = jax.jit(lambda p, x: jax_moe.moe_forward(
+        skip_j, p, x))(jp, jx)
+    got, aux = moe.moe_forward(skip_t, tp, tx)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
     with pytest.raises(ValueError, match="moe_impl"):
         moe.moe_forward(dataclasses.replace(tcfg, moe_impl="sort"), tp, tx)
 

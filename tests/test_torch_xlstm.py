@@ -206,11 +206,23 @@ def test_slstm_layer_matches_jax(pair):
 
 
 def test_mixer_skip_is_not_ported():
-    cfg = reduce_config(ARCHS["xlstm-1.3b"], mixer_skip=True)
-    params = build_model(cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixer_skip"):
-        xlstm.mlstm_forward(cfg, params.mblocks[0].mlstm,
-                            torch.zeros(1, 4, 64))
+    """``mixer_skip``, the reference's cost-probe mode, is ported: the mLSTM
+    block bypasses the scan (y = q + v in float32) as the reference's
+    does, and the outputs agree in fp32."""
+    jcfg = jax_reduce(JAX_ARCHS["xlstm-1.3b"], mixer_skip=True,
+                      dtype="float32")
+    tcfg = reduce_config(ARCHS["xlstm-1.3b"], mixer_skip=True,
+                         dtype="float32")
+    jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                           "cpu")
+    x = np.random.default_rng(6).standard_normal((2, 40, 64)) \
+        .astype(np.float32)
+    want = jax.jit(lambda p, v: jax_xlstm.mlstm_forward(jcfg, p, v))(
+        jax.tree_util.tree_map(lambda a: a[0], jp["mblocks"]["mlstm"]),
+        jnp.asarray(x))
+    got = xlstm.mlstm_forward(tcfg, tp.mblocks[0].mlstm, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
 
 
 def test_prefill_step_logits_match_jax(pair):

@@ -171,10 +171,22 @@ def test_ssm_layer_matches_jax(pair):
 
 
 def test_mixer_skip_is_not_ported():
-    cfg = reduce_config(ARCHS["zamba2-7b"], mixer_skip=True)
-    params = build_model(cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixer_skip"):
-        ssm.ssm_forward(cfg, params.mblocks[0].ssm, torch.zeros(1, 4, 64))
+    """``mixer_skip``, the reference's cost-probe mode, is ported: the mamba
+    layer bypasses the SSD scan (y = x in float32) as the reference's does,
+    and the outputs agree in fp32."""
+    jcfg = jax_reduce(JAX_ARCHS["zamba2-7b"], mixer_skip=True,
+                      dtype="float32")
+    tcfg = reduce_config(ARCHS["zamba2-7b"], mixer_skip=True, dtype="float32")
+    jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                           "cpu")
+    x = np.random.default_rng(6).standard_normal((2, 40, 64)) \
+        .astype(np.float32)
+    want = jax.jit(lambda p, v: jax_ssm.ssm_forward(jcfg, p, v))(
+        jax.tree_util.tree_map(lambda a: a[0], jp["mblocks"]["ssm"]),
+        jnp.asarray(x))
+    got = ssm.ssm_forward(tcfg, tp.mblocks[0].ssm, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
 
 
 def test_prefill_step_logits_match_jax(pair):
