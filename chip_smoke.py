@@ -287,6 +287,23 @@ them:
    extrapolation (the train step), one llama3.2-3b forward period's
    matmul FLOPs within 1% of the count reckoned from the config, every
    ``mfu`` and ``roofline_fraction`` at most 1.
+25. dist (run after 21, before the paper's phases): the train step on a
+   (data, model) mesh (``make_train_step(..., mesh=...)``): (k) a
+   one-rank NCCL group, mesh (1, 1): llama3.2-3b at full width, 2
+   sequences of 4096 in 2 micro-batches, against the step without a mesh
+   from the same parameters, fp32 at depth 2 (loss and every grad within
+   1e-6) and bf16 at depth 4 (normwise 2e-2), the flash and SwiGLU
+   launches by shape equal (bf16: train (a)'s shapes, all wgmma); (l)
+   four ranks sharing the card over gloo (every collective staged through
+   host copies), mesh (2, 2), FSDP by the reference's size rule:
+   llama3.2-3b and llama-3.2-vision-11b (one self and one cross block,
+   xgate 0.5) at full width and 2 layers, 2 sequences of 4096 (against
+   1600 image embeddings), each rank's blocks of the loss and grads
+   against the one-rank step's (fp32 per leaf 1e-4, bf16 normwise 2e-2),
+   every flash and SwiGLU launch at the per-rank shapes (12 or 16 heads
+   of 128 against 4 kv heads; 4096 or 7168 mlp columns), all wgmma, each
+   held against its twin there and timed for its kernel-table row; the
+   tally's collectives by kind per rank.
 
 The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
 20 (e), (f), 22 (h), (i)) and generate's SwiGLU launches must
@@ -490,6 +507,9 @@ def main() -> int:
     phase_granite_fp32_parity(torch, fa, sw)
     phase_bf16_parity(torch, fa, ssd, ml, sw)
     mm_rows = phase_multimodal(torch, fa, sw, gpu)
+    # before the paper's phases, whose host pools (~76 GB resident) would
+    # leave too little host memory for the four ranks of (l)
+    dist_rows = phase_dist(torch, fa, sw, gpu)
     _zero(fa, ssd, ml, sw)
     paper_rows = phase_paper_zoo(torch, gpu) + phase_paper_trunk(torch, gpu)
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
@@ -507,7 +527,8 @@ def main() -> int:
     print(json.dumps({"kernels": [llama_row, zamba_flash_row, ssd_row,
                                   mlstm_row, *sw_rows,
                                   granite_flash_row, *train_rows,
-                                  *mm_rows, *mm_train_rows]}),
+                                  *mm_rows, *mm_train_rows,
+                                  *dist_rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4895,6 +4916,402 @@ def phase_roofline(torch, kernels, gpu):
     emit({"phase": "roofline", "ok": True, "gpu": gpu,
           "wall_s": time.perf_counter() - t_phase,
           "table": roofline.format_table(rows)})
+
+
+# ---------------------------------------------------------------------------
+# 25. dist: the train step on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+DIST_SEQ, DIST_BATCH = 4096, 2
+DIST_K_DEPTH = {"float32": 2, "bfloat16": 4}
+DIST_LAYERS = 2                      # (l): the vlm's one self + one cross
+DIST_MESH = (2, 2)
+DIST_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DIST_FLASH = {   # each rank's shapes on the (2, 2) mesh, one sequence
+    "llama3.2-3b": (1, 12, 4, 4096, 4096, 128, True, 512, 1024),
+    "llama-3.2-vision-11b self-attention":
+        (1, 16, 4, 4096, 4096, 128, True, 512, 1024),
+    "llama-3.2-vision-11b cross-attention":
+        (1, 16, 4, 4096, 1600, 128, False, 512, 1024)}
+DIST_SWIGLU = {"llama3.2-3b MLP": (1, 4096, 3072, 4096),
+               "llama-3.2-vision-11b MLP": (1, 4096, 4096, 7168)}
+# (l)'s runs: fp32 on the vision LM alone (its self and cross blocks
+# cover the dense LM's sharded ops; the CPU tests hold both families in
+# fp32), bf16 on both for the kernels' per-rank shapes
+DIST_RUNS = {"llama3.2-3b": ("bfloat16",),
+             "llama-3.2-vision-11b": ("float32", "bfloat16")}
+
+
+def _capture(into, base=None):
+    """An optimizer that keeps a copy of the grads it is handed (after the
+    step's reductions) and then runs ``base``'s update; without ``base``
+    it updates nothing and holds no state."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def update_(grads, state, params, *rest):
+        into.update({n: g.detach().clone() for n, g in grads.items()})
+        if base is not None:
+            base.update_(grads, state, params, *rest)
+
+    return Optimizer(init=base.init if base is not None else dict,
+                     update_=update_,
+                     name=base.name if base is not None else "adamw_float32")
+
+
+def _dist_batch(torch, cfg, b, seed=17):
+    g = torch.Generator("cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (b, DIST_SEQ + 1), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "targets": tokens[:, 1:].contiguous()}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(b, cfg.image_tokens, cfg.d_model,
+                                            generator=g, device="cuda")
+    return batch
+
+
+def _dist_cfg(arch, **over):
+    from repro_torch.configs import ARCHS
+    extra = {"cross_attn_every": DIST_LAYERS} \
+        if arch == "llama-3.2-vision-11b" else {}
+    return dataclasses.replace(ARCHS[arch], attention_impl="pallas",
+                               **extra, **over)
+
+
+def _normwise(torch, got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_dist(torch, fa, sw, gpu):
+    """(k) one rank on the card; (l) four ranks sharing it.  Returns the
+    kernel rows of (l)'s per-rank shapes."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k = _dist_one_rank(torch, fa, sw)
+    emit({"phase": "dist_k", "ok": True, "wall_s": time.perf_counter() - t0,
+          **k})
+    torch.cuda.empty_cache()
+    t_l = time.perf_counter()
+    l_out = _dist_shared_card(torch)
+    torch.cuda.empty_cache()
+    l_out["wall_s"] = time.perf_counter() - t_l
+    rows = {}
+    twins = {"flash": _flash_twin_checks(torch, fa, list(DIST_FLASH.values()),
+                                         phase="dist"),
+             "swiglu": _swiglu_twin_checks(torch, sw,
+                                           list(DIST_SWIGLU.values()),
+                                           phase="dist")}
+    for path, shape in DIST_FLASH.items():
+        rows[path] = _flash_times(torch, fa, gpu, shape, path.split(" ")[0])
+        rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
+                              "(one rank's shape, launches of all 4)")
+        rows[path]["launches"] = l_out["flash_launches"][path]
+    for path, case in DIST_SWIGLU.items():
+        rows[path] = _swiglu_times(torch, sw, gpu, case, path)
+        rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
+                              "(one rank's shape, launches of all 4)")
+        rows[path]["launches"] = l_out["swiglu_launches"][path]
+    emit({"phase": "dist", "ok": True, "gpu": gpu,
+          "wall_s": time.perf_counter() - t0, "l": l_out,
+          "twin_checks": {n: len(r) for n, r in twins.items()},
+          "launches": {p: r["launches"] for p, r in rows.items()}})
+    return list(rows.values())
+
+
+def _dist_one_rank(torch, fa, sw):
+    """(k): a one-rank NCCL group, mesh (1, 1): llama3.2-3b's train step at
+    full width through ``make_train_step(mesh=...)`` against the step
+    without a mesh from the same parameters, 2 sequences of 4096 in 2
+    micro-batches (train (a)'s); fp32 at depth 2 within 1e-6, bf16 at
+    depth 4 normwise within 2e-2, the flash and SwiGLU launches by shape
+    equal (bf16: train (a)'s shapes, all wgmma)."""
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    rdv = ROOT / "build" / "chip_dist" / f"rendezvous_k_{os.getpid()}"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    out = {"backend": dist.get_backend()}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        shape = ShapeConfig("train_4k", DIST_SEQ, TRAIN_BATCH, "train")
+        for dtype, depth in DIST_K_DEPTH.items():
+            cfg = _dist_cfg("llama3.2-3b", n_layers=depth, dtype=dtype)
+            model = build_model(cfg)
+            batch = _dist_batch(torch, cfg, TRAIN_BATCH)
+            runs = []
+            for where in (None, mesh):
+                grads = {}
+                bundle = make_train_step(
+                    model, _capture(grads, make_optimizer("adamw")), shape,
+                    mesh=where, microbatches=TRAIN_MICRO)
+                params = bundle.shard_params(model.init(0, trainable=True))
+                state = bundle.init_state(params)
+                _zero(fa, sw)
+                with _launch_calls(fa, _flash_key) as fc, \
+                        _launch_calls(sw, _swiglu_key) as sc:
+                    _, _, metrics = bundle(params, state, batch)
+                    loss = float(metrics["loss"])
+                runs.append((loss, grads, Counter(fc), Counter(sc)))
+                del params, state, bundle, metrics
+                torch.cuda.empty_cache()
+            (l1, g1, f1, s1), (l2, g2, f2, s2) = runs
+            tol = 1e-6 if dtype == "float32" else 2e-2
+            loss_rel = abs(l2 - l1) / abs(l1)
+            if dtype == "float32":
+                err = max(_normwise(torch, g2[n], g1[n]) for n in g1)
+            else:
+                err = _normwise(torch, torch.cat([g2[n].flatten()
+                                                  for n in sorted(g1)]),
+                                torch.cat([g1[n].flatten()
+                                           for n in sorted(g1)]))
+            check(math.isfinite(l2) and loss_rel <= tol and err <= tol,
+                  "dist", f"(k) {dtype}: loss {l2} vs {l1}, grads {err}")
+            check(f1 == f2 and s1 == s2, "dist",
+                  f"(k) {dtype}: launches by shape differ on the mesh")
+            if dtype == "bfloat16":
+                runs_per = depth * TRAIN_MICRO
+                check(f2 == Counter({(*TRAIN_FLASH_SHAPE[:7], "wgmma"):
+                                     runs_per})
+                      and s2 == Counter({(*TRAIN_SWIGLU_SHAPE, "wgmma"):
+                                         runs_per}), "dist",
+                      f"(k) launches {dict(f2)} {dict(s2)}")
+            out[dtype] = {"depth": depth, "loss": l2, "loss_one_device": l1,
+                          "loss_rel": loss_rel, "grad_rel": err,
+                          "flash_launches": sum(f2.values()),
+                          "swiglu_launches": sum(s2.values())}
+            del g1, g2
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _dist_shared_card(torch):
+    """(l): llama3.2-3b and llama-3.2-vision-11b at full width and 2 layers
+    (the vlm one self and one cross block, xgate 0.5), each in the dtypes
+    of ``DIST_RUNS``: this process runs the one-rank step (no mesh) of
+    every run from seeded parameters and writes the losses and grads under
+    ``build/chip_dist/`` (the bf16 step's grads in bf16, a rounding of
+    2^-9 against the normwise 2e-2), then frees the card; four ranks on
+    this card, one gloo group, mesh (2, 2), draw the same parameters and
+    batch from the same seeds, run the sharded steps one model at a time
+    and hold their blocks of the loss and grads to the written ones."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_train_step
+
+    shape = ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train")
+    out_dir = ROOT / "build" / "chip_dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for arch, dtypes in DIST_RUNS.items():
+        model, params, batch = _dist_model(torch, arch)
+        for dtype in dtypes:
+            grads = {}
+            step = make_train_step(build_model(dataclasses.replace(
+                model.cfg, dtype=dtype)), _capture(grads), shape)
+            _, _, metrics = step(params, {}, batch)
+            keep = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            torch.save({"loss": float(metrics["loss"]),
+                        "grads": {n: g.to("cpu", keep)
+                                  for n, g in grads.items()}},
+                       out_dir / f"ref_{arch}_{dtype}.pt")
+            for p in params.parameters():
+                p.grad = None
+            del metrics, step, grads
+        del model, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    rdv = out_dir / f"rendezvous_l_{os.getpid()}"
+    rdv.unlink(missing_ok=True)
+    for r in range(4):
+        (out_dir / f"dist_l_{r}.json").unlink(missing_ok=True)
+    reserved = torch.cuda.memory_reserved() / 1e9   # while the ranks run
+    mp.spawn(_dist_rank, args=(4, str(rdv), str(out_dir)), nprocs=4,
+             join=True)
+    ranks = [json.loads((out_dir / f"dist_l_{r}.json").read_text())
+             for r in range(4)]
+    for arch, dtypes in DIST_RUNS.items():
+        for dtype in dtypes:
+            (out_dir / f"ref_{arch}_{dtype}.pt").unlink()
+    flash = {p: 0 for p in DIST_FLASH}
+    swiglu = {p: 0 for p in DIST_SWIGLU}
+    runs = ranks[0]["runs"]
+    check(set(runs) == {f"{a} {d}" for a, ds in DIST_RUNS.items()
+                        for d in ds}, "dist", f"(l) ran {sorted(runs)}")
+    for key, run in runs.items():
+        check(math.isfinite(run["loss"]) and run["loss_rel"] <= 1e-4
+              if key.endswith("float32") else run["loss_rel"] <= 2e-2,
+              "dist", f"(l) {key}: loss {run['loss']} vs {run['loss_ref']}")
+        check(run["grad_rel"] <= DIST_REL_TOL[key.split(" ")[-1]], "dist",
+              f"(l) {key}: grads {run['grad_rel']}")
+    for rk in ranks:
+        for key, run in rk["runs"].items():
+            if not key.endswith("bfloat16"):
+                continue
+            arch = key.split(" ")[0]
+            want_f = {tuple(s[:7]) for p, s in DIST_FLASH.items()
+                      if p.startswith(arch)}
+            got_f = {tuple(c[:7]) for c in run["flash_calls"]}
+            check(got_f == want_f and all(c[7] == "wgmma"
+                                          for c in run["flash_calls"]),
+                  "dist", f"(l) {key}: flash shapes {got_f}")
+            for p, s in DIST_FLASH.items():
+                flash[p] += sum(1 for c in run["flash_calls"]
+                                if tuple(c[:7]) == tuple(s[:7]))
+            for p, case in DIST_SWIGLU.items():
+                if p.startswith(arch):
+                    n = sum(1 for c in run["swiglu_calls"]
+                            if tuple(c[:4]) == case and c[4] == "wgmma")
+                    check(n == DIST_LAYERS and n == len(run["swiglu_calls"]),
+                          "dist", f"(l) {key}: SwiGLU calls "
+                                  f"{run['swiglu_calls']}")
+                    swiglu[p] += n
+    return {"mesh": list(DIST_MESH), "transport": ranks[0]["transport"],
+            "runs": runs, "flash_launches": flash, "swiglu_launches": swiglu,
+            "parent_reserved_gb": reserved,
+            "parent_host_rss_gb": _host_rss_bytes() / 1e9,
+            "peak_gb_by_rank": [{k: r["peak_gb"]
+                                 for k, r in rk["runs"].items()}
+                                for rk in ranks]}
+
+
+def _dist_model(torch, arch):
+    """(model, its fp32 parameters from seed 0 on the card, the batch from
+    its seed): the same in every process that asks."""
+    from repro_torch.models.model import build_model
+
+    cfg = _dist_cfg(arch, n_layers=DIST_LAYERS)
+    model = build_model(cfg)
+    if cfg.family == "vlm":
+        model = _gated(model)
+    return model, model.init(0, trainable=True), \
+        _dist_batch(torch, cfg, DIST_BATCH)
+
+
+def _dist_rank(rank, world, rdv, out_dir):
+    """One of (l)'s ranks: the sharded steps of ``DIST_RUNS``, one model at
+    a time, their launches by shape and their collectives, and its blocks
+    of the grads against the one-rank step's (the largest error and value
+    over the ranks, reduced with the world)."""
+    import gc
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, timeout=timedelta(minutes=5))
+    try:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh(DIST_MESH, ("data", "model"), device="cpu")
+        shape = ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train")
+        runs = {}
+        for arch, dtypes in DIST_RUNS.items():
+            _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs)
+            gc.collect()
+            torch.cuda.empty_cache()
+        Path(out_dir, f"dist_l_{rank}.json").write_text(json.dumps({
+            "rank": rank, "runs": runs,
+            "transport": "gloo, its collectives on CUDA tensors staged "
+                         "through host copies (sharding.collectives)"}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
+    """One rank's sharded steps of ``arch`` in ``dtypes``, into ``runs``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_train_step
+
+    model, module, batch = _dist_model(torch, arch)
+    first = None
+    for dtype in dtypes:
+        cfg = dataclasses.replace(model.cfg, dtype=dtype)
+        grads = {}
+        bundle = make_train_step(
+            build_model(cfg), _capture(grads, make_optimizer("adamw")),
+            shape, mesh=mesh)
+        p_shard, o_shard, _ = bundle.in_shardings
+        with torch.no_grad():
+            if first is None:      # this rank's blocks of the draw
+                first = {n: p_shard[n].shard(t.data).contiguous()
+                         .clone()
+                         for n, t in module.named_parameters()}
+            for n, t in module.named_parameters():
+                t.data = first[n].clone()
+                t._sharding = p_shard[n]
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = bundle.init_state(module)
+        _zero(fa, sw)
+        C.reset_tally()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _launch_calls(fa, _flash_key) as fc, \
+                _launch_calls(sw, _swiglu_key) as sc:
+            _, _, metrics = bundle(module, state, batch)
+            loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+        tally = analyze_collectives()
+        ref = torch.load(Path(out_dir) / f"ref_{arch}_{dtype}.pt", mmap=True,
+                         weights_only=True)
+        names = sorted(grads)
+        stats = torch.zeros(2, len(names), dtype=torch.float64)
+        for i, n in enumerate(names):
+            want = o_shard["mu"][n]["m"].shard(ref["grads"][n]) \
+                .to("cuda", torch.float32)
+            stats[0, i] = (grads[n] - want).abs().max().item()
+            stats[1, i] = want.abs().max().item()
+            del want
+        dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+        rel = stats[0] / stats[1].clamp_min(1e-30)
+        runs[f"{arch} {dtype}"] = {
+            "loss": loss, "loss_ref": ref["loss"],
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel": (rel.max() if dtype == "float32" else
+                         stats[0].max() / stats[1].max()).item(),
+            "worst_leaf": names[int(rel.argmax())],
+            "step_s": step_s,
+            "flash_calls": [list(c) for c in fc],
+            "swiglu_calls": [list(c) for c in sc],
+            "collectives": tally["per_op"],
+            "collective_bytes": tally["collective_bytes"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del grads, state, bundle, metrics, ref
 
 
 if __name__ == "__main__":

@@ -30,7 +30,13 @@ xlstm-1.3b):
     convert.py                   reference param tree (numpy) -> port modules
                                  or layer-graph parameters; a reference
                                  optimizer runtime's host state
-    train/step.py                prefill / decode step callables
+    train/step.py                train / prefill / decode steps, on one
+                                 device or sharded on a mesh
+    train/pipeline.py            GPipe pipeline over a stage axis
+    sharding/                    the reference's rule tables, placements,
+                                 and every collective (tallied)
+    launch/mesh.py               (data, model) meshes over torch.distributed
+    launch/comm_analysis.py      collectives by kind per step
     launch/serve.py              ``generate``: prefill + greedy decode;
                                  ``personalize``: the multi-tenant server
     core/                        the paper's path: LayerGraph ->

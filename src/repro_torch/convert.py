@@ -51,7 +51,7 @@ from repro_torch.optim.optimizers import QBLOCK
 from repro_torch.models.layers import weight_dtype
 from repro_torch.models.multimodal import EncDecLM, VisionLM, vlm_layout
 from repro_torch.models.transformer import (TransformerLM, XLSTMLM,
-                                            xlstm_counts)
+                                            padded_vocab, xlstm_counts)
 from repro_torch.models.zamba import ZambaLM, layout
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -88,9 +88,21 @@ def optim_state_from_numpy(runtime, host_state, residual, count: int
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None,
-                      *, trainable: bool = False) -> nn.Module:
+                      *, trainable: bool = False,
+                      shardings=None) -> nn.Module:
     """The port's model holding ``tree``'s values; ``trainable=True`` holds
-    every leaf in float32 with gradients."""
+    every leaf in float32 with gradients.  With ``shardings`` (parameter
+    name -> placement on a mesh, a step bundle's ``in_shardings[0]``)
+    each parameter holds this rank's block of the global value."""
+    model = _params_from_numpy(tree, cfg, device, trainable=trainable)
+    if shardings is not None:
+        from repro_torch.sharding.api import shard_module
+        shard_module(model, shardings)
+    return model
+
+
+def _params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike, *,
+                       trainable: bool) -> nn.Module:
     dev = resolve_device(device)
     dt = weight_dtype(cfg, trainable)
 
@@ -224,6 +236,18 @@ def lm_leaf_paths(cfg: ModelConfig, tree):
         yield "unembed", ("unembed", "kernel"), None
 
 
+def param_shapes(cfg: ModelConfig):
+    """Every parameter's shape, keyed by its port name, from the config
+    alone (nothing is allocated)."""
+    pv, d = padded_vocab(cfg), cfg.d_model
+    tops = {"embed": (pv, d), "unembed": (d, pv), "ln_f": (d,),
+            "enc_ln": (d,)}
+    tied = cfg.family in ("dense", "moe") and cfg.tie_embeddings
+    return {name: tops[name] if name in tops else _param_shape(cfg, path)
+            for name, path, _ in lm_leaf_paths(cfg, {} if tied
+                                               else {"unembed": None})}
+
+
 def _block_paths(cfg: ModelConfig, b: str, root: str, i, *,
                  cross: bool = False):
     """The leaves of one decoder block: layer ``i`` of the stacked
@@ -257,7 +281,7 @@ def _mamba_paths(b: str, root: str, i: int):
 
 
 def adamw_state_from_numpy(state, cfg: ModelConfig,
-                           device: DeviceLike = None):
+                           device: DeviceLike = None, *, shardings=None):
     """The port's AdamW state (``{"mu": {name: {"m", "v"}}, "count"}``)
     holding a reference AdamW state whose leaves are numpy arrays.
 
@@ -266,7 +290,9 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
     split between the layers, which is exact when a layer's element count
     is a whole number of blocks, and for a stacked scalar (a cross block's
     ``xgate``: each layer's value one element of a block the layers share,
-    carried with that block's scale); otherwise it raises."""
+    carried with that block's scale); otherwise it raises.  With
+    ``shardings`` (parameter name -> its moments' placement on a mesh)
+    each fp32 or bf16 moment holds this rank's block."""
     dev = resolve_device(device)
     mu = state["mu"]
 
@@ -296,6 +322,9 @@ def adamw_state_from_numpy(state, cfg: ModelConfig,
         if i is not None and shape is None:
             n_layer = int(np.prod(_param_shape(cfg, path)))
         out[name] = {k: moment(mv[k], i, n_layer) for k in ("m", "v")}
+        if shardings is not None:
+            out[name] = {k: shardings[name].shard(t).contiguous().clone()
+                         for k, t in out[name].items()}
     count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
                          device=dev)
     return {"mu": out, "count": count}

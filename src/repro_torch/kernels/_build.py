@@ -99,3 +99,13 @@ def ptxas_report(source: Path) -> list:
     log = library_path(source).with_suffix(".log")
     lines = log.read_text().splitlines() if log.exists() else []
     return [ln.split("info    : ")[-1] for ln in lines if "registers" in ln]
+
+
+def require_local(*tensors) -> None:
+    """Raise for a distributed tensor: a kernel reads its operands through
+    their data pointers, which only a rank's local tensor has (call
+    ``to_local()`` first)."""
+    for t in tensors:
+        if hasattr(t, "to_local"):
+            raise TypeError(f"a kernel takes local tensors, not "
+                            f"{type(t).__name__} (call to_local() first)")

@@ -138,6 +138,7 @@ def build(variant: str) -> ctypes.CDLL:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _build.require_local(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, _, d = q.shape

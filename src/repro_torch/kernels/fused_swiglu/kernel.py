@@ -125,6 +125,7 @@ def build(variant: str) -> ctypes.CDLL:
 
 
 def _check(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> None:
+    _build.require_local(x, wg, wu)
     if x.dim() not in (2, 3) or wg.dim() != x.dim():
         raise ValueError(f"x {tuple(x.shape)} and wg {tuple(wg.shape)} must "
                          "be (M, K) and (K, F), or (E, M, K) and (E, K, F)")

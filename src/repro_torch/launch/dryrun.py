@@ -27,6 +27,14 @@ in probe mode, extrapolated) and writes one JSON record to
 It runs on the card unless given ``--device cpu``; at full size a cell
 needs the card's memory, so the CPU takes reduced configs
 (``launch.train --dry-run --test-mesh --device cpu``).
+
+:func:`run_mesh_cell` is the mesh's record: every rank of an initialised
+world runs one sharded step of the cell (``train/step.py`` with a mesh)
+and rank 0 writes ``<arch>__<shape>__<data>x<model>.json`` with the
+step's collectives per kind (``launch/comm_analysis.py``: the reference's
+``per_op``, ``collective_operand_bytes``, ``collective_result_bytes``,
+``collective_bytes``), its seconds and its loss
+(``launch.train --distributed --dry-run``).
 """
 
 from __future__ import annotations
@@ -154,6 +162,68 @@ def _probe_cell(cfg, shape, dev, capacity, microbatch) -> Dict:
             "reckoned": reckoned_bytes(probe, shape.kind, capacity),
             "measured_peak_bytes": probe["peak_bytes"],
             "timing": {"probe_s": seconds}}
+
+
+def mesh_name(mesh) -> str:
+    return "x".join(str(n) for n in mesh.shape.values())
+
+
+def run_mesh_cell(arch: str, shape_name: str, mesh, out_dir: Path = RESULTS,
+                  *, cfg: Optional[ModelConfig] = None,
+                  shape: Optional[ShapeConfig] = None,
+                  microbatches: int = 1, device: DeviceLike = None,
+                  seed: int = 0) -> Dict:
+    """One sharded step of the cell on ``mesh`` (every rank calls this,
+    with the same arguments): random parameters from ``seed``, a batch of
+    random tokens (and, for the vision LM, image embeddings) from it;
+    rank 0 writes the record and every rank returns it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    cfg = cfg or ARCHS[arch]
+    shape = shape or SHAPES[shape_name]
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch,
+                                                    shape.seq_len),
+                                     generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            shape.global_batch, cfg.image_tokens, cfg.d_model,
+            generator=gen, device=dev)
+    train = shape.kind == "train"
+    if train:
+        batch["targets"] = batch["tokens"].roll(-1, dims=1)
+        bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                                 mesh=mesh, microbatches=microbatches)
+    else:
+        bundle = make_prefill_step(model, mesh=mesh)
+    params = bundle.shard_params(model.init(seed, device=dev,
+                                            trainable=train))
+    args = (params, bundle.init_state(params), batch) if train \
+        else (params, batch)
+    C.reset_tally()
+    t0 = time.perf_counter()
+    out = bundle(*args)
+    loss = float(out[2]["loss"]) if train else None
+    seconds = time.perf_counter() - t0
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh),
+           "kind": shape.kind, "seq_len": shape.seq_len,
+           "global_batch": shape.global_batch,
+           "microbatches": microbatches, "status": "ok",
+           "collectives": analyze_collectives(), "step_s": seconds,
+           "loss": loss}
+    if dist.get_rank() == 0:
+        out_path = Path(out_dir) / \
+            f"{arch}__{shape_name}__{mesh_name(mesh)}.json"
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(rec, indent=2))
+    return rec
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,8 @@
 """The card's roofline denominators: its data-sheet peaks, and a measure of
 the rates it reaches.
 
-The single-card counterpart of ``repro/launch/mesh.py``: there is no mesh
-on one card, and the TPU constants are not carried over.  :data:`PEAKS`
+The card's half of ``repro/launch/mesh.py``: the TPU constants are not
+carried over (the mesh itself is ``launch/mesh.py``).  :data:`PEAKS`
 holds each supported card's published dense peaks, keyed by
 ``torch.cuda.get_device_name()``; :func:`peaks` looks a card up and
 raises for one it does not know (a roofline against a guessed peak would

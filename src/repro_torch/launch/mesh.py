@@ -1,0 +1,105 @@
+"""The device mesh over the ranks of a ``torch.distributed`` world.
+
+Port of ``repro/launch/mesh.py``.  A :class:`Mesh` names its axes and
+their sizes (``axis_names``, ``shape``: the two things the sharding rules
+read, as they read a JAX mesh's) and, once built over a process group,
+holds the ``torch.distributed`` ``DeviceMesh`` whose per-axis groups carry
+the collectives (``repro_torch.sharding.collectives``).  The axes keep the
+reference's meaning:
+
+    pod    -- across pods: pure data parallelism (a second host; out of
+              scope here)
+    data   -- data parallelism / FSDP / sequence parallelism
+    model  -- tensor parallelism: heads, mlp columns, vocabulary
+
+Ranks are laid out row-major over the axes, as ``init_device_mesh`` lays
+them: on a (data, model) = (2, 2) mesh rank ``r`` sits at data ``r // 2``,
+model ``r % 2``, so the model groups are {0, 1} and {2, 3}.
+
+Nothing here touches a device at import.  The card's constants are in
+``launch/hw.py``; the reference's TPU constants are not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+
+class Mesh:
+    """Named axes over the ranks of the world.  ``device_mesh`` is None for
+    an abstract mesh (shapes only, no devices: the rule functions and the
+    placement tables need no more); :meth:`coords` is then all zeros."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device_mesh=None):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {tuple(shape)} does not name its "
+                             f"axes {tuple(axes)}")
+        self.axis_names: Tuple[str, ...] = tuple(axes)
+        self.shape: Dict[str, int] = dict(zip(axes, (int(s) for s in shape)))
+        self.device_mesh = device_mesh
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along every axis."""
+        if self.device_mesh is None:
+            return dict.fromkeys(self.axis_names, 0)
+        return {a: self.device_mesh.get_local_rank(a)
+                for a in self.axis_names}
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``."""
+        if self.device_mesh is None:
+            raise RuntimeError("an abstract mesh has no process groups")
+        return self.device_mesh.get_group(axis)
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims})"
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              device: Optional[str] = None) -> Mesh:
+    """A mesh of ``shape`` over every rank of the initialised world, on the
+    CUDA card unless ``device="cpu"`` (the world's size must equal the
+    mesh's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of {tuple(shape)} needs {n} ranks, the "
+                         f"world has {dist.get_world_size()}")
+    dev = "cuda" if device is None else torch.device(device).type
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "for a mesh of host ranks")
+    dm = init_device_mesh(dev, tuple(shape), mesh_dim_names=tuple(axes))
+    return Mesh(shape, axes, dm)
+
+
+def make_test_mesh(n_devices: Optional[int] = None, *, model: int = 2,
+                   device: Optional[str] = None) -> Mesh:
+    """(data, model) over ``n_devices`` ranks (the world's by default):
+    data = max(n // model, 1), as the reference's mesh over however many
+    devices exist."""
+    import torch.distributed as dist
+    n = n_devices or dist.get_world_size()
+    data = max(n // model, 1)
+    return make_mesh((data, model), ("data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's 256-chip (16, 16) and 512-chip (2, 16, 16) meshes
+    need as many cards on one pod's interconnect (and a second host for the
+    pod axis): out of scope here."""
+    shape = "(2, 16, 16) pod x data x model" if multi_pod \
+        else "(16, 16) data x model"
+    raise NotImplementedError(
+        f"the production mesh {shape} spans {512 if multi_pod else 256} "
+        "chips; the port runs on one host of at most four cards: use "
+        "make_mesh or make_test_mesh")

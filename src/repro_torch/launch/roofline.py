@@ -9,8 +9,9 @@ The single-card counterpart of ``repro/launch/roofline.py``.  Per cell
     compute term = probe FLOPs / the card's bf16 peak        [s]
     memory term  = probe bytes / the card's HBM rate         [s]
 
-(one card has no collective term), both from ``launch/hw.py``'s data
-sheet.  ``model_flops`` is 6 N T for train, 2 N T for prefill and 2 N per
+(a cell on one card has no collective term; a mesh's, the tally of
+``launch/comm_analysis.py`` over the links' rate, is not added yet),
+both from ``launch/hw.py``'s data sheet.  ``model_flops`` is 6 N T for train, 2 N T for prefill and 2 N per
 sequence for decode, N the active parameters for MoE: the reference's
 ``model_flops_per_device`` at one chip, except that N leaves out an
 untied input embedding table (``matmul_params``).  That table is a gather

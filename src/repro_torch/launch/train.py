@@ -1,8 +1,10 @@
-"""Training launcher, on one CUDA card.
+"""Training launcher, on one CUDA card or on a mesh of them.
 
     python -m repro_torch.launch.train --arch llama3.2-3b --shape train_4k \
         --steps 3 --batch 2 --microbatches 2 [--ckpt-dir D] \
         [--heartbeat-dir H] [--device cpu] [--test-mesh] [--dry-run]
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --distributed --test-mesh
 
 Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
 ``model.loss_fn`` with AdamW (the reference's defaults, fp32 state) on
@@ -27,15 +29,24 @@ formulation).
 sequence 64, batch 8.  ``--dry-run`` runs the cell's cost probe instead of
 training (``launch/dryrun.py``: one micro-batch of ``--batch`` /
 ``--microbatches`` sequences, or by default of one sequence, the record
-written under ``--dryrun-dir``) and returns its record.  ``--multi-pod``
-and ``--distributed`` raise: a pod mesh and a multi-host run have no
-meaning on one card (ROADMAP item 11 records them out of scope).
+written under ``--dryrun-dir``) and returns its record.
+
+``--distributed`` joins the world ``torchrun`` describes (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``; ``--dist-init`` names another rendezvous,
+a ``file://`` path for instance) and trains on ``make_test_mesh(model=2)``
+over it, the counterpart of the reference's mesh over however many
+devices there are: NCCL with one card per ``LOCAL_RANK``, gloo only with
+``--device cpu``.  The dense and vision LMs run there (``train/step.py``);
+with ``--dry-run`` it writes the mesh cell's record of one sharded step
+and its collectives (``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
+second pod is a second host.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 from typing import Dict, Optional, Sequence
 
 
@@ -61,25 +72,68 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--test-mesh", action="store_true",
                     help="reduced config at sequence 64, batch 8")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="out of scope on one card (ROADMAP item 11)")
+                    help="a second pod is a second host: out of scope")
     ap.add_argument("--dry-run", action="store_true",
                     help="run the cell's cost probe instead of training")
     ap.add_argument("--dryrun-dir", default=None,
                     help="where --dry-run writes its record (default: "
                          "build/torch_dryrun)")
     ap.add_argument("--distributed", action="store_true",
-                    help="out of scope on one card (ROADMAP item 11)")
+                    help="train on a (data, model) mesh over torchrun's "
+                         "world")
+    ap.add_argument("--dist-init", default="env://",
+                    help="the process group's init_method (default: "
+                         "torchrun's environment)")
     return ap
+
+
+def _join_world(args):
+    """Initialise the process group torchrun describes and return (rank,
+    world, device): NCCL on the card of LOCAL_RANK, gloo with --device
+    cpu."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    rank = int(os.environ.get("RANK", 0))
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        backend, device = "gloo", torch.device("cpu")
+    else:
+        resolve_device(args.device)          # raises without a card
+        torch.cuda.set_device(local)
+        backend, device = "nccl", torch.device("cuda", local)
+    dist.init_process_group(backend, init_method=args.dist_init, rank=rank,
+                            world_size=world, timeout=timedelta(minutes=10))
+    return rank, world, device
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parser().parse_args(argv)
-    for flag in ("multi_pod", "distributed"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs a pod mesh or several "
-                "hosts, which are out of scope on one card (ROADMAP item "
-                "11)")
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi-pod needs a second pod, that is a second host: out of "
+            "scope (ROADMAP item 11)")
+    if args.distributed:
+        import torch.distributed as dist
+        rank, world, device = _join_world(args)
+        try:
+            return _run(args, rank=rank, world=world, device=device)
+        finally:
+            dist.destroy_process_group()
+    return _run(args)
+
+
+def _run(args, *, rank: int = 0, world: int = 1, device=None) -> Dict:
+    mesh = None
+    if args.distributed:
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh(model=min(2, world), device=device.type)
+    device = device if device is not None else args.device
 
     from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.models.model import build_model, reduce_config
@@ -100,6 +154,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if shape.global_batch % args.microbatches:
         raise SystemExit(f"batch {shape.global_batch} does not split into "
                          f"{args.microbatches} micro-batches")
+    if args.dry_run and mesh is not None:
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_mesh_cell(
+            args.arch, args.shape, mesh, args.dryrun_dir or dryrun.RESULTS,
+            cfg=cfg, shape=shape, microbatches=args.microbatches,
+            device=device)
+        if rank == 0:
+            print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh",
+                                                  "collectives")}))
+        return rec
     if args.dry_run:
         from repro_torch.launch import dryrun
         # without --batch or --microbatches, the dry run's own cut (one
@@ -108,7 +172,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         split = args.batch is not None or args.microbatches > 1
         rec = dryrun.run_cell(
             args.arch, args.shape, args.dryrun_dir or dryrun.RESULTS,
-            force=True, device=args.device, cfg=cfg, shape=shape,
+            force=True, device=device, cfg=cfg, shape=shape,
             microbatch=shape.global_batch // args.microbatches if split
             else None)
         print(dryrun.summary_line(rec))
@@ -124,11 +188,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     tcfg = TrainerConfig(steps=args.steps, log_every=1,
                          ckpt_dir=args.ckpt_dir,
-                         heartbeat_dir=args.heartbeat_dir)
+                         heartbeat_dir=args.heartbeat_dir, host_id=rank,
+                         n_hosts=world)
     trainer = Trainer(build_model(cfg), make_optimizer("adamw"), shape, tcfg,
-                      microbatches=args.microbatches, device=args.device)
+                      microbatches=args.microbatches, device=device,
+                      mesh=mesh)
     out = trainer.run()
-    print(f"final loss: {out['final_loss']:.4f}")
+    if rank == 0:
+        print(f"final loss: {out['final_loss']:.4f}")
     return out
 
 

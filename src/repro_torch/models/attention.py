@@ -37,6 +37,8 @@ from repro_torch.core.remat import produce
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 NEG_INF = -1e30
 
@@ -50,6 +52,21 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
         "wv": layers.dense_init(gen, d, cfg.n_kv_heads * hd, dtype=dtype),
         "wo": layers.dense_init(gen, cfg.n_heads * hd, d, dtype=dtype),
     }
+
+
+def attention_specs():
+    """The reference's: the weights' out-dims are logical ``qkv``, which
+    its rules do not map (so they are replicated over ``model``); heads
+    and kv heads are activation axes."""
+    return {"wq": layers.dense_specs("embed", "qkv"),
+            "wk": layers.dense_specs("embed", "qkv"),
+            "wv": layers.dense_specs("embed", "qkv"),
+            "wo": layers.dense_specs("qkv", "embed")}
+
+
+def kv_cache_specs():
+    return {"k": (None, "batch", "kv_seq", "kv_heads", None),
+            "v": (None, "batch", "kv_seq", "kv_heads", None)}
 
 
 # ---------------------------------------------------------------------------
@@ -181,21 +198,40 @@ def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
 
     ``kv_x`` (B, Skv, d) switches to cross-attention: K and V come from
     it, rope is not applied and the call is non-causal.  ``use_rope=False``
-    drops rope from self-attention too."""
+    drops rope from self-attention too.
+
+    Under a mesh whose rules put ``heads`` over ``model`` (the reference's
+    ``constrain`` of q, k, v to heads / kv heads), each rank computes its
+    own heads (:func:`head_split`): a column block of the replicated
+    ``wq``, ``wk``, ``wv`` (FSDP-gathered over data where the placement
+    shards them), attention on those heads, and a row block of ``wo``
+    whose partial products are summed over ``model``."""
     dt = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    q0, h, k0, kv, kv_index = head_split(cfg)
+    split = R.current_mesh() is not None and bool(R.current_rules()["heads"])
+    if split:
+        x = C.copy_to(x)
+        kv_x = None if kv_x is None else C.copy_to(kv_x)
+    wq = C.fetch(params["wq"], 1, q0 * hd, h * hd)
+    wk = C.fetch(params["wk"], 1, k0 * hd, kv * hd)
+    wv = C.fetch(params["wv"], 1, k0 * hd, kv * hd)
+    wo = C.fetch(params["wo"], 0, q0 * hd, h * hd)
     kv_src = x if kv_x is None else kv_x
     skv = kv_src.shape[1]
     if use_rope and kv_x is None:
-        q = _rotary_projection(x, params["wq"], positions, cfg.rope_theta,
-                               h, dt)
-        k = _rotary_projection(x, params["wk"], positions, cfg.rope_theta,
-                               kv, dt)
+        q = _rotary_projection(x, wq, positions, cfg.rope_theta, h, dt)
+        k = _rotary_projection(x, wk, positions, cfg.rope_theta, kv, dt)
     else:
-        q = layers.dense(params["wq"], x, dt).view(b, s, h, hd)
-        k = layers.dense(params["wk"], kv_src, dt).view(b, skv, kv, hd)
-    v = layers.dense(params["wv"], kv_src, dt).view(b, skv, kv, hd)
+        q = layers.dense(wq, x, dt).view(b, s, h, hd)
+        k = layers.dense(wk, kv_src, dt).view(b, skv, kv, hd)
+    v = layers.dense(wv, kv_src, dt).view(b, skv, kv, hd)
+    if kv_index is not None:
+        # the local q heads' groups are not a whole block of local kv
+        # heads: give each q head its own group's k and v
+        k, v = k[:, :, kv_index], v[:, :, kv_index]
+        kv = h
     q = tag("qkv", q)
     causal = causal and kv_x is None
     impl = cfg.attention_impl
@@ -220,7 +256,33 @@ def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, *,
         o = naive_attention(q, _repeat_kv(k, h // kv),
                             _repeat_kv(v, h // kv), causal=causal)
     o = tag("attn_out", o.contiguous())
-    return layers.dense(params["wo"], o.view(b, s, h * hd), dt)
+    out = layers.dense(wo, o.view(b, s, h * hd), dt)
+    return C.reduce_from(out) if split else out
+
+
+def head_split(cfg: ModelConfig):
+    """(first q head, q heads, first kv head, kv heads, kv_index) this rank
+    computes.  Without a mesh, or when the rules keep ``heads`` off the
+    model axis, every head.  Otherwise the rank's block of the q heads
+    along ``model``, and the kv heads their GQA groups reach: when those
+    q heads fall into whole groups of equal size the kv block is used as
+    it is (``kv_index`` None; with kv heads that divide the model axis,
+    the rank's own block of them); else ``kv_index`` gives each local q
+    head its own global group among the projected kv heads."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    mesh = R.current_mesh()
+    if mesh is None or not R.current_rules().get("heads"):
+        return 0, h, 0, kv, None
+    parts = mesh.shape.get("model", 1)
+    hl = h // parts
+    q0 = mesh.coords().get("model", 0) * hl
+    groups = h // kv
+    owner = [(q0 + j) // groups for j in range(hl)]
+    k0, kl = owner[0], owner[-1] - owner[0] + 1
+    local = [o - k0 for o in owner]
+    if hl % kl == 0 and local == [j // (hl // kl) for j in range(hl)]:
+        return q0, hl, k0, kl, None
+    return q0, hl, k0, kl, local
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,14 @@ compute dtype, as the reference does at each use; a served model may hold
 matmul weights in that dtype already, which makes the cast a no-op (a
 trained one holds them in float32).  Norm scales stay float32.  ``tag``
 names an intermediate for a checkpointed block's policy
-(``repro_torch.core.remat``), as the reference's does; its ``constrain``
-annotations are the identity on one device and are dropped.
+(``repro_torch.core.remat``), as the reference's does.  Under a mesh
+(``repro_torch.sharding``) a parameter is read through
+``collectives.fetch`` (its FSDP shards gathered); the SwiGLU MLP whose
+placement splits ``mlp`` over ``model`` computes its own columns and sums
+its partial products, and an embedding split over the vocabulary looks up
+its own rows: the reference's ``constrain`` sites as explicit local
+compute.  Without a mesh every function computes what it does on one
+device.
 
 Every random draw takes a ``torch.Generator``; the tensor lands on the
 generator's device.
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
+from repro_torch.sharding import collectives as C
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -45,11 +52,17 @@ def rmsnorm_init(d: int, *, device) -> torch.Tensor:
     return torch.ones(d, dtype=torch.float32, device=device)
 
 
+def rmsnorm_specs():
+    """Logical axes of a norm scale (the reference's ``{"scale": ...}``;
+    the port holds the scale itself)."""
+    return ("embed",)
+
+
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * C.fetch(scale)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +84,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
 
 
+def dense_specs(in_axis, out_axis):
+    """Logical axes of a (d_in, d_out) kernel."""
+    return (in_axis, out_axis)
+
+
 def dense(kernel: torch.Tensor, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     return x.to(compute_dtype) @ kernel.to(compute_dtype)
@@ -82,15 +100,31 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
     return normal(gen, (vocab, d), 0.02, dtype)
 
 
+def embedding_specs():
+    return ("vocab", "embed")
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return F.embedding(tokens, table).to(compute_dtype)
+    """The rows of ``tokens``.  A table whose placement splits the
+    vocabulary over ``model`` holds a block of rows: each rank looks up
+    the tokens inside its block, zeros the others, and the blocks' rows
+    are summed over ``model``."""
+    if not C.split_over(table, 0):
+        return F.embedding(tokens, C.fetch(table)).to(compute_dtype)
+    rows = C.fetch(table)
+    local = tokens - C.block_start(table, 0)
+    inside = (local >= 0) & (local < rows.shape[0])
+    found = F.embedding(local.clamp(0, rows.shape[0] - 1), rows) \
+        * inside[..., None].to(rows.dtype)
+    return C.reduce_from(found).to(compute_dtype)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,
             compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Logits projection through a tied (V, d) table."""
-    return x.to(compute_dtype) @ table.to(compute_dtype).T
+    """Logits projection through a tied (V, d) table (this rank's
+    vocabulary block of it under a mesh that splits it)."""
+    return x.to(compute_dtype) @ C.fetch(table).to(compute_dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +165,12 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *,
             "down": dense_init(gen, d_ff, d, dtype=dtype)}
 
 
+def swiglu_specs():
+    return {"gate": dense_specs("embed", "mlp"),
+            "up": dense_specs("embed", "mlp"),
+            "down": dense_specs("mlp", "embed")}
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``'s formula, x * (1 / (1 + exp(-x))), rounded to the
     dtype after each step as the reference is (``F.silu`` rounds once, so
@@ -169,12 +209,20 @@ def swiglu(params, x: torch.Tensor,
     once to the compute dtype, where the reference's op-by-op jnp rounds
     g, u and each step of silu (about an ulp of h apart in bf16).  The
     down projection stays a matmul, as the reference leaves it to XLA.
+    Under a mesh that splits ``mlp`` over ``model``, each rank runs the
+    kernel on its own columns of gate and up and its rows of down, and
+    the partial products are summed over ``model``.
 
     ``skip`` is the reference's cost-probe mode (``cfg.mlp_skip``): x
     itself, the kernel's cost added analytically (``launch/costs.py``)."""
     if skip:
         return x
     dt = compute_dtype
-    h = fused_swiglu(x.to(dt), params["gate"].to(dt), params["up"].to(dt))
+    split = C.split_over(params["gate"], 1)
+    if split:
+        x = C.copy_to(x)
+    h = fused_swiglu(x.to(dt), C.fetch(params["gate"]).to(dt),
+                     C.fetch(params["up"]).to(dt))
     h = tag("mlp_hidden", h)
-    return dense(params["down"], h, dt)
+    out = dense(C.fetch(params["down"]), h, dt)
+    return C.reduce_from(out) if split else out

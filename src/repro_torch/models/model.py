@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -49,6 +49,31 @@ class Model:
     decode_fn: Callable
     prefill_fn: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
+    specs: Optional[Callable] = None
+
+    def param_specs(self) -> Dict[str, tuple]:
+        """Logical axes of every parameter, keyed by its name in
+        ``named_parameters()`` (the reference's ``param_specs`` tree, one
+        entry per layer of a stacked leaf, without the layer axis)."""
+        return flat_tree(self.specs())
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        """Every parameter's shape, keyed as :meth:`param_specs`, with
+        nothing allocated."""
+        from repro_torch.convert import param_shapes
+        return param_shapes(self.cfg)
+
+
+def flat_tree(tree, prefix: str = "") -> Dict[str, tuple]:
+    """A spec tree (dicts and lists, tuples at the leaves) as a flat
+    dict keyed by dotted paths, as ``named_parameters()`` names them."""
+    if isinstance(tree, tuple):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out: Dict[str, tuple] = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 def _init(init_fn: Callable, cfg: ModelConfig, seed: int, *,
@@ -63,6 +88,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, t.lm_init, cfg),
+            specs=lambda: t.lm_specs(cfg),
             loss_fn=lambda p, b: t.lm_loss(cfg, p, b),
             forward=lambda p, b: t.lm_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None: t.lm_decode_init(
@@ -76,6 +102,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, z.zamba_init, cfg),
+            specs=lambda: z.zamba_specs(cfg),
             loss_fn=lambda p, b: z.zamba_loss(cfg, p, b),
             forward=lambda p, b: z.zamba_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
@@ -89,6 +116,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, t.xlstm_init, cfg),
+            specs=lambda: t.xlstm_specs(cfg),
             loss_fn=lambda p, b: t.xlstm_loss(cfg, p, b),
             forward=lambda p, b: t.xlstm_forward(cfg, p, b["tokens"]),
             decode_init=lambda batch, max_seq, device=None:
@@ -102,6 +130,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, m.encdec_init, cfg),
+            specs=lambda: m.encdec_specs(cfg),
             loss_fn=lambda p, b: m.encdec_loss(cfg, p, b),
             forward=lambda p, b: m.encdec_forward(cfg, p, b["tokens"],
                                                   b["enc_frames"]),
@@ -116,6 +145,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(_init, m.vlm_init, cfg),
+            specs=lambda: m.vlm_specs(cfg),
             loss_fn=lambda p, b: m.vlm_loss(cfg, p, b),
             forward=lambda p, b: m.vlm_forward(cfg, p, b["tokens"],
                                                b["image_embeds"]),

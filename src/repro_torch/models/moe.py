@@ -53,6 +53,13 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def moe_specs():
+    return {"router": layers.dense_specs("embed", None),
+            "gate": ("expert", "embed", "mlp"),
+            "up": ("expert", "embed", "mlp"),
+            "down": ("expert", "mlp", "embed")}
+
+
 def _top_k_mask(router_probs: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(G,S,E) probs -> (G,S,E) selection mask and renormalised weights."""

@@ -55,6 +55,7 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import (Block, Tree, _Checkpointed,
                                             _mlp_residual, _param,
                                             block_forward, block_init,
+                                            block_specs,
                                             gated_cross_residual, lm_logits,
                                             memory_plan, padded_vocab,
                                             scan_blocks, softmax_xent)
@@ -135,6 +136,17 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig, *,
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
     return EncDecLM(cfg, tree, trainable=trainable)
+
+
+def encdec_specs(cfg: ModelConfig) -> Tree:
+    return {"embed": layers.embedding_specs(),
+            "enc_blocks": [block_specs(cfg)
+                           for _ in range(cfg.encoder_layers)],
+            "enc_ln": layers.rmsnorm_specs(),
+            "dec_blocks": [block_specs(cfg, cross=True)
+                           for _ in range(cfg.n_layers)],
+            "ln_f": layers.rmsnorm_specs(),
+            "unembed": layers.dense_specs("embed", "vocab")}
 
 
 class EncDecLM(nn.Module):
@@ -241,6 +253,16 @@ def vlm_init(gen: torch.Generator, cfg: ModelConfig, *,
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
     return VisionLM(cfg, tree, trainable=trainable)
+
+
+def vlm_specs(cfg: ModelConfig) -> Tree:
+    n_super, per = vlm_layout(cfg)
+    return {"embed": layers.embedding_specs(),
+            "self_blocks": [block_specs(cfg) for _ in range(n_super * per)],
+            "cross_blocks": [block_specs(cfg, cross=True)
+                             for _ in range(n_super)],
+            "ln_f": layers.rmsnorm_specs(),
+            "unembed": layers.dense_specs("embed", "vocab")}
 
 
 class VisionLM(nn.Module):

@@ -58,6 +58,16 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def ssm_specs(cfg: ModelConfig):
+    return {"in_proj": layers.dense_specs("embed", "mlp"),
+            "conv": (None, "mlp"),
+            "A_log": (None,),
+            "D": (None,),
+            "dt_bias": (None,),
+            "norm": ("mlp",),
+            "out_proj": layers.dense_specs("mlp", "embed")}
+
+
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """out[..., i, j] = sum_{j < k <= i} x[..., k], -inf above the diagonal:
     the mask comes before the exp, so neither the exp nor its gradient

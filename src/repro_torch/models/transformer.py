@@ -39,6 +39,8 @@ from repro_torch.core.plan import CompiledMemoryPlan, compile_plan
 from repro_torch.core.remat_policy import tag
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, xlstm
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 VOCAB_PAD = 256
 
@@ -86,6 +88,22 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, *,
         tree["xgate"] = torch.zeros((), dtype=torch.float32,
                                     device=gen.device)
     return tree
+
+
+def block_specs(cfg: ModelConfig, *, cross: bool = False) -> Tree:
+    """Logical axes of one block's parameters, as ``block_init`` lays
+    them out."""
+    s: Tree = {"ln1": layers.rmsnorm_specs(), "attn": attn.attention_specs(),
+               "ln2": layers.rmsnorm_specs()}
+    if cfg.is_moe:
+        s["moe"] = moe.moe_specs()
+    else:
+        s["mlp"] = layers.swiglu_specs()
+    if cross:
+        s["ln_x"] = layers.rmsnorm_specs()
+        s["xattn"] = attn.attention_specs()
+        s["xgate"] = ()
+    return s
 
 
 class Block(nn.Module):
@@ -229,6 +247,21 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig, *,
     return TransformerLM(cfg, tree, trainable=trainable)
 
 
+def lm_specs(cfg: ModelConfig) -> Tree:
+    """Logical axes of every parameter, the reference's ``lm_specs`` per
+    layer (its stacked layer axis, unsharded, is the port's list)."""
+    s: Tree = {"embed": layers.embedding_specs(),
+               "blocks": [block_specs(cfg) for _ in range(cfg.n_layers)],
+               "ln_f": layers.rmsnorm_specs()}
+    if not cfg.tie_embeddings:
+        s["unembed"] = layers.dense_specs("embed", "vocab")
+    return s
+
+
+def lm_decode_specs(cfg: ModelConfig) -> Tree:
+    return attn.kv_cache_specs()
+
+
 class TransformerLM(nn.Module):
     """Parameters of the decoder-only LM (dense or MoE);
     ``forward(tokens)`` gives all logits."""
@@ -251,11 +284,17 @@ class TransformerLM(nn.Module):
 
 def lm_logits(cfg: ModelConfig, params: TransformerLM,
               x: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, padded_vocab); under a mesh that splits the
+    vocabulary over ``model``, this rank's block of columns."""
     dt = layers.dtype_of(cfg.dtype)
     x = layers.rmsnorm(params.ln_f, x, cfg.norm_eps)
     if params.unembed is None:
+        if C.split_over(params.embed, 0):
+            x = C.copy_to(x)
         return layers.unembed(params.embed, x, dt)
-    return layers.dense(params.unembed, x, dt)
+    if C.split_over(params.unembed, 1):
+        x = C.copy_to(x)
+    return layers.dense(C.fetch(params.unembed), x, dt)
 
 
 def lm_forward_aux(cfg: ModelConfig, params: TransformerLM,
@@ -276,43 +315,78 @@ def lm_forward(cfg: ModelConfig, params: TransformerLM,
     return lm_forward_aux(cfg, params, tokens)[0]
 
 
+def _masked_fp32(logits: torch.Tensor, vocab: int, v0: int = 0
+                 ) -> torch.Tensor:
+    """fp32 logits (a copy), the padded ids masked by their global
+    index (the block's columns start at ``v0``)."""
+    lf = logits.float()
+    if lf is logits:
+        lf = lf.clone()
+    if v0 + lf.shape[-1] > vocab:
+        lf[..., max(vocab - v0, 0):] = -1e30   # mask padded ids
+    return lf
+
+
 class _SoftmaxXent(torch.autograd.Function):
-    """mean(logsumexp(l) - l[target]) over fp32 logits with the padded ids
-    masked at -1e30; the backward forms (softmax - onehot) / N in one fp32
-    buffer instead of autograd's chain of full-vocabulary tensors."""
+    """This rank's share of the mean cross-entropy logsumexp(l) -
+    l[target] over fp32 logits: the mean over its tokens divided by
+    ``parts``, the number of ranks the batch is split over (1 on one
+    device).  ``logits`` are its block of the vocabulary, starting at
+    global column ``v0``: the padded columns are masked at -1e30 by their
+    global index and, where ``split``, the maximum, the sum of
+    exponentials and the target's logit are reduced over ``model``.  The
+    backward forms (softmax - onehot) / (tokens x parts) on the block in
+    one fp32 buffer instead of autograd's chain of full-vocabulary
+    tensors, with no collective."""
 
     @staticmethod
-    def forward(ctx, logits, targets, vocab):
-        lf = _masked_fp32(logits, vocab)
-        logz = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, targets[..., None])[..., 0]
+    def forward(ctx, logits, targets, vocab, v0, parts, split):
+        lf = _masked_fp32(logits, vocab, v0)
+        local = targets - v0
+        inside = (local >= 0) & (local < lf.shape[-1])
+        gold = torch.gather(lf, -1, local.clamp(0, lf.shape[-1] - 1)
+                            [..., None])[..., 0] * inside
+        top = lf.amax(dim=-1)
+        if split:
+            top = C.all_reduce(top, "model", op="max")
+        sumexp = lf.sub_(top[..., None]).exp_().sum(dim=-1)  # in place
+        del lf
+        if split:
+            sumexp = C.all_reduce(sumexp, "model")
+            gold = C.all_reduce(gold, "model")
+        logz = top + torch.log(sumexp)
         ctx.save_for_backward(logits, targets, logz)
-        ctx.vocab = vocab
-        return torch.mean(logz - gold)
+        ctx.cfg = (vocab, v0, targets.numel() * parts)
+        return torch.mean(logz - gold) / parts
 
     @staticmethod
     def backward(ctx, g):
         logits, targets, logz = ctx.saved_tensors
-        p = _masked_fp32(logits, ctx.vocab).sub_(logz[..., None]).exp_()
-        idx = targets[..., None]
-        p.scatter_(-1, idx, torch.gather(p, -1, idx) - 1.0)
-        p.mul_(g / targets.numel())
-        return p.to(logits.dtype), None, None
-
-
-def _masked_fp32(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    lf = logits.float()
-    if lf is logits:
-        lf = lf.clone()
-    if lf.shape[-1] > vocab:
-        lf[..., vocab:] = -1e30                # mask padded ids
-    return lf
+        vocab, v0, n = ctx.cfg
+        p = _masked_fp32(logits, vocab, v0).sub_(logz[..., None]).exp_()
+        local = targets - v0
+        inside = (local >= 0) & (local < p.shape[-1])
+        idx = local.clamp(0, p.shape[-1] - 1)[..., None]
+        p.scatter_(-1, idx, torch.gather(p, -1, idx)
+                   - inside[..., None].to(p.dtype))
+        p.mul_(g / n)
+        return p.to(logits.dtype), None, None, None, None, None
 
 
 def softmax_xent(cfg: ModelConfig, logits: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy with padded-vocab masking, fp32 accumulation."""
-    return _SoftmaxXent.apply(logits, targets.long(), cfg.vocab)
+    """Cross-entropy with padded-vocab masking, fp32 accumulation.
+
+    Under a mesh: this rank's share of the global batch's mean (the mean
+    over its tokens over the number of ranks the batch is split over; the
+    shares sum to the mean over the batch axes), the vocabulary reduced
+    over ``model`` where the logits hold a block of it."""
+    mesh = R.current_mesh()
+    parts = padded_vocab(cfg) // logits.shape[-1]
+    v0 = mesh.coords().get("model", 0) * logits.shape[-1] if parts > 1 \
+        else 0
+    return _SoftmaxXent.apply(logits, targets.long(), cfg.vocab, v0,
+                              R.batch_parts(), parts > 1)
 
 
 def lm_loss(cfg: ModelConfig, params: TransformerLM, batch) -> torch.Tensor:
@@ -431,6 +505,20 @@ def xlstm_init(gen: torch.Generator, cfg: ModelConfig, *,
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
     return XLSTMLM(cfg, tree, trainable=trainable)
+
+
+def xlstm_specs(cfg: ModelConfig) -> Tree:
+    n_m, n_s = xlstm_counts(cfg)
+    s: Tree = {
+        "embed": layers.embedding_specs(),
+        "mblocks": [{"ln": layers.rmsnorm_specs(),
+                     "mlstm": xlstm.mlstm_specs()} for _ in range(n_m)],
+        "sblocks": [{"ln": layers.rmsnorm_specs(),
+                     "slstm": xlstm.slstm_specs()} for _ in range(n_s)],
+        "ln_f": layers.rmsnorm_specs(),
+        "unembed": layers.dense_specs("embed", "vocab"),
+    }
+    return s
 
 
 class XLSTMLM(nn.Module):

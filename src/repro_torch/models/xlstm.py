@@ -69,6 +69,18 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def mlstm_specs():
+    return {"up_l": layers.dense_specs("embed", "mlp"),
+            "up_r": layers.dense_specs("embed", "mlp"),
+            "wq": layers.dense_specs("mlp", "mlp"),
+            "wk": layers.dense_specs("mlp", "mlp"),
+            "wv": layers.dense_specs("mlp", "mlp"),
+            "w_if": ("mlp", None),
+            "b_if": (None,),
+            "norm": ("mlp",),
+            "down": layers.dense_specs("mlp", "embed")}
+
+
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   i_gate: torch.Tensor, f_gate: torch.Tensor, *,
                   chunk: int = 256) -> torch.Tensor:
@@ -253,6 +265,14 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, *,
         "norm": layers.rmsnorm_init(d, device=gen.device),
         "proj": layers.dense_init(gen, d, d, dtype=dt),
     }
+
+
+def slstm_specs():
+    return {"wx": layers.dense_specs("embed", "mlp"),
+            "wh": layers.dense_specs("embed", "mlp"),
+            "bias": ("mlp",),
+            "norm": ("embed",),
+            "proj": layers.dense_specs("embed", "embed")}
 
 
 def _slstm_cell(g: torch.Tensor, c: torch.Tensor, n: torch.Tensor,

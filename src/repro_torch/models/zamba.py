@@ -38,9 +38,9 @@ from repro_torch.models import layers, ssm
 from repro_torch.models.transformer import (Block, Tree, _Checkpointed,
                                             _mlp_residual, _param,
                                             _param_dict, block_forward,
-                                            block_init, lm_logits,
-                                            memory_plan, padded_vocab,
-                                            softmax_xent)
+                                            block_init, block_specs,
+                                            lm_logits, memory_plan,
+                                            padded_vocab, softmax_xent)
 
 
 def layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -82,6 +82,21 @@ def zamba_init(gen: torch.Generator, cfg: ModelConfig, *,
         "unembed": layers.dense_init(gen, cfg.d_model, pv, dtype=dt),
     }
     return ZambaLM(cfg, tree, trainable=trainable)
+
+
+def zamba_specs(cfg: ModelConfig) -> Tree:
+    n_groups, tail = layout(cfg)
+
+    def mamba():
+        return {"ln": layers.rmsnorm_specs(), "ssm": ssm.ssm_specs(cfg)}
+
+    return {"embed": layers.embedding_specs(),
+            "mblocks": [mamba() for _ in
+                        range(n_groups * cfg.shared_attn_every)],
+            "shared": block_specs(cfg),
+            "tail": [mamba() for _ in range(tail)],
+            "ln_f": layers.rmsnorm_specs(),
+            "unembed": layers.dense_specs("embed", "vocab")}
 
 
 class ZambaLM(nn.Module):

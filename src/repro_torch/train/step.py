@@ -1,16 +1,40 @@
-"""Train, prefill and decode steps on one device.
+"""Train, prefill and decode steps, on one device or on a mesh.
 
 Port of ``repro/train/step.py``: ``make_train_step``, ``make_prefill_step``
-and ``make_decode_step``.  The reference assembles mesh shardings around
-the same model calls; on one card the steps are the calls themselves (the
-serve steps without autograd).  Mesh and sharding belong to the TPU-pod
-layer (ROADMAP item 11), so a ``StepBundle`` has no shardings.
+and ``make_decode_step``.  Without a mesh the steps are the model calls
+themselves (the serve steps without autograd).  With a mesh
+(``repro_torch.launch.mesh``) the train and prefill steps run the dense
+and vision LMs sharded over ``(data, model)``, every placement from the
+reference's rule tables (``repro_torch.sharding``):
+
+* each parameter is stored as this rank's block of it
+  (``param_shardings``: vocabulary and mlp columns over ``model``; under
+  FSDP the ``embed`` dim over ``data``), each AdamW moment as its block
+  under :func:`opt_state_spec_tree` (``embed`` over ``data`` always:
+  ZeRO-1), and the batch over (pod, data);
+* the forward computes heads, mlp columns and the vocabulary over
+  ``model`` and gathers FSDP shards at use (``models/attention.py``,
+  ``models/layers.py``, ``models/transformer.py``);
+* after the backward each gradient is summed over the batch axes (an
+  FSDP gather's backward has reduce-scattered it over ``data`` already; a
+  ZeRO-1 parameter's is reduce-scattered to its moment's block) and, for
+  an attention weight whose heads the ranks split, over ``model``;
+* AdamW updates the moments' blocks and the parameters' matching blocks
+  in place, and a ZeRO-1 parameter's blocks are gathered back over
+  ``data``.
+
+The loss is the mean over the global batch and ``grad_norm`` the norm of
+the global gradient, every block counted once.  A :class:`StepBundle`
+carries the placements as the reference's does: ``in_shardings`` and
+``out_shardings``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Callable, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -19,6 +43,13 @@ from repro_torch.core.plan import CompiledMemoryPlan
 from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.sharding import api
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.rules import NamedSharding
+
+# the families whose compute runs sharded (the others raise under a mesh)
+MESH_FAMILIES = ("dense", "vlm")
 
 
 @dataclasses.dataclass
@@ -26,27 +57,120 @@ class StepBundle:
     """The step function of one (arch, shape) cell and, for a train step,
     the compiled memory plan whose checkpoint policy the model installs
     around each block (the model's own plan at the micro-batch's tokens,
-    ``transformer.memory_plan``)."""
+    ``transformer.memory_plan``).  On a mesh: ``in_shardings`` (the
+    parameters', the optimizer state's and the batch's placements; the
+    prefill step's parameters' and batch's) and ``out_shardings``, the
+    mesh and the activation rules.  Calling the bundle calls ``fn``."""
     fn: Callable
     memory_plan: Optional[CompiledMemoryPlan] = None
+    in_shardings: Any = None
+    out_shardings: Any = None
+    act_rules: Optional[Dict] = None
+    mesh: Any = None
+    init_state: Optional[Callable] = None
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def shard_params(self, params: torch.nn.Module) -> torch.nn.Module:
+        """Keep this rank's block of each of ``params`` (a module holding
+        the global values), in place; a no-op without a mesh."""
+        if self.mesh is None:
+            return params
+        return api.shard_module(params, self.in_shardings[0])
+
+
+def opt_state_spec_tree(opt_state, param_spec_tree):
+    """Logical axes of an optimizer state, mirroring the parameters': fp32
+    and bf16 moments take their parameter's axes; an int8 moment's
+    ``{"q", "scale"}`` get ``("qblocks", None)`` (the block dim over
+    (data, model) jointly); every other entry (``count``) is replicated.
+    The reference's ``opt_state_spec_tree``; ``param_spec_tree`` is
+    ``Model.param_specs()``."""
+    def one_moment(m, pspec):
+        if isinstance(m, dict):                      # int8 {"q", "scale"}
+            return {"q": ("qblocks", None), "scale": ("qblocks", None)}
+        return tuple(pspec)
+
+    out = {"mu": {n: {k: one_moment(m, param_spec_tree[n])
+                      for k, m in mv.items()}
+                  for n, mv in opt_state["mu"].items()}}
+    for k in opt_state:
+        if k != "mu":
+            out[k] = ()
+    return out
+
+
+def _batch_local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every input (the active rules' ``batch``)."""
+    return {k: R.constrain(v, "batch", *([None] * (v.dim() - 1)))
+            if v.dim() else v for k, v in batch.items()}
+
+
+def _check_mesh_model(cfg) -> None:
+    if cfg.family not in MESH_FAMILIES or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) does not run on a mesh yet: the "
+            "dense and vision LMs do (ROADMAP item 11 queues the rest)")
 
 
 def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
-                    *, microbatches: int = 1) -> StepBundle:
+                    *, mesh=None, microbatches: int = 1) -> StepBundle:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``params`` is the model's trainable module and ``opt_state`` the
-    optimizer state over ``dict(params.named_parameters())``; both are
-    updated in place (the reference donates them) and returned.  The step
-    is ``value_and_grad(model.loss_fn)``: with ``microbatches`` > 1 the
+    optimizer state (``bundle.init_state(params)``); both are updated in
+    place (the reference donates them) and returned.  The step is
+    ``value_and_grad(model.loss_fn)``: with ``microbatches`` > 1 the
     batch is split along its first axis, the grads of the chunks summed
     and divided by ``microbatches``, and so is the loss.  Then the
     optimizer's in-place update (``Optimizer.update_``), and metrics
     ``{"loss", "grad_norm"}``, the latter the fp32 norm over all grads.
     The values stay on the device; reading one waits for the step.
+
+    On a ``mesh``, ``params`` holds this rank's blocks
+    (``bundle.shard_params``), ``batch`` the global batch (every rank the
+    same; each takes its rows), and the metrics are the global ones.
+    Without one every block is the whole tensor and no collective is
+    made: the step is the one-device step.
     """
     micro_tokens = (shape.global_batch // max(microbatches, 1)) \
         * shape.seq_len
+    bundle = StepBundle(fn=None, memory_plan=transformer.memory_plan(
+        model.cfg, micro_tokens))
+    act, p_shard, batch_axes, axes, heads_split = None, None, (), (), False
+    zero = collections.defaultdict(list)       # (dim, axis) ZeRO-1 cuts
+    rep = collections.defaultdict(lambda: 1)   # ranks holding each block
+    if mesh is not None:
+        act, p_shard, zero, rep = _mesh_layout(model, optimizer, shape, mesh,
+                                               microbatches, bundle)
+        batch_axes, axes = act["batch"], mesh.axis_names
+        heads_split = bool(act.get("heads")) \
+            and mesh.shape.get("model", 1) > 1
+
+    def blocks(named):
+        """The block of each parameter its moments cover (a view)."""
+        out = {}
+        for n, p in named.items():
+            t = p.data
+            for d, axis in zero[n]:
+                size = t.shape[d] // mesh.shape[axis]
+                t = t.narrow(d, mesh.coords()[axis] * size, size)
+            out[n] = t
+        return out
+
+    def reduce_grad(n: str, g: torch.Tensor) -> torch.Tensor:
+        if heads_split and n.split(".")[-2:-1] in (["attn"], ["xattn"]):
+            # each model rank projected its own heads through this
+            # replicated weight: the blocks of its gradient add up
+            g = C.all_reduce(g, "model")
+        for axis in batch_axes:
+            if axis in p_shard[n].used_axes():
+                continue            # the FSDP gather's reduce-scatter
+            dims = [d for d, a in zero[n] if a == axis]
+            g = C.reduce_scatter(g, axis, dims[0]) if dims \
+                else C.all_reduce(g, axis)
+        return g
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         named = dict(params.named_parameters())
@@ -58,40 +182,142 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         else:
             chunks = [batch]
         loss = 0.0
-        for chunk in chunks:
-            part = model.loss_fn(params, chunk)
-            part.backward()
-            loss = loss + part.detach()
-        # a parameter the loss does not reach (in probe mode: the
-        # bypassed kernels' weights) gets a zero gradient, as jax.grad
-        # gives
-        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                 for n, p in named.items()}
-        if microbatches > 1:
-            for g in grads.values():
-                g.div_(microbatches)
-            loss = loss / microbatches
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads.values()))
-        optimizer.update_(grads, opt_state, named)
+        with R.use_mesh(mesh, act):
+            for chunk in chunks:
+                part = model.loss_fn(params, _batch_local(chunk))
+                part.backward()
+                loss = loss + part.detach()
+            grads = {}
+            for n, p in named.items():
+                # a parameter the loss does not reach (in probe mode: the
+                # bypassed kernels' weights) gets a zero gradient, as
+                # jax.grad gives
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                grads[n] = reduce_grad(n, g)
+                if grads[n] is not g:     # the unreduced gradient goes as
+                    p.grad = None         # soon as it is reduced
+            if microbatches > 1:
+                for g in grads.values():
+                    g.div_(microbatches)
+                loss = loss / microbatches
+            for axis in batch_axes:
+                loss = C.all_reduce(loss, axis)
+            sq = sum(torch.sum(torch.square(g.float())) / rep[n]
+                     for n, g in grads.items())
+            for axis in axes:
+                sq = C.all_reduce(sq, axis)
+            gnorm = torch.sqrt(sq)
+            optimizer.update_(grads, opt_state, blocks(named))
+            with torch.no_grad():
+                for n, p in named.items():
+                    for d, axis in zero[n]:
+                        p.data = C.all_gather(blocks({n: p})[n], axis, d)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return StepBundle(fn=train_step,
-                      memory_plan=transformer.memory_plan(model.cfg,
-                                                          micro_tokens))
+    bundle.fn = train_step
+    bundle.init_state = lambda params: optimizer.init(
+        blocks(dict(params.named_parameters())))
+    return bundle
 
 
-def make_prefill_step(model: Model) -> Callable:
+def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
+                 mesh, microbatches: int, bundle: StepBundle):
+    """The train step's placements on ``mesh``, recorded on ``bundle``:
+    returns the activation rules, the parameters' placements, each
+    parameter's ZeRO-1 cuts and how many ranks hold each moment block."""
+    cfg = model.cfg
+    _check_mesh_model(cfg)
+    if not optimizer.name.startswith("adamw") or \
+            optimizer.name == "adamw_int8":
+        raise NotImplementedError(
+            f"{optimizer.name} on a mesh: the sharded step updates fp32 or "
+            "bf16 AdamW moments (int8 blocks over (data, model) are not "
+            "ported)")
+    act = api.activation_rules(cfg, shape, mesh)
+    act["qblocks"] = ("data", "model")
+    batch_axes = act["batch"]
+    if batch_axes is None or shape.global_batch % microbatches or \
+            (shape.global_batch // microbatches) % math.prod(
+                mesh.shape[a] for a in batch_axes):
+        raise NotImplementedError(
+            f"a batch of {shape.global_batch} in {microbatches} "
+            f"micro-batches does not split over {batch_axes}: sequence "
+            "parallelism is not ported")
+    specs, shapes = model.param_specs(), model.param_shapes()
+    p_shard = api.param_shardings(mesh, cfg, specs, shapes)
+    abstract = {"mu": {n: {"m": tuple(s), "v": tuple(s)}
+                       for n, s in shapes.items()}, "count": ()}
+    o_shard = api.tree_shardings(
+        mesh, opt_state_spec_tree(abstract, specs),
+        {**act, "embed": ("data",), "qblocks": ("data", "model")}, abstract)
+    m_shard = {n: o_shard["mu"][n]["m"] for n in shapes}
+    replicated = NamedSharding(mesh, ())
+    b_shard = NamedSharding(mesh, (tuple(batch_axes) if len(batch_axes) > 1
+                                   else batch_axes[0],))
+    bundle.in_shardings = (p_shard, o_shard, b_shard)
+    bundle.out_shardings = (p_shard, o_shard, {"loss": replicated,
+                                               "grad_norm": replicated})
+    bundle.act_rules, bundle.mesh = act, mesh
+    return (act, p_shard,
+            {n: _zero_dims(n, p_shard[n], m_shard[n]) for n in shapes},
+            {n: m_shard[n].replication() for n in shapes})
+
+
+def _zero_dims(name: str, param: NamedSharding, moment: NamedSharding):
+    """(dim, axis) pairs along which the moments' placement cuts a
+    parameter's block further (ZeRO-1: ``embed`` over ``data`` for a
+    parameter stored whole along it)."""
+    out = []
+    for d in range(max(len(param.spec), len(moment.spec))):
+        have, want = param.dim_axes(d), moment.dim_axes(d)
+        if want[:len(have)] != have:
+            raise NotImplementedError(f"{name}: the moments' placement "
+                                      f"{moment.spec} does not refine the "
+                                      f"parameter's {param.spec}")
+        out += [(d, a) for a in want[len(have):]]
+    if len(out) > 1:
+        raise NotImplementedError(f"{name}: the moments cut the parameter "
+                                  f"along more than one axis {out}")
+    return out
+
+
+def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
     """(params, batch) -> logits (B, S, padded_vocab): ``model.forward``
     without autograd.  ``batch`` holds ``tokens`` (B, S) and, for the
     multimodal families, ``enc_frames`` (audio) or ``image_embeds`` (vlm),
-    (B, T, d)."""
+    (B, T, d).
+
+    On a ``mesh``: ``params`` holds this rank's blocks
+    (``bundle.shard_params``) and ``batch`` the global batch; the result
+    is this rank's block of the logits, its rows of the batch and, where
+    the vocabulary is split over ``model``, its block of the columns (the
+    reference's out placement)."""
+    cfg = model.cfg
 
     @torch.no_grad()
     def prefill(params, batch):
-        return model.forward(params, batch)
+        act = None
+        if mesh is not None:
+            b, s = batch["tokens"].shape
+            act = api.activation_rules(
+                cfg, ShapeConfig("prefill", s, b, "prefill"), mesh)
+            if act["batch"] is None:
+                raise NotImplementedError(
+                    f"a batch of {b} does not split over the mesh: "
+                    "sequence parallelism is not ported")
+        with R.use_mesh(mesh, act):
+            return model.forward(params, _batch_local(batch))
 
-    return prefill
+    if mesh is None:
+        return StepBundle(fn=prefill)
+    _check_mesh_model(cfg)
+    p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
+                                  model.param_shapes())
+    rows = ("pod", "data") if "pod" in mesh.shape else "data"
+    return StepBundle(fn=prefill, in_shardings=(p_shard, None),
+                      out_shardings=NamedSharding(mesh,
+                                                  (rows, None, "model")),
+                      mesh=mesh)
 
 
 def make_decode_step(model: Model) -> Callable:

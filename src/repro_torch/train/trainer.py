@@ -1,8 +1,15 @@
 """Training loop: step function + data pipeline + checkpoint + fault runtime.
 
-Port of ``repro/train/trainer.py``, on one device:
+Port of ``repro/train/trainer.py``, on one device or on a mesh:
 
     restore-or-init -> [train_step -> heartbeat -> watchdog -> ckpt]* -> final
+
+On a mesh (``Trainer(..., mesh=...)``, every rank of the world running
+the same trainer with ``TrainerConfig(host_id=rank, n_hosts=world)``)
+each rank holds its blocks of the parameters and the AdamW state
+(``train/step.py``), draws the same global batch and takes its rows, and
+saves and restores its own blocks (``checkpoint/ckpt.py``: a run saved on
+one mesh resumes on another).
 
 One difference: a checkpoint is labelled with the number of steps it has
 completed.  The reference labels it with the index of the step that has
@@ -52,13 +59,14 @@ class Trainer:
     def __init__(self, model: Model, optimizer: Optimizer,
                  shape: ShapeConfig, tcfg: TrainerConfig, *,
                  producer=None, microbatches: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.model = model
         self.optimizer = optimizer
         self.shape = shape
         self.tcfg = tcfg
         self.device = resolve_device(device)
-        self.bundle = make_train_step(model, optimizer, shape,
+        self.mesh = mesh
+        self.bundle = make_train_step(model, optimizer, shape, mesh=mesh,
                                       microbatches=microbatches)
         self.step_fn = self.bundle.fn
         self.ckpt = CheckpointManager(
@@ -73,10 +81,9 @@ class Trainer:
 
     # ------------------------------------------------------------------ run
     def init_state(self):
-        params = self.model.init(self.tcfg.seed, device=self.device,
-                                 trainable=True)
-        opt_state = self.optimizer.init(dict(params.named_parameters()))
-        return params, opt_state
+        params = self.bundle.shard_params(self.model.init(
+            self.tcfg.seed, device=self.device, trainable=True))
+        return params, self.bundle.init_state(params)
 
     def run(self) -> Dict[str, Any]:
         tcfg = self.tcfg
@@ -87,12 +94,15 @@ class Trainer:
 
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             start_step = self.ckpt.latest_step()
-            _, ds = self.ckpt.restore(start_step, (named, opt_state))
+            _, ds = self.ckpt.restore(start_step, (named, opt_state),
+                                      shardings=self._shardings())
             if ds:
                 data_state = DataState.from_dict(ds)
         self.restored_data_state = data_state if start_step else None
 
-        host_batch = self.shape.global_batch // tcfg.n_hosts
+        # on a mesh every rank draws the global batch and takes its rows
+        host_batch = self.shape.global_batch if self.mesh is not None \
+            else self.shape.global_batch // tcfg.n_hosts
         queue = BatchQueue(self.producer, batch=host_batch,
                            state=data_state)
         try:
@@ -120,15 +130,23 @@ class Trainer:
                 if self.ckpt and done < tcfg.steps \
                         and done % tcfg.ckpt_every == 0:
                     self.ckpt.save(done, (named, opt_state),
-                                   data_state.as_dict())
+                                   data_state.as_dict(),
+                                   shardings=self._shardings())
             if self.ckpt:
                 self.ckpt.save(tcfg.steps, (named, opt_state),
-                               data_state.as_dict(), blocking=True)
+                               data_state.as_dict(), blocking=True,
+                               shardings=self._shardings())
             return {"params": params, "opt_state": opt_state,
                     "final_loss": loss, "history": self.history,
                     "memory_plan": self.bundle.memory_plan.report()}
         finally:
             queue.close()
+
+
+    def _shardings(self):
+        """The (parameters', optimizer state's) placements on the mesh, or
+        None on one device."""
+        return None if self.mesh is None else self.bundle.in_shardings[:2]
 
 
 def quick_train(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 32,

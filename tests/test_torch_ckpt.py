@@ -36,8 +36,11 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import build_model, reduce_config  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.sharding.rules import NamedSharding  # noqa: E402
 from repro_torch.train.trainer import (Trainer, TrainerConfig,  # noqa: E402
                                        quick_train)
+from torch_dist_util import run_ranks  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -162,13 +165,100 @@ def test_atomic_publish(tmp_path):
     assert not (tmp_path / "step_2.tmp").exists()
 
 
-def test_pod_restores_raise(tmp_path):
-    mgr = CheckpointManager(str(tmp_path))
-    mgr.save(1, _tree(), blocking=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.restore(1, _zeros_like(_tree()), shardings=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CheckpointManager(str(tmp_path), n_hosts=2)
+class _MeshAt(Mesh):
+    """An abstract mesh seen from the rank at ``coords``."""
+
+    def __init__(self, shape, axes, coords):
+        super().__init__(shape, axes)
+        self._at = dict(coords)
+
+    def coords(self):
+        return dict(self._at)
+
+
+def _shardings(mesh):
+    """The placements of ``_tree()`` on a ("data",) mesh: the table's rows
+    and its moments split over data, the rest replicated."""
+    rows, whole = NamedSharding(mesh, ("data",)), NamedSharding(mesh, ())
+    return ({"embed": rows, "blocks.0.ln1": whole},
+            {"mu": {"embed": {"m": rows, "v": rows}}, "count": whole})
+
+
+@pytest.mark.parametrize("host", [0, 1])
+def test_multi_host_checkpoint_restores_onto_a_mesh(tmp_path, host):
+    """Two hosts of a ("data",) mesh of 2 each write their block of the
+    rows (host 0 publishes once both files are in); the checkpoint reads
+    back whole on one device and re-shards onto either host's block."""
+    full = _tree()
+    for h in (1, 0):
+        mesh = _MeshAt((2,), ("data",), {"data": h})
+        sh = _shardings(mesh)
+        local = _map2(lambda t, s: s.shard(t).clone(), full, sh)
+        CheckpointManager(str(tmp_path), host_id=h, n_hosts=2).save(
+            4, local, {"epoch": 0, "index": 2}, blocking=True, shardings=sh)
+    manifest = json.loads((tmp_path / "step_4" / "manifest.json").read_text())
+    assert manifest["n_hosts"] == 2 and manifest["mesh"] == {
+        "axes": ["data"], "shape": [2]}
+    embed = next(m for m in manifest["leaves"] if m["name"] == "[0]['embed']")
+    assert embed["global_shape"] == [8, 4] and embed["shard_shape"] == [4, 4]
+    whole = _zeros_like(full)
+    CheckpointManager(str(tmp_path)).restore(4, whole)
+    _equal(whole, full)
+    sh = _shardings(_MeshAt((2,), ("data",), {"data": host}))
+    target = _map2(lambda t, s: torch.zeros_like(s.shard(t)), full, sh)
+    _, ds = CheckpointManager(str(tmp_path)).restore(4, target, shardings=sh)
+    _equal(target, _map2(lambda t, s: s.shard(t), full, sh))
+    assert ds == {"epoch": 0, "index": 2}
+
+
+def test_restore_holds_one_leaf_at_a_time(tmp_path):
+    """A re-sharding restore builds one global leaf on the host at a time:
+    its peak of host allocations stays under three leaves' bytes for a
+    checkpoint of eight, written by two hosts and read back onto one
+    host's block."""
+    import tracemalloc
+    g = torch.Generator().manual_seed(1)
+    full = {f"w{i}": torch.randn(256, 1024, generator=g) for i in range(8)}
+    leaf_bytes = 256 * 1024 * 4
+    for h in (1, 0):
+        rows = NamedSharding(_MeshAt((2,), ("data",), {"data": h}),
+                             ("data",))
+        CheckpointManager(str(tmp_path), host_id=h, n_hosts=2).save(
+            1, {k: rows.shard(v).clone() for k, v in full.items()},
+            blocking=True, shardings={k: rows for k in full})
+    rows = NamedSharding(_MeshAt((2,), ("data",), {"data": 1}), ("data",))
+    target = {k: torch.zeros(128, 1024) for k in full}
+    tracemalloc.start()
+    try:
+        CheckpointManager(str(tmp_path)).restore(
+            1, target, shardings={k: rows for k in full})
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    for k, v in full.items():
+        assert torch.equal(target[k], rows.shard(v))
+    assert peak < 3 * leaf_bytes, (peak, leaf_bytes)
+
+
+def test_unpublished_multi_host_save_raises(tmp_path, monkeypatch):
+    """Host 0 publishes only once every rank's shard is in: a rank that
+    never writes makes its save fail, raised by ``wait``, and nothing is
+    listed."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    monkeypatch.setattr(ckpt_mod, "PUBLISH_TIMEOUT_S", 0.2)
+    mgr = CheckpointManager(str(tmp_path), host_id=0, n_hosts=2)
+    with pytest.raises(TimeoutError, match="shard"):
+        mgr.save(1, _tree(), blocking=True)
+    assert mgr.all_steps() == []
+    mgr.wait()                              # the error is raised once
+
+
+def _map2(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map2(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 def _reference_pair(arch="llama3.2-3b", **kw):
@@ -291,18 +381,51 @@ def test_launch_train_test_mesh_on_the_cpu(capsys):
 
 
 # --dry-run runs the cost probe on one card (tests/test_torch_probe.py);
-# a dry run of the pod mesh still raises, as the pod flags do
-POD_FLAGS = {"--dry-run": ["--dry-run", "--multi-pod"],
-             "--multi-pod": ["--multi-pod"],
-             "--distributed": ["--distributed"]}
+# a dry run of the pod mesh still raises, as --multi-pod does (a second
+# pod is a second host).  --distributed trains on the world's mesh
+# (test_launch_train_distributed_on_four_cpu_ranks); without a card it
+# runs only when asked for the CPU (gloo), and refuses otherwise
+POD_FLAGS = {"--dry-run": (["--dry-run", "--multi-pod"], "cpu",
+                           NotImplementedError, "item 11"),
+             "--multi-pod": (["--multi-pod"], "cpu", NotImplementedError,
+                             "item 11"),
+             "--distributed": (["--distributed"], None, RuntimeError,
+                               "no CUDA device")}
 
 
 @pytest.mark.parametrize("flag", list(POD_FLAGS))
 def test_launch_train_pod_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    argv, device, exc, match = POD_FLAGS[flag]
+    if device is None and torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA card")
+    with pytest.raises(exc, match=match):
         launch_train.main(["--arch", "llama3.2-3b", "--test-mesh",
-                           "--device", "cpu", "--steps", "1",
-                           *POD_FLAGS[flag]])
+                           "--steps", "1", *argv]
+                          + (["--device", device] if device else []))
+
+
+def test_launch_train_distributed_on_four_cpu_ranks(tmp_path):
+    """``launch.train --distributed --test-mesh --device cpu`` on 4 ranks
+    (each joins the world itself, as under torchrun): two steps on the
+    (2, 2) test mesh, the loss falls, and the sharded checkpoint of the
+    last step is published; with ``--dry-run`` the mesh cell's record
+    holds one step's collectives by kind."""
+    run_ranks("launch_train", tmp_path, join=False, timeout=240)
+    out = torch.load(tmp_path / "launch_out.pt", weights_only=False)
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[1] < losses[0]
+    manifest = json.loads((tmp_path / "ckpt" / "step_2" /
+                           "manifest.json").read_text())
+    assert manifest["n_hosts"] == 4
+    assert manifest["mesh"] == {"axes": ["data", "model"], "shape": [2, 2]}
+    rec = json.loads((tmp_path / "dryrun" /
+                      "llama3.2-3b__train_4k__2x2.json").read_text())
+    assert rec == out["dry_run"] and rec["status"] == "ok"
+    per_op = rec["collectives"]["per_op"]
+    assert per_op["all-reduce"]["count"] > 0 and \
+        per_op["all-gather"]["count"] > 0
+    assert rec["collectives"]["collective_bytes"] > 0
 
 
 def test_launch_train_refuses_without_a_card():

@@ -21,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] \
     + sorted((ROOT / "tools").glob("torch_*.py")) \
-    + [ROOT / "tools" / "lint_invariants_torch.py"] \
+    + [ROOT / "tools" / "lint_invariants_torch.py",
+       ROOT / "tools" / "chip_dist.py"] \
     + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -61,7 +62,48 @@ def test_port_import_leaves_jax_out_of_sys_modules():
                          env={**os.environ,
                               "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 32    # every module was imported
+
+
+# the pod layer's multi-card half: each is among the files checked above
+MESH_MODULES = ("launch/mesh.py", "sharding/__init__.py", "sharding/rules.py",
+                "sharding/api.py", "sharding/collectives.py",
+                "train/pipeline.py", "launch/comm_analysis.py")
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_are_checked(module):
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_distributed_launch_refuses_without_a_card(no_card):
+    """``--distributed`` runs NCCL on the card; without one it runs only
+    when asked for the CPU (gloo)."""
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "llama3.2-3b", "--test-mesh",
+                           "--distributed", "--steps", "1"])
+
+
+def test_kernels_refuse_a_distributed_tensor():
+    """The kernels read their operands through data pointers: a
+    distributed tensor (one with ``to_local``) is refused before any
+    launch, whatever its device."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+
+    class Distributed(torch.Tensor):
+        def to_local(self):
+            return self.as_subclass(torch.Tensor)
+
+    x = torch.zeros(1, 2, 8, 16).as_subclass(Distributed)
+    with pytest.raises(TypeError, match="to_local"):
+        fa.flash_attention_fwd(x, x, x)
+    w = torch.zeros(16, 8).as_subclass(Distributed)
+    with pytest.raises(TypeError, match="to_local"):
+        sw.fused_swiglu(torch.zeros(4, 16), w, w)
 
 
 @pytest.fixture

@@ -1,0 +1,238 @@
+"""The port's placement tables against the reference's rule functions.
+
+For every architecture in ``ARCHS`` (every family), on the meshes (1, 1),
+(2, 2), (4, 1), (1, 4) and (pod 2, data 2, model 1), with FSDP forced on
+and off: every parameter leaf's placement, and every AdamW moment's, is
+the reference's ``PartitionSpec``.  The reference's rules need only the
+mesh's axis names and sizes, so it gets a ``jax.sharding.AbstractMesh``
+and the port an abstract ``Mesh``: no devices on either side.  A stacked
+reference leaf carries a leading unsharded layer axis, which the port's
+per-layer parameters do not have.  ``activation_rules`` agree for a train
+shape, a decode shape, batch 1, and kv heads that do not divide the model
+axis.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
+from repro.configs.base import ShapeConfig as JaxShape  # noqa: E402
+from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
+from repro.sharding import api as jax_api  # noqa: E402
+from repro.train.step import opt_state_spec_tree as jax_opt_specs  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.convert import lm_leaf_paths  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.sharding import api  # noqa: E402
+from repro_torch.sharding.rules import (DEFAULT_RULES,  # noqa: E402
+                                        NamedSharding, constrain, use_mesh)
+from repro_torch.train.step import opt_state_spec_tree  # noqa: E402
+
+MESHES = {"1x1": ((1, 1), ("data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "pod2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+
+
+def _trim(spec):
+    out = list(spec)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch: str):
+    model = jax_build(JAX_ARCHS[arch])
+    abstract = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
+    return model, abstract
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _reference_param_specs(arch, mesh_key, fsdp):
+    model, abstract = _reference(arch)
+    mesh = AbstractMesh(*MESHES[mesh_key])
+    shard = jax_api.param_shardings(mesh, model.cfg, model.param_specs(),
+                                    abstract, fsdp=fsdp)
+    return {name: (_trim(tuple(_leaf(shard, path).spec)), i)
+            for name, path, i in lm_leaf_paths(ARCHS[arch], abstract)}
+
+
+def _port_mesh(mesh_key):
+    return Mesh(*MESHES[mesh_key])
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["tp", "fsdp"])
+@pytest.mark.parametrize("mesh_key", list(MESHES))
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_param_placements_equal_the_reference(arch, mesh_key, fsdp):
+    want = _reference_param_specs(arch, mesh_key, fsdp)
+    model = build_model(ARCHS[arch])
+    got = api.param_shardings(_port_mesh(mesh_key), model.cfg,
+                              model.param_specs(), model.param_shapes(),
+                              fsdp=fsdp)
+    assert set(got) == set(want)
+    for name, sh in got.items():
+        ref, stacked = want[name]
+        mine = ((None,) + sh.spec) if stacked is not None else sh.spec
+        assert _trim(mine) == ref, (name, mine, ref)
+
+
+def _reference_moment_specs(arch, mesh_key, shape, state_dtype):
+    model, abstract = _reference(arch)
+    mesh = AbstractMesh(*MESHES[mesh_key])
+    act = jax_api.activation_rules(model.cfg, shape, mesh)
+    act["qblocks"] = ("data", "model")
+    opt = jax.eval_shape(lambda: jax_make_optimizer(
+        "adamw", state_dtype=state_dtype).init(abstract))
+    o_specs = jax_opt_specs(opt, model.param_specs())
+    shard = jax_api.tree_shardings(
+        mesh, o_specs, {**act, "embed": ("data",),
+                        "qblocks": ("data", "model")}, opt)
+    return shard
+
+
+def _port_moment_state(model, state_dtype):
+    """An AdamW state's structure and shapes, nothing allocated."""
+    def one(shape):
+        if state_dtype == "int8":
+            nb = -(-int(np.prod(shape)) // 256)
+            q = {"q": (nb, 256), "scale": (nb, 1)}
+            return {"m": q, "v": dict(q)}
+        return {"m": tuple(shape), "v": tuple(shape)}
+    return {"mu": {n: one(s) for n, s in model.param_shapes().items()},
+            "count": ()}
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("mesh_key", list(MESHES))
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_moment_placements_equal_the_reference(arch, mesh_key, state_dtype):
+    """fp32 moments take the parameter's axes with ``embed`` over data
+    (ZeRO-1); an int8 moment's blocks go over (data, model) jointly.  An
+    int8 leaf of a stacked parameter is one quantised tree over every
+    layer in the reference and one per layer in the port, so its block
+    count (and with it the divisibility drop) differs: those are compared
+    only for the unstacked leaves."""
+    shape = ShapeConfig("train_4k", 4096, 256, "train")
+    ref = _reference_moment_specs(arch, mesh_key, JaxShape(
+        "train_4k", 4096, 256, "train"), state_dtype)
+    model = build_model(ARCHS[arch])
+    mesh = _port_mesh(mesh_key)
+    state = _port_moment_state(model, state_dtype)
+    act = api.activation_rules(model.cfg, shape, mesh)
+    specs = opt_state_spec_tree(state, model.param_specs())
+    got = api.tree_shardings(mesh, specs,
+                             {**act, "embed": ("data",),
+                              "qblocks": ("data", "model")}, state)
+    assert got["count"].spec == () == _trim(tuple(ref["count"].spec))
+    _, abstract = _reference(arch)
+    for name, path, i in lm_leaf_paths(ARCHS[arch], abstract):
+        for k in ("m", "v"):
+            mine, theirs = got["mu"][name][k], _leaf(ref["mu"], path)[k]
+            if state_dtype == "int8":
+                if i is not None:
+                    continue
+                for part in ("q", "scale"):
+                    assert mine[part].spec == _trim(
+                        tuple(theirs[part].spec)), (name, part)
+                continue
+            spec = ((None,) + mine.spec) if i is not None else mine.spec
+            assert _trim(spec) == _trim(tuple(theirs.spec)), (name, k)
+
+
+ACT_SHAPES = {"train": (4096, 256, "train"), "decode": (32768, 16, "decode"),
+              "batch1": (32768, 1, "decode"), "prefill": (4096, 2, "prefill")}
+
+
+@pytest.mark.parametrize("shape_key", list(ACT_SHAPES))
+@pytest.mark.parametrize("mesh_key", ["2x2", "1x4", "pod2x2x1"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "llama-3.2-vision-11b",
+                                  "zamba2-7b", "whisper-tiny",
+                                  "granite-moe-1b-a400m"])
+def test_activation_rules_equal_the_reference(arch, mesh_key, shape_key):
+    """whisper-tiny's 6 heads and llama3.2-3b's 8 kv heads against a model
+    axis of 4 are the non-divisible cases (kv_seq over model at decode)."""
+    s, b, kind = ACT_SHAPES[shape_key]
+    model, _ = _reference(arch)
+    ref = jax_api.activation_rules(model.cfg, JaxShape("s", s, b, kind),
+                                   AbstractMesh(*MESHES[mesh_key]))
+    mine = api.activation_rules(ARCHS[arch], ShapeConfig("s", s, b, kind),
+                                _port_mesh(mesh_key))
+    assert mine == ref
+
+
+def test_default_rules_are_the_reference_table_without_qkv():
+    from repro.sharding.rules import DEFAULT_RULES as REF
+    assert DEFAULT_RULES == REF
+    assert "qkv" not in DEFAULT_RULES
+
+
+def test_fsdp_threshold_covers_the_vision_and_3b_lms():
+    """The reference's size rule: fp32 parameters above 8e9 bytes."""
+    for arch, on in (("llama3.2-3b", True), ("llama-3.2-vision-11b", True),
+                     ("whisper-tiny", False), ("xlstm-1.3b", False)):
+        assert api.fsdp_on(ARCHS[arch]) is on
+        assert bool(jax_api.param_rules(
+            JAX_ARCHS[arch], AbstractMesh((2, 2), ("data", "model")))
+            ["embed"]) is on
+
+
+def test_placement_blocks_and_constrain():
+    mesh = Mesh((2, 2), ("data", "model"))
+    sh = NamedSharding(mesh, (("data", "model"), None))
+    t = torch.arange(32).reshape(8, 4)
+    blocks = [sh.shard(t, {"data": d, "model": m})
+              for d in range(2) for m in range(2)]
+    assert torch.equal(torch.cat(blocks), t)          # row-major over axes
+    assert sh.replication() == 1
+    assert NamedSharding(mesh, (None, "model")).replication() == 2
+    with use_mesh(mesh, {"batch": ("data",)}):
+        assert constrain(t, "batch", None).shape == (4, 4)
+        assert constrain(t, "batch").shape == (8, 4)   # names != dims
+    assert constrain(t, "batch", None) is t            # no mesh
+
+
+def test_meshes_the_port_cannot_build_raise():
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    with pytest.raises(NotImplementedError, match="256"):
+        make_production_mesh()
+    with pytest.raises(NotImplementedError, match="512"):
+        make_production_mesh(multi_pod=True)
+    if not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="process group"):
+            make_mesh((2, 2), ("data", "model"), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["moe", "int8", "batch"])
+def test_sharded_step_refuses_what_it_does_not_run(case):
+    """Families other than the dense and vision LMs, int8 AdamW moments
+    and a batch that does not split over the mesh raise when the step is
+    built (no process group needed: the placements are computed first)."""
+    from repro_torch.models.model import reduce_config
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_train_step
+    arch = "granite-moe-1b-a400m" if case == "moe" else "llama3.2-3b"
+    model = build_model(reduce_config(ARCHS[arch]))
+    opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
+                         else "float32")
+    batch = 3 if case == "batch" else 4
+    with pytest.raises(NotImplementedError):
+        make_train_step(model, opt, ShapeConfig("t", 16, batch, "train"),
+                        mesh=Mesh((2, 2), ("data", "model")))

@@ -1,0 +1,245 @@
+"""Per-rank bodies of the port's multi-rank CPU tests, run by
+``tests/torch_dist_util.py`` on a gloo world.  Each reads its inputs from
+``outdir`` and rank 0 writes the results there (every rank takes part in
+the gathers).  They import torch and the port only: the tests hold the
+results to the JAX reference in their own process."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.convert import adamw_state_from_numpy, params_from_numpy
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import build_model, reduce_config
+from repro_torch.optim.optimizers import Optimizer, make_optimizer
+from repro_torch.sharding import api
+from repro_torch.sharding import collectives as C
+from repro_torch.train.step import make_prefill_step, make_train_step
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _capturing(opt: Optimizer, into: dict) -> Optimizer:
+    """``opt`` whose update first keeps a copy of the grads it is given
+    (this rank's blocks, after every reduction)."""
+    def update_(grads, state, params, *rest):
+        into.update({n: g.detach().clone() for n, g in grads.items()})
+        opt.update_(grads, state, params, *rest)
+    return Optimizer(init=opt.init, update_=update_, name=opt.name)
+
+
+def _gather_tree(values: dict, shardings: dict) -> dict:
+    return {n: _np(C.gather_global(v, shardings[n]))
+            for n, v in values.items()}
+
+
+def train(rank: int, world: int, outdir: Path) -> None:
+    """Every (mesh, config, FSDP, micro-batches) case of
+    ``tests/test_torch_dist_train.py``: one AdamW step from the reference's
+    parameters, its loss, its reduced grads and its updated parameters,
+    all gathered; then the prefill logits."""
+    inp = torch.load(outdir / "train_in.pt", weights_only=False)
+    out = {}
+    for mesh_shape in inp["meshes"]:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mkey = "x".join(map(str, mesh_shape))
+        for case in inp["cases"]:
+            if case.get("mesh") not in (None, mkey):
+                continue
+            name, fsdp, mb = case["config"], case["fsdp"], case["mb"]
+            arch, over = inp["configs"][name]
+            cfg = reduce_config(ARCHS[arch], **over)
+            model = build_model(cfg)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in inp["batches"][name].items()}
+            api.set_overrides(fsdp=fsdp)
+            try:
+                if case["kind"] == "prefill":
+                    bundle = make_prefill_step(model, mesh=mesh)
+                    params = params_from_numpy(
+                        inp["trees"][name], cfg, "cpu",
+                        shardings=bundle.in_shardings[0])
+                    logits = bundle(params, batch)
+                    full = C.gather_global(logits, bundle.out_shardings)
+                    out[(mkey, name, "prefill")] = _np(full)
+                    continue
+                grads = {}
+                opt = _capturing(make_optimizer("adamw", lr=1e-2), grads)
+                shape = ShapeConfig("t", batch["tokens"].shape[1],
+                                    batch["tokens"].shape[0], "train")
+                bundle = make_train_step(model, opt, shape, mesh=mesh,
+                                         microbatches=mb)
+                p_shard, o_shard, _ = bundle.in_shardings
+                params = params_from_numpy(inp["trees"][name], cfg, "cpu",
+                                           trainable=True,
+                                           shardings=p_shard)
+                state = bundle.init_state(params)
+                _, _, metrics = bundle(params, state, batch)
+                m_shard = {n: o_shard["mu"][n]["m"] for n in grads}
+                out[(mkey, name, fsdp, mb)] = {
+                    "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "grads": _gather_tree(grads, m_shard),
+                    "params": _gather_tree(
+                        dict(params.named_parameters()), p_shard),
+                    "moments": _gather_tree(
+                        {n: state["mu"][n]["m"] for n in grads}, m_shard),
+                }
+            finally:
+                api.clear_overrides()
+    if rank == 0:
+        torch.save(out, outdir / "train_out.pt")
+
+
+def pipeline(rank: int, world: int, outdir: Path) -> None:
+    """``pipeline_apply`` and the gradient of ``pipeline_loss`` on 4
+    stages, each rank one stage."""
+    from repro_torch.train.pipeline import (pipeline_apply, pipeline_loss,
+                                            split_microbatches)
+    inp = np.load(outdir / "pipe_in.npz")
+    mesh = make_mesh((world,), ("stage",), device="cpu")
+    w = torch.from_numpy(inp["ws"][rank]).requires_grad_()
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"])
+
+    m = int(inp["M"])
+    xs = split_microbatches(torch.from_numpy(inp["x"]), m)
+    out = pipeline_apply(stage_fn, {"w": w}, xs, mesh=mesh, axis="stage")
+    xg = split_microbatches(torch.from_numpy(inp["xg"]), int(inp["Mg"]))
+    tg = split_microbatches(torch.from_numpy(inp["tg"]), int(inp["Mg"]))
+    loss = pipeline_loss(stage_fn, lambda y, t: torch.mean((y - t) ** 2),
+                         {"w": w}, xg, tg, mesh=mesh, axis="stage")
+    loss.backward()
+    grads = C.all_gather(w.grad[None], "stage", 0, mesh=mesh)
+    if rank == 0:
+        np.savez(outdir / "pipe_out.npz", out=_np(out), loss=_np(loss),
+                 grads=_np(grads))
+
+
+def misc(rank: int, world: int, outdir: Path) -> None:
+    """On 4 ranks: ``compressed_psum_pod`` over a pod group of 2 (each
+    rank writes its result); two steps' collective tallies on (2, 2) with
+    FSDP; ``adamw_state_from_numpy`` onto (2, 2); a sharded checkpoint
+    of the stepped state saved at (2, 2) and restored at (4, 1) without
+    FSDP."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.optim.compression import compressed_psum_pod
+    from repro_torch.sharding.rules import use_mesh
+    inp = torch.load(outdir / "misc_in.pt", weights_only=False)
+    res = {}
+
+    # compression over pod (the (pod, data) mesh's first axis)
+    mesh = make_mesh((2, 2), ("pod", "data"), device="cpu")
+    g = {k: torch.from_numpy(v[rank]) for k, v in inp["grads"].items()}
+    e = {k: torch.from_numpy(v[rank]) for k, v in inp["residual"].items()}
+    with use_mesh(mesh):
+        mean, new_res = compressed_psum_pod(g, e, "pod")
+    torch.save({"mean": {k: _np(v) for k, v in mean.items()},
+                "residual": {k: _np(v) for k, v in new_res.items()}},
+               outdir / f"compress_{rank}.pt")
+
+    # the collectives of two train steps on (2, 2), FSDP on
+    arch, over = inp["config"]
+    cfg = reduce_config(ARCHS[arch], **over)
+    model = build_model(cfg)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+    shape = ShapeConfig("t", batch["tokens"].shape[1],
+                        batch["tokens"].shape[0], "train")
+    api.set_overrides(fsdp=True)
+    try:
+        bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                                 mesh=mesh)
+        params = params_from_numpy(inp["tree"], cfg, "cpu", trainable=True,
+                                   shardings=bundle.in_shardings[0])
+        state = bundle.init_state(params)
+        steps = []
+        for _ in range(2):
+            C.reset_tally()
+            with C.record_calls() as calls:
+                bundle(params, state, batch)
+            steps.append({"tally": C.tally(), "calls": calls})
+        res["tally"] = {"steps": steps,
+                        "local": {n: tuple(p.shape)
+                                  for n, p in params.named_parameters()},
+                        "global": model.param_shapes()}
+
+        # the reference's AdamW state carried onto the mesh
+        m_shard = {n: v["m"] for n, v in bundle.in_shardings[1]["mu"].items()}
+        carried = adamw_state_from_numpy(inp["state"], cfg, "cpu",
+                                         shardings=m_shard)
+        res["adamw_state"] = {
+            n: {k: _np(C.gather_global(mv[k], m_shard[n])) for k in mv}
+            for n, mv in carried["mu"].items()}
+
+        # a checkpoint of the stepped state, saved by every rank at (2, 2)
+        ckpt = CheckpointManager(str(outdir / "ckpt"), host_id=rank,
+                                 n_hosts=world)
+        named = dict(params.named_parameters())
+        ckpt.save(2, (named, state), {"epoch": 0, "index": 16},
+                  blocking=True, shardings=bundle.in_shardings[:2])
+        p_shard, o_shard, _ = bundle.in_shardings
+        res["saved"] = {
+            "params": _gather_tree(named, p_shard),
+            "m": _gather_tree({n: state["mu"][n]["m"] for n in named},
+                              {n: o_shard["mu"][n]["m"] for n in named}),
+            "count": int(state["count"])}
+    finally:
+        api.clear_overrides()
+    torch.distributed.barrier()
+
+    # ... restored on (4, 1) without FSDP
+    mesh = make_mesh((4, 1), ("data", "model"), device="cpu")
+    api.set_overrides(fsdp=False)
+    try:
+        bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                                 mesh=mesh)
+        fresh = bundle.shard_params(model.init(7, device="cpu",
+                                               trainable=True))
+        state = bundle.init_state(fresh)
+        named = dict(fresh.named_parameters())
+        mgr = CheckpointManager(str(outdir / "ckpt"), host_id=rank,
+                                n_hosts=world)
+        _, ds = mgr.restore(mgr.latest_step(), (named, state),
+                            shardings=bundle.in_shardings[:2])
+        p_shard, o_shard, _ = bundle.in_shardings
+        res["restored"] = {
+            "params": _gather_tree(named, p_shard),
+            "m": _gather_tree({n: state["mu"][n]["m"] for n in named},
+                              {n: o_shard["mu"][n]["m"] for n in named}),
+            "count": int(state["count"]), "data_state": ds}
+    finally:
+        api.clear_overrides()
+    if rank == 0:
+        torch.save(res, outdir / "misc_out.pt")
+
+
+def launch_train(rank: int, world: int, outdir: Path, *,
+                 rendezvous: str) -> None:
+    """``launch.train --distributed --test-mesh --device cpu`` as torchrun
+    would start it on this rank (it joins the world itself)."""
+    import os
+
+    from repro_torch.launch import train as launch
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    out = launch.main(["--arch", "llama3.2-3b", "--test-mesh", "--device",
+                       "cpu", "--steps", "2", "--distributed",
+                       "--dist-init", f"file://{rendezvous}",
+                       "--ckpt-dir", str(outdir / "ckpt")])
+    rec = launch.main(["--arch", "llama3.2-3b", "--test-mesh", "--device",
+                       "cpu", "--distributed", "--dry-run",
+                       "--dist-init", f"file://{rendezvous}_dry",
+                       "--dryrun-dir", str(outdir / "dryrun")])
+    if rank == 0:
+        torch.save({"history": out["history"],
+                    "final_loss": out["final_loss"], "dry_run": rec},
+                   outdir / "launch_out.pt")

@@ -1,0 +1,227 @@
+#!/usr/bin/env python3
+"""llama-3.2-vision-11b trained at full width and depth on four H100s.
+
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
+        --device cpu --test-mesh            # a reduced rehearsal on gloo
+
+The port's sharded train step (``repro_torch.train.step`` with a mesh) on
+the reference's (data, model) = (2, 2) mesh over NCCL, one card per
+``LOCAL_RANK``: all 40 layers (8 super-blocks of 4 self blocks and one
+cross block, each super-block one checkpoint region), FSDP by the
+reference's size rule (the attention weights split 2 ways over data, the
+rest 4 ways), fp32 parameters and AdamW moments, bf16 compute, every
+cross block's xgate at 0.5.  Global batch 4 x 4096 tokens against 1600
+image embeddings each, 2 micro-batches, 3 steps.  Each rank initialises
+its own blocks layer by layer from one seed (a whole fp32 copy of the
+model is 40 GB).
+
+Rank 0 prints one JSON line per step (loss, step s, tokens/s, the
+collectives of each rank by kind from ``launch/comm_analysis.py``) and a
+last line with every card's peak, the device idle share of one more step
+under ``torch.profiler`` (NCCL kernels counted busy, their time apart)
+and the card's name and power limit.  Any non-finite loss exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+ARCH = "llama-3.2-vision-11b"
+MESH = (2, 2)
+SEQ, BATCH, MICRO, STEPS = 4096, 4, 2, 3
+XGATE = 0.5
+
+
+def init_sharded(cfg, shardings, device, seed: int = 0):
+    """The vision LM holding only this rank's block of each parameter,
+    drawn block by block from ``seed`` (the full-width draws of one
+    parameter at a time, then cut)."""
+    from repro_torch.models import layers
+    from repro_torch.models.multimodal import VisionLM, vlm_layout
+    from repro_torch.models.transformer import block_init, padded_vocab
+    from repro_torch.sharding.api import mark_sharded
+
+    gen = torch.Generator(device).manual_seed(seed)
+    dt = layers.weight_dtype(cfg, True)
+    pv, d = padded_vocab(cfg), cfg.d_model
+    n_super, per = vlm_layout(cfg)
+
+    def cut(prefix, tree):
+        if isinstance(tree, dict):
+            return {k: cut(f"{prefix}.{k}", v) for k, v in tree.items()}
+        return shardings[prefix].shard(tree).contiguous().clone()
+
+    def block(prefix, cross):
+        tree = block_init(gen, cfg, trainable=True, cross=cross)
+        if cross:
+            tree["xgate"].fill_(XGATE)
+        return cut(prefix, tree)
+
+    tree = {"embed": cut("embed", layers.embedding_init(gen, pv, d,
+                                                         dtype=dt)),
+            "self_blocks": [block(f"self_blocks.{i}", False)
+                            for i in range(n_super * per)],
+            "cross_blocks": [block(f"cross_blocks.{i}", True)
+                             for i in range(n_super)],
+            "ln_f": cut("ln_f", layers.rmsnorm_init(d, device=device)),
+            "unembed": cut("unembed", layers.dense_init(gen, d, pv,
+                                                        dtype=dt))}
+    return mark_sharded(VisionLM(cfg, tree, trainable=True), shardings)
+
+
+def batch_for(cfg, seq: int, step: int, device):
+    g = torch.Generator(device).manual_seed(1000 + step)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, seq + 1), generator=g,
+                           device=device)
+    return {"tokens": tokens[:, :-1].contiguous(),
+            "targets": tokens[:, 1:].contiguous(),
+            "image_embeds": torch.randn(BATCH, cfg.image_tokens, cfg.d_model,
+                                        generator=g, device=device)}
+
+
+def idle_share(step):
+    """(wall s, busy s, NCCL s, idle share) of ``step()`` under the
+    profiler; busy is the kernels' device time, NCCL's included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = nccl = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Memcpy") \
+                or e.key == "Command Buffer Full":
+            continue
+        us = float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+        busy += us
+        if "nccl" in e.key.lower():
+            nccl += us
+    return wall, busy / 1e6, nccl / 1e6, 1 - busy / 1e6 / wall
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="'cpu' rehearses on gloo (default: the cards)")
+    ap.add_argument("--test-mesh", action="store_true",
+                    help="the reduced config (with --device cpu)")
+    ap.add_argument("--steps", type=int, default=STEPS)
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model, reduce_config
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_train_step
+
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    on_card = args.device != "cpu"
+    if on_card:
+        if not torch.cuda.is_available():
+            print("chip_dist: no CUDA device", file=sys.stderr)
+            return 2
+        torch.cuda.set_device(local)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", local) if on_card else torch.device("cpu")
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            timeout=timedelta(minutes=4))
+    try:
+        cfg = dataclasses.replace(ARCHS[ARCH], attention_impl="pallas")
+        seq = SEQ
+        if args.test_mesh:
+            cfg = reduce_config(cfg, n_layers=4, cross_attn_every=2,
+                                block_q=32, block_kv=32, image_tokens=40,
+                                attention_impl="pallas", remat=True)
+            seq = 48
+        mesh = make_mesh(MESH, ("data", "model"),
+                         device="cuda" if on_card else "cpu")
+        model = build_model(cfg)
+        shape = ShapeConfig("train_4k", seq, BATCH, "train")
+        bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                                 mesh=mesh, microbatches=MICRO)
+        t0 = time.perf_counter()
+        params = init_sharded(cfg, bundle.in_shardings[0], device)
+        state = bundle.init_state(params)
+        init_s = time.perf_counter() - t0
+        gpu = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip().splitlines()[:1] if on_card else []
+        if rank == 0:
+            print(json.dumps({"phase": "init", "arch": cfg.name,
+                              "layers": cfg.n_layers, "mesh": list(MESH),
+                              "fsdp": any("data" in sh.used_axes() for sh in
+                                          bundle.in_shardings[0].values()),
+                              "init_s": init_s, "gpu": gpu}), flush=True)
+        losses = []
+        for step in range(args.steps):
+            batch = batch_for(cfg, seq, step, device)
+            C.reset_tally()
+            if on_card:
+                torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            _, _, metrics = bundle(params, state, batch)
+            loss = float(metrics["loss"])
+            dist.barrier()
+            step_s = time.perf_counter() - t0
+            coll = analyze_collectives()
+            per_rank = [None] * world
+            dist.all_gather_object(per_rank, coll["per_op"])
+            losses.append(loss)
+            if rank == 0:
+                print(json.dumps({
+                    "phase": "step", "step": step, "loss": loss,
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "step_s": step_s, "tokens_per_s": BATCH * seq / step_s,
+                    "collective_bytes_rank0": coll["collective_bytes"],
+                    "collectives_by_rank": per_rank}), flush=True)
+        out = {"phase": "done", "ok": all(map(math.isfinite, losses)),
+               "losses": losses}
+        if on_card:
+            batch = batch_for(cfg, seq, args.steps, device)
+            wall, busy, nccl, idle = idle_share(
+                lambda: bundle(params, state, batch))
+            peaks = [None] * world
+            dist.all_gather_object(
+                peaks, torch.cuda.max_memory_allocated(device) / 1e9)
+            out.update(profiled_step_s=wall, device_busy_s=busy,
+                       nccl_s=nccl, device_idle_share=idle, peak_gb=peaks,
+                       gpu=gpu)
+        if rank == 0:
+            print(json.dumps(out), flush=True)
+        return 0 if out["ok"] else 1
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())
