@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.train --arch llama3.2-3b --shape train_4k \
         --steps 3 --batch 2 --microbatches 2 [--ckpt-dir D] \
-        [--heartbeat-dir H] [--device cpu] [--test-mesh] [--dry-run]
+        [--heartbeat-dir H] [--device cpu] [--test-mesh] [--dry-run] \
+        [--stub-frontend]
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch llama3.2-3b --distributed --test-mesh
 
@@ -18,8 +19,10 @@ mLSTM kernel).  The multimodal families (``whisper-tiny``,
 ``llama-3.2-vision-11b``) train too, but their batches carry the stubbed
 frontends' ``enc_frames`` or ``image_embeds``, which
 ``synthetic_lm_producer`` does not make (nor does the reference ship a
-producer that does): this launcher refuses them, and a caller trains them
-through ``Trainer(..., producer=...)``.  Weights are random from seed
+producer that does): this launcher refuses them unless given
+``--stub-frontend``, which adds standard normals drawn from each
+example's own seed; a caller with real embeddings trains them through
+``Trainer(..., producer=...)``.  Weights are random from seed
 0.  It runs on the card; ``--device cpu`` runs the plain PyTorch path on
 the host.  Attention goes through the flash kernel
 (``attention_impl="pallas"``; the config's own default is the blockwise
@@ -36,9 +39,11 @@ written under ``--dryrun-dir``) and returns its record.
 a ``file://`` path for instance) and trains on ``make_test_mesh(model=2)``
 over it, the counterpart of the reference's mesh over however many
 devices there are: NCCL with one card per ``LOCAL_RANK``, gloo only with
-``--device cpu``.  The dense and vision LMs run there (``train/step.py``);
-with ``--dry-run`` it writes the mesh cell's record of one sharded step
-and its collectives (``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
+``--device cpu``.  The dense, MoE, hybrid, audio and vision LMs train
+there (``train/step.py``; xlstm-1.3b raises; the multimodal families
+with ``--stub-frontend``, as on one card); with ``--dry-run`` it
+writes the mesh cell's record of one sharded step and its collectives
+(``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
 second pod is a second host.
 """
 
@@ -84,7 +89,32 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-init", default="env://",
                     help="the process group's init_method (default: "
                          "torchrun's environment)")
+    ap.add_argument("--stub-frontend", action="store_true",
+                    help="a multimodal family's batches also carry the "
+                         "stubbed frontend's embeddings: standard normals "
+                         "from each example's seed")
     return ap
+
+
+def _stub_frontend_producer(cfg, seq_len: int):
+    """``synthetic_lm_producer``'s examples, each with the stubbed
+    frontend's (T, d) embeddings under the family's key: standard normals
+    drawn from the example's own (epoch, index) seed, so that a restarted
+    run and every rank of a mesh draw the same."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import synthetic_lm_producer
+    tokens = synthetic_lm_producer(cfg.vocab, seq_len)
+    key, t = (("image_embeds", cfg.image_tokens) if cfg.family == "vlm"
+              else ("enc_frames", cfg.encoder_seq))
+
+    def produce(epoch, index, rng):
+        ex = tokens(epoch, index, rng)
+        g = np.random.default_rng((epoch * 7919 + index) & 0x7FFFFFFF)
+        ex[key] = g.standard_normal((t, cfg.d_model)).astype(np.float32)
+        return ex
+
+    return produce
 
 
 def _join_world(args):
@@ -178,21 +208,25 @@ def _run(args, *, rank: int = 0, world: int = 1, device=None) -> Dict:
         print(dryrun.summary_line(rec))
         return rec
 
+    producer = None
     if cfg.family in _FRONTEND_INPUTS:
-        raise SystemExit(
-            f"{args.arch} trains on batches that also hold "
-            f"{_FRONTEND_INPUTS[cfg.family]}, the stubbed frontend's "
-            "embeddings, which the synthetic token producer does not make: "
-            "train it through repro_torch.train.trainer.Trainer(..., "
-            "producer=...) with a producer that adds them")
+        if not args.stub_frontend:
+            raise SystemExit(
+                f"{args.arch} trains on batches that also hold "
+                f"{_FRONTEND_INPUTS[cfg.family]}, the stubbed frontend's "
+                "embeddings, which the synthetic token producer does not "
+                "make: pass --stub-frontend to draw them at random, or "
+                "train it through repro_torch.train.trainer.Trainer(..., "
+                "producer=...) with a producer that adds them")
+        producer = _stub_frontend_producer(cfg, shape.seq_len)
 
     tcfg = TrainerConfig(steps=args.steps, log_every=1,
                          ckpt_dir=args.ckpt_dir,
                          heartbeat_dir=args.heartbeat_dir, host_id=rank,
                          n_hosts=world)
     trainer = Trainer(build_model(cfg), make_optimizer("adamw"), shape, tcfg,
-                      microbatches=args.microbatches, device=device,
-                      mesh=mesh)
+                      producer=producer, microbatches=args.microbatches,
+                      device=device, mesh=mesh)
     out = trainer.run()
     if rank == 0:
         print(f"final loss: {out['final_loss']:.4f}")

@@ -37,6 +37,7 @@ from repro_torch.core.remat import produce
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers
+from repro_torch.sharding import api
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules as R
 
@@ -57,11 +58,15 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
 def attention_specs():
     """The reference's: the weights' out-dims are logical ``qkv``, which
     its rules do not map (so they are replicated over ``model``); heads
-    and kv heads are activation axes."""
-    return {"wq": layers.dense_specs("embed", "qkv"),
-            "wk": layers.dense_specs("embed", "qkv"),
-            "wv": layers.dense_specs("embed", "qkv"),
-            "wo": layers.dense_specs("qkv", "embed")}
+    and kv heads are activation axes.  Where the ranks split the heads
+    (:func:`head_split`), each projects only its own through every weight,
+    so every weight's gradient is partial over ``model``."""
+    return api.SplitSpecs({"wq": layers.dense_specs("embed", "qkv"),
+                           "wk": layers.dense_specs("embed", "qkv"),
+                           "wv": layers.dense_specs("embed", "qkv"),
+                           "wo": layers.dense_specs("qkv", "embed")},
+                          lambda cfg, shardings: tuple(shardings)
+                          if head_split(cfg)[1] < cfg.n_heads else ())
 
 
 def kv_cache_specs():

@@ -58,10 +58,15 @@ def rmsnorm_specs():
     return ("embed",)
 
 
-def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
-            ) -> torch.Tensor:
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,
+            ways: int = 1) -> torch.Tensor:
+    """``ways`` > 1: ``x``'s last dim is this rank's block of one of as
+    many equal blocks split over ``model``, and the variance is the mean
+    over all of them (the ranks' means summed: ``C.shared_sum``)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
+    if ways > 1:
+        var = C.shared_sum(var, "model") / ways
     return (xf * torch.rsqrt(var + eps) * C.fetch(scale)).to(x.dtype)
 
 

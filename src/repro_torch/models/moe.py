@@ -15,8 +15,20 @@ SwiGLU kernel's function, and all experts of a layer go through
 ``kernels/fused_swiglu`` as one batched launch (x (E, G·C, d), gate and up
 (E, d, f)); the down projection and the dispatch/combine products stay
 matmuls, as the reference leaves them to XLA.  ``expert_in`` and
-``mlp_hidden`` are tagged where the reference tags them; its
-``constrain`` annotations are the identity on one device and are dropped.
+``mlp_hidden`` are tagged where the reference tags them.
+
+Under a mesh whose placement splits the experts over ``model`` (the
+reference's ``constrain`` of the dispatch and the expert tensors to
+``"expert"``), each rank builds only its experts' slice of the dispatch
+(or of ``slot_token``), runs the kernel's expert form on its experts,
+combines only their outputs, and the partial outputs are summed over
+``model``.  The router is replicated: every rank routes every token of
+its rows, and its gradient through the combine is partial per rank (the
+step sums it over ``model``).  The load-balancing loss is a product of
+two means over the micro-batch's global tokens, so both fractions are
+summed over the batch axes (:func:`_global_mean`); its gradient, equal on
+every ``model`` rank, is scaled by 1 / ranks so that the sum over
+``model`` counts it once.
 The reference's cost-probe ``moe_ffn_skip`` mode (``launch/probe.py``)
 bypasses the expert FFN of the ``einsum`` dispatch (expert_out =
 expert_in), as the reference's does; the ``gather`` dispatch ignores it,
@@ -34,6 +46,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.fused_swiglu.ops import fused_swiglu
 from repro_torch.models import layers
+from repro_torch.sharding import api
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 MAX_GROUP = 4096  # tokens per dispatch group: bounds capacity-buffer size
 
@@ -54,10 +69,16 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def moe_specs():
-    return {"router": layers.dense_specs("embed", None),
-            "gate": ("expert", "embed", "mlp"),
-            "up": ("expert", "embed", "mlp"),
-            "down": ("expert", "mlp", "embed")}
+    """Where the placement splits the experts over ``model``
+    (:func:`expert_block`), each rank combines only its own experts'
+    outputs, so the gradient it takes back to the replicated router is
+    partial over ``model``."""
+    return api.SplitSpecs({"router": layers.dense_specs("embed", None),
+                           "gate": ("expert", "embed", "mlp"),
+                           "up": ("expert", "embed", "mlp"),
+                           "down": ("expert", "mlp", "embed")},
+                          lambda cfg, shardings: ("router",)
+                          if C.split_over(shardings["gate"], 0) else ())
 
 
 def _top_k_mask(router_probs: torch.Tensor, k: int
@@ -73,12 +94,51 @@ def _top_k_mask(router_probs: torch.Tensor, k: int
 def _expert_ffn(params, expert_in: torch.Tensor, dt: torch.dtype
                 ) -> torch.Tensor:
     """(E, G, C, d) expert inputs -> (E, G, C, d) expert outputs: the
-    SwiGLU FFN of every expert, its gate/up half in one kernel launch."""
+    SwiGLU FFN of every expert (of this rank's experts under a mesh that
+    splits them), its gate/up half in one kernel launch."""
     e, g, c, d = expert_in.shape
     hidden = fused_swiglu(expert_in.reshape(e, g * c, d),
-                          params["gate"].to(dt), params["up"].to(dt))
+                          C.fetch(params["gate"]).to(dt),
+                          C.fetch(params["up"]).to(dt))
     hidden = tag("mlp_hidden", hidden)
-    return torch.bmm(hidden, params["down"].to(dt)).reshape(e, g, c, d)
+    return torch.bmm(hidden, C.fetch(params["down"]).to(dt)) \
+        .reshape(e, g, c, d)
+
+
+def _global_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over dims (0, 1) of ``t`` (G, S, E) across the rows of
+    every rank of the batch axes (each holds as many groups)."""
+    axes = R.current_rules().get("batch") or () \
+        if R.current_mesh() is not None else ()
+    total = t.sum(dim=(0, 1))
+    parts = 1
+    for axis in axes:
+        total = C.shared_sum(total, axis)
+        parts *= R.current_mesh().shape.get(axis, 1)
+    return total / (t.shape[0] * t.shape[1] * parts) if parts > 1 \
+        else t.mean(dim=(0, 1))
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def expert_block(cfg: ModelConfig, params) -> Tuple[int, int]:
+    """(first expert, experts) of this rank: its block of the experts
+    where the placement splits them over ``model``, else all of them."""
+    if not C.split_over(params["gate"], 0):
+        return 0, cfg.n_experts
+    el = params["gate"].shape[0]
+    return C.block_start(params["gate"], 0), el
 
 
 def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
@@ -93,6 +153,15 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     if cfg.moe_impl not in ("einsum", "gather"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     dt = layers.dtype_of(cfg.dtype)
+    e0, el = expert_block(cfg, params)
+    split = el < cfg.n_experts
+    if R.current_mesh() is not None and not R.current_rules().get("batch"):
+        raise NotImplementedError(
+            "MoE dispatch groups are whole sequences (or MAX_GROUP tokens of "
+            "one): a rank's rows of a sequence split over the mesh do not "
+            "form them (sequence parallelism, ROADMAP item 11.5)")
+    if split:
+        x = C.copy_to(x)
     b0, s0, d = x.shape
     if s0 > MAX_GROUP:
         if s0 % MAX_GROUP:
@@ -104,14 +173,21 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     capacity = int(math.ceil(s * k / e * cfg.capacity_factor))
     capacity = max(capacity, 1)
 
-    router_logits = x.float() @ params["router"].float()        # (G,S,E)
+    router_logits = x.float() @ C.fetch(params["router"]).float()  # (G,S,E)
     probs = torch.softmax(router_logits, dim=-1)
     mask, weights = _top_k_mask(probs, k)
 
-    # load-balancing auxiliary loss (Switch): E * sum(f_e * p_e)
-    frac_tokens = mask.mean(dim=(0, 1))                         # (E,)
-    frac_probs = probs.mean(dim=(0, 1))                         # (E,)
+    # load-balancing auxiliary loss (Switch): E * sum(f_e * p_e), each
+    # fraction a mean over the micro-batch's global tokens
+    frac_tokens = _global_mean(mask)                            # (E,)
+    frac_probs = _global_mean(probs)                            # (E,)
     aux_loss = e * torch.sum(frac_tokens * frac_probs)
+    chosen = weights                            # every expert's weights
+    if split:
+        # every model rank computes the whole term: count its gradient once
+        aux_loss = _ScaleGrad.apply(aux_loss, el / e)
+        # from here on only this rank's experts
+        mask, weights = mask[..., e0:e0 + el], weights[..., e0:e0 + el]
 
     # position of each token within its expert's capacity buffer (an fp32
     # cumsum, as the reference's: exact for groups of up to 2^24 tokens)
@@ -135,19 +211,26 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
         expert_in = tag("expert_in", expert_in)
         expert_out = _expert_ffn(params, expert_in, dt)         # (E,G,C,d)
 
-        # combine: for each token, gather its top-k expert outputs
-        topv, topi = torch.topk(weights, k, dim=-1)             # (G,S,k)
+        # combine: for each token, gather its top-k expert outputs (under
+        # a split, those of its choices that are this rank's experts)
+        topv, topi = torch.topk(chosen, k, dim=-1)              # (G,S,k)
+        if split:
+            mine = (topi >= e0) & (topi < e0 + el)
+            topi = (topi - e0).clamp(0, el - 1)
         tok_pos = torch.gather(pos_clipped, 2, topi)            # (G,S,k)
         tok_ok = torch.gather(in_capacity, 2, topi)             # (G,S,k)
+        if split:
+            tok_ok = tok_ok & mine
         picked = expert_out[topi, groups[:, None, None],
                             tok_pos]                    # (G,S,k,d)
         out = torch.sum(picked * (topv * tok_ok).to(dt)[..., None], dim=2)
-        return out.reshape(b0, s0, d).to(dt), aux_loss.float()
+        out = out.reshape(b0, s0, d).to(dt)
+        return (C.reduce_from(out) if split else out), aux_loss.float()
 
     # dispatch: (G,S,E,C) one-hot over capacity slots, built in the compute
     # dtype (an int64 one_hot at the prefill step's shape would take 4x the
     # bytes); 1 at a token's slot when it is in capacity, else all 0
-    dispatch = torch.zeros(g, s, e, capacity, dtype=dt, device=x.device)
+    dispatch = torch.zeros(g, s, el, capacity, dtype=dt, device=x.device)
     dispatch.scatter_(3, pos_clipped[..., None], in_capacity[..., None].to(dt))
     combine = dispatch * weights[..., None].to(dt)
 
@@ -160,4 +243,5 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     else:
         expert_out = _expert_ffn(params, expert_in, dt)         # (E,G,C,d)
     out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
-    return out.reshape(b0, s0, d).to(dt), aux_loss.float()
+    out = out.reshape(b0, s0, d).to(dt)
+    return (C.reduce_from(out) if split else out), aux_loss.float()

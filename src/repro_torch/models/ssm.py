@@ -17,6 +17,20 @@ Parameters are a dict per layer (held by ``zamba.MambaLayer``): the dense
 ``dt_bias`` and the ``norm`` scale in float32.  The reference's cost-probe
 ``mixer_skip`` mode (``launch/probe.py``) bypasses the scan: y = x in
 float32, and no kernel is launched.
+
+Under a mesh whose ``model`` axis has more than one rank, each rank runs
+the layer on its own block of the heads (the reference's ``constrain`` of
+``xh`` to ``("batch", "seq", "heads", None)``) in :func:`ssm_forward`:
+the placement cuts ``in_proj``'s and ``conv``'s columns into contiguous
+blocks that do not line up with the heads (``[z | x | B | C | dt]``), so
+both are gathered over ``model`` at use (their backward reduce-scatters
+the ranks' partial gradients) and sliced to the rank's columns of z, x and
+dt and all of B and C; ``A_log``, ``D`` and ``dt_bias`` are sliced to its
+heads (their gradients are partial: :func:`ssm_specs` names them); the
+gated norm's variance over all of ``d_inner`` sums the ranks' means
+(``layers.rmsnorm(ways=)``); ``out_proj``'s row block gives a partial
+output summed over ``model``.  Without such a mesh every one of these
+steps is the identity and the layer is the reference's.
 """
 
 from __future__ import annotations
@@ -29,6 +43,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.ssm_scan.ops import ssd_scan
 from repro_torch.models import layers
+from repro_torch.sharding import api
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 
 def _widths(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -59,13 +76,14 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def ssm_specs(cfg: ModelConfig):
-    return {"in_proj": layers.dense_specs("embed", "mlp"),
-            "conv": (None, "mlp"),
-            "A_log": (None,),
-            "D": (None,),
-            "dt_bias": (None,),
-            "norm": ("mlp",),
-            "out_proj": layers.dense_specs("mlp", "embed")}
+    return api.SplitSpecs({"in_proj": layers.dense_specs("embed", "mlp"),
+                           "conv": (None, "mlp"),
+                           "A_log": (None,),
+                           "D": (None,),
+                           "dt_bias": (None,),
+                           "norm": ("mlp",),
+                           "out_proj": layers.dense_specs("mlp", "embed")},
+                          _partial)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -142,36 +160,90 @@ def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
 
 
+def rank_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(first head, heads) of the mamba heads this rank computes: all of
+    them without a mesh or on a ``model`` axis of one rank, else its block
+    of them.  The heads are split whenever the axis has more ranks (the
+    reference's ``heads`` rule, or every rank computing all of them where
+    the rule is off the axis: the same function)."""
+    mesh = R.current_mesh()
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    h = cfg.n_ssm_heads
+    if h % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} mamba heads do not split over a model axis of "
+            f"{m} ranks (ROADMAP item 11: only whole heads a rank are run)")
+    return (mesh.coords()["model"] * (h // m) if m > 1 else 0), h // m
+
+
+def _partial(cfg: ModelConfig, shardings) -> Tuple[str, ...]:
+    """The per-head parameters, where the ranks split the heads: each
+    rank's gradient covers only its heads."""
+    return ("A_log", "D", "dt_bias") \
+        if rank_heads(cfg)[1] < cfg.n_ssm_heads else ()
+
+
+def _columns(w: torch.Tensor, spans) -> torch.Tensor:
+    """The columns of ``w`` in the (start, length) ``spans``, in order."""
+    return torch.cat([w[:, a:a + n] for a, n in spans], dim=1)
+
+
 def ssm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  Prefill path."""
+    """x: (B, S, d) -> (B, S, d).  Prefill path.  Under a mesh that splits
+    the heads (:func:`rank_heads`), the layer on this rank's heads, its
+    partial output summed over ``model``."""
     dt_ = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     di, n, h, p = _widths(cfg)
-
-    z, xin, B, C, dt = _split(layers.dense(params["in_proj"], x, dt_), cfg)
+    h0, hl = rank_heads(cfg)
+    c0, cl = h0 * p, hl * p                      # the rank's d_inner columns
+    split = hl < h
+    if split:
+        for name, dim in (("in_proj", 1), ("conv", 1), ("norm", 0),
+                          ("out_proj", 0)):
+            if not C.split_over(params[name], dim):
+                raise NotImplementedError(
+                    f"{cfg.name}: {name}'s placement does not split its "
+                    "mlp dim over the model axis (ROADMAP item 11)")
+    x = C.copy_to(x)
+    # an FSDP shard is gathered at use (``C.fetch``), then the column
+    # blocks over ``model``: the compute dtype's copy, the same values in
+    # half the bytes of a float32 gather in bf16
+    w_in = C.gather(C.fetch(params["in_proj"]).to(dt_), "model", 1)
+    if split:
+        w_in = _columns(w_in, [(c0, cl), (di + c0, cl), (2 * di, 2 * n),
+                               (2 * di + 2 * n + h0, hl)])
+    z, xin, B, Cm, dt = torch.split(layers.dense(w_in, x, dt_),
+                                    [cl, cl, n, n, hl], dim=-1)
 
     # depthwise causal conv over (x, B, C), summed tap by tap in the
     # compute dtype in the reference's order (F.conv1d rounds otherwise)
-    xbc = torch.cat([xin, B, C], dim=-1)
-    w = params["conv"].to(dt_)                          # (K, di+2n)
+    xbc = torch.cat([xin, B, Cm], dim=-1)
+    w = C.gather(params["conv"].to(dt_), "model", 1)  # (K, di+2n)
+    if split:
+        w = _columns(w, [(c0, cl), (di, 2 * n)])      # (K, cl+2n)
     kk = w.shape[0]
     xbc_pad = torch.nn.functional.pad(xbc, (0, 0, kk - 1, 0))
     xbc = sum(xbc_pad[:, i:i + s] * w[i] for i in range(kk))
     xbc = layers.silu(xbc)
-    xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    xin, B, Cm = torch.split(xbc, [cl, n, n], dim=-1)
 
-    dt = layers.softplus(dt.float() + params["dt_bias"][None, None])  # b,s,h
-    xh = tag("ssm_in", xin.reshape(b, s, h, p))
+    heads = slice(h0, h0 + hl)
+    dt = layers.softplus(dt.float() + params["dt_bias"][heads][None, None])
+    xh = tag("ssm_in", xin.reshape(b, s, hl, p))
     if cfg.mixer_skip:
         # cost-probe mode: the SSD kernel's cost is added analytically
         # (launch/costs.py)
         y = xh.float()
     else:
-        y = ssd_scan(xh.float(), dt, params["A_log"], B.float(), C.float())
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(b, s, di).to(dt_)
-    y = layers.rmsnorm(params["norm"], y * layers.silu(z), cfg.norm_eps)
-    return layers.dense(params["out_proj"], y, dt_)
+        y = ssd_scan(xh.float(), dt, params["A_log"][heads], B.float(),
+                     Cm.float())
+    y = y + params["D"][heads][None, None, :, None] * xh.float()
+    y = y.reshape(b, s, cl).to(dt_)
+    # the gated RMSNorm over all of d_inner
+    y = layers.rmsnorm(params["norm"], y * layers.silu(z), cfg.norm_eps,
+                       ways=h // hl)
+    return C.reduce_from(layers.dense(C.fetch(params["out_proj"]), y, dt_))
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device

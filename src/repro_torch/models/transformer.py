@@ -391,11 +391,15 @@ def softmax_xent(cfg: ModelConfig, logits: torch.Tensor,
 
 def lm_loss(cfg: ModelConfig, params: TransformerLM, batch) -> torch.Tensor:
     """Next-token cross-entropy; an MoE config adds 0.01 x its auxiliary
-    load-balancing loss."""
+    load-balancing loss.  Under a mesh each rank returns its share of the
+    global batch's loss (the shares are summed over the batch axes), and
+    the auxiliary loss, already the global one on every rank, is shared
+    as the cross-entropy is."""
     logits, aux = lm_forward_aux(cfg, params, batch["tokens"])
     loss = softmax_xent(cfg, logits, batch["targets"])
     if cfg.is_moe:
-        loss = loss + 0.01 * aux
+        parts = R.batch_parts()
+        loss = loss + 0.01 * (aux / parts if parts > 1 else aux)
     return loss
 
 

@@ -116,6 +116,42 @@ def tree_map_specs(fn, spec_tree, *rest):
                            for i, v in enumerate(spec_tree))
 
 
+class SplitSpecs(dict):
+    """A module's spec dict (its leaves' logical axes) that also names the
+    replicated leaves of which each ``model`` rank computes only a part
+    under the active mesh and rules (its own heads or experts through a
+    weight every rank holds whole), so that their gradients are summed
+    over ``model``: ``partial(cfg, {leaf: NamedSharding}) -> leaf names``.
+    The module that splits the compute declares it here, beside the rule
+    its forward follows."""
+
+    def __init__(self, specs, partial):
+        super().__init__(specs)
+        self.partial = partial
+
+
+def partial_over_model(cfg: ModelConfig, spec_tree,
+                       shardings: Dict[str, NamedSharding]) -> frozenset:
+    """The dotted names (as ``shardings``, the flat placements, keys them)
+    of every leaf a :class:`SplitSpecs` of ``spec_tree`` names, its rule
+    read under the active mesh and rules."""
+    out = set()
+
+    def walk(tree, prefix):
+        if _is_leaf(tree):
+            return
+        keys = list(tree) if isinstance(tree, dict) else range(len(tree))
+        at = {k: f"{prefix}.{k}" if prefix else str(k) for k in keys}
+        if isinstance(tree, SplitSpecs):
+            leaves = {k: shardings[at[k]] for k in keys if _is_leaf(tree[k])}
+            out.update(at[k] for k in tree.partial(cfg, leaves))
+        for k in keys:
+            walk(tree[k], at[k])
+
+    walk(spec_tree, "")
+    return frozenset(out)
+
+
 def fit_spec(spec: R.Spec, shape, mesh) -> R.Spec:
     """``spec`` with every entry whose mesh axes do not divide its dim
     dropped to None (the safety net for odd dims)."""

@@ -5,8 +5,11 @@ The sharded steps move data only through this module: the raw
 collectives (:func:`all_reduce`, :func:`all_gather`,
 :func:`reduce_scatter`, :func:`permute`), the autograd Functions built on
 them (:func:`copy_to` and :func:`reduce_from`, the two ends of a
-tensor-parallel region; :func:`gather`, an FSDP gather whose backward
-reduce-scatters the gradient) and :func:`fetch`, which brings a stored
+tensor-parallel region; :func:`gather`, an all-gather whose backward
+reduce-scatters the gradient, for an FSDP shard or a weight whose
+columns a rank reads beyond its own block; :func:`shared_sum`, the sum of
+partial values every rank then uses, whose backward sums the ranks'
+partial gradients as well) and :func:`fetch`, which brings a stored
 parameter shard to the layout its compute reads.  Each call adds to the
 tally the reference's HLO analysis reads off a compiled module
 (``repro/launch/hlo_analysis.py``): per kind a count, the operand bytes
@@ -238,6 +241,24 @@ class _Gather(torch.autograd.Function):
             None, None
 
 
+class _SharedSum(torch.autograd.Function):
+    """All-reduce forward and backward: each rank holds a partial sum of a
+    value that every rank then uses (a variance over columns split across
+    the axis, a mean over rows split across it), and each rank's
+    gradient of that shared value covers only its own use of it, so the
+    gradients are summed too.  (``reduce_from``'s identity backward is
+    right only where every rank receives the whole gradient.)"""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return all_reduce(x, axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis, mesh=ctx.mesh), None, None
+
+
 def copy_to(x: torch.Tensor, axis: str = "model", *,
             mesh=None) -> torch.Tensor:
     mesh = R.current_mesh() if mesh is None else mesh
@@ -254,11 +275,21 @@ def reduce_from(x: torch.Tensor, axis: str = "model", *,
     return _ReduceFrom.apply(x, axis, mesh)
 
 
-def gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    mesh = R.current_mesh()
+def gather(x: torch.Tensor, axis: str, dim: int, *,
+           mesh=None) -> torch.Tensor:
+    mesh = R.current_mesh() if mesh is None else mesh
     if mesh is None or mesh.shape.get(axis, 1) == 1:
         return x
     return _Gather.apply(x, axis, dim, mesh)
+
+
+def shared_sum(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` along ``axis`` (:class:`_SharedSum`);
+    ``x`` itself without a mesh or on an axis of size 1."""
+    mesh = R.current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return x
+    return _SharedSum.apply(x, axis, mesh)
 
 
 def fetch(p: torch.Tensor, dim: Optional[int] = None, start: int = 0,
@@ -282,11 +313,13 @@ def fetch(p: torch.Tensor, dim: Optional[int] = None, start: int = 0,
     return t
 
 
-def split_over(p: torch.Tensor, dim: int, axis: str = "model") -> bool:
-    """Whether a mesh is active and ``p``'s placement splits its dim
-    ``dim`` over ``axis`` (more than one way)."""
+def split_over(p, dim: int, axis: str = "model") -> bool:
+    """Whether a mesh is active and ``p``'s placement (``p`` a stored
+    parameter or a ``NamedSharding``) splits its dim ``dim`` over ``axis``
+    (more than one way)."""
     mesh = R.current_mesh()
-    sh = getattr(p, "_sharding", None)
+    sh = p if isinstance(p, R.NamedSharding) else getattr(p, "_sharding",
+                                                         None)
     return mesh is not None and sh is not None \
         and axis in sh.dim_axes(dim) and mesh.shape[axis] > 1
 

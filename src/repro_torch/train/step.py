@@ -3,22 +3,28 @@
 Port of ``repro/train/step.py``: ``make_train_step``, ``make_prefill_step``
 and ``make_decode_step``.  Without a mesh the steps are the model calls
 themselves (the serve steps without autograd).  With a mesh
-(``repro_torch.launch.mesh``) the train and prefill steps run the dense
-and vision LMs sharded over ``(data, model)``, every placement from the
-reference's rule tables (``repro_torch.sharding``):
+(``repro_torch.launch.mesh``) the train and prefill steps run the dense,
+MoE, hybrid (zamba2), audio (whisper) and vision LMs sharded over
+``(data, model)``, every placement from the reference's rule tables
+(``repro_torch.sharding``):
 
 * each parameter is stored as this rank's block of it
   (``param_shardings``: vocabulary and mlp columns over ``model``; under
   FSDP the ``embed`` dim over ``data``), each AdamW moment as its block
   under :func:`opt_state_spec_tree` (``embed`` over ``data`` always:
   ZeRO-1), and the batch over (pod, data);
-* the forward computes heads, mlp columns and the vocabulary over
-  ``model`` and gathers FSDP shards at use (``models/attention.py``,
-  ``models/layers.py``, ``models/transformer.py``);
+* the forward computes heads, mamba heads, experts, mlp columns and the
+  vocabulary over ``model`` and gathers FSDP shards at use
+  (``models/attention.py``, ``ssm.py``, ``moe.py``, ``layers.py``,
+  ``transformer.py``);
 * after the backward each gradient is summed over the batch axes (an
   FSDP gather's backward has reduce-scattered it over ``data`` already; a
   ZeRO-1 parameter's is reduce-scattered to its moment's block) and, for
-  an attention weight whose heads the ranks split, over ``model``;
+  a replicated parameter each ``model`` rank computes only part of (the
+  attention weights where the ranks split the heads, the router where
+  they split the experts, a mamba layer's ``A_log``, ``D`` and
+  ``dt_bias`` where they split its heads: each module's spec names them,
+  ``sharding.api.SplitSpecs``), over ``model``;
 * AdamW updates the moments' blocks and the parameters' matching blocks
   in place, and a ZeRO-1 parameter's blocks are gathered back over
   ``data``.
@@ -49,7 +55,7 @@ from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import NamedSharding
 
 # the families whose compute runs sharded (the others raise under a mesh)
-MESH_FAMILIES = ("dense", "vlm")
+MESH_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
 
 
 @dataclasses.dataclass
@@ -108,10 +114,11 @@ def _batch_local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _check_mesh_model(cfg) -> None:
-    if cfg.family not in MESH_FAMILIES or cfg.is_moe:
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) does not run on a mesh yet: the "
-            "dense and vision LMs do (ROADMAP item 11 queues the rest)")
+            f"{cfg.name} ({cfg.family}) does not run on a mesh yet: its "
+            "mLSTM and sLSTM blocks are not split over the mesh (ROADMAP "
+            "item 11.3)")
 
 
 def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
@@ -138,15 +145,14 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         * shape.seq_len
     bundle = StepBundle(fn=None, memory_plan=transformer.memory_plan(
         model.cfg, micro_tokens))
-    act, p_shard, batch_axes, axes, heads_split = None, None, (), (), False
+    act, p_shard, batch_axes, axes = None, None, (), ()
     zero = collections.defaultdict(list)       # (dim, axis) ZeRO-1 cuts
     rep = collections.defaultdict(lambda: 1)   # ranks holding each block
+    partial = frozenset()                      # summed over model
     if mesh is not None:
-        act, p_shard, zero, rep = _mesh_layout(model, optimizer, shape, mesh,
-                                               microbatches, bundle)
+        act, p_shard, zero, rep, partial = _mesh_layout(
+            model, optimizer, shape, mesh, microbatches, bundle)
         batch_axes, axes = act["batch"], mesh.axis_names
-        heads_split = bool(act.get("heads")) \
-            and mesh.shape.get("model", 1) > 1
 
     def blocks(named):
         """The block of each parameter its moments cover (a view)."""
@@ -160,9 +166,9 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         return out
 
     def reduce_grad(n: str, g: torch.Tensor) -> torch.Tensor:
-        if heads_split and n.split(".")[-2:-1] in (["attn"], ["xattn"]):
-            # each model rank projected its own heads through this
-            # replicated weight: the blocks of its gradient add up
+        if n in partial:
+            # each model rank computed its own part through this
+            # replicated parameter: the parts of its gradient add up
             g = C.all_reduce(g, "model")
         for axis in batch_axes:
             if axis in p_shard[n].used_axes():
@@ -224,7 +230,8 @@ def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
                  mesh, microbatches: int, bundle: StepBundle):
     """The train step's placements on ``mesh``, recorded on ``bundle``:
     returns the activation rules, the parameters' placements, each
-    parameter's ZeRO-1 cuts and how many ranks hold each moment block."""
+    parameter's ZeRO-1 cuts, how many ranks hold each moment block and
+    the parameters whose gradients are partial over ``model``."""
     cfg = model.cfg
     _check_mesh_model(cfg)
     if not optimizer.name.startswith("adamw") or \
@@ -232,7 +239,7 @@ def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         raise NotImplementedError(
             f"{optimizer.name} on a mesh: the sharded step updates fp32 or "
             "bf16 AdamW moments (int8 blocks over (data, model) are not "
-            "ported)")
+            "ported: ROADMAP item 11.6)")
     act = api.activation_rules(cfg, shape, mesh)
     act["qblocks"] = ("data", "model")
     batch_axes = act["batch"]
@@ -242,7 +249,7 @@ def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         raise NotImplementedError(
             f"a batch of {shape.global_batch} in {microbatches} "
             f"micro-batches does not split over {batch_axes}: sequence "
-            "parallelism is not ported")
+            "parallelism is not ported (ROADMAP item 11.5)")
     specs, shapes = model.param_specs(), model.param_shapes()
     p_shard = api.param_shardings(mesh, cfg, specs, shapes)
     abstract = {"mu": {n: {"m": tuple(s), "v": tuple(s)}
@@ -258,9 +265,11 @@ def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
     bundle.out_shardings = (p_shard, o_shard, {"loss": replicated,
                                                "grad_norm": replicated})
     bundle.act_rules, bundle.mesh = act, mesh
+    with R.use_mesh(mesh, act):
+        partial = api.partial_over_model(cfg, model.specs(), p_shard)
     return (act, p_shard,
             {n: _zero_dims(n, p_shard[n], m_shard[n]) for n in shapes},
-            {n: m_shard[n].replication() for n in shapes})
+            {n: m_shard[n].replication() for n in shapes}, partial)
 
 
 def _zero_dims(name: str, param: NamedSharding, moment: NamedSharding):
@@ -304,7 +313,8 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
             if act["batch"] is None:
                 raise NotImplementedError(
                     f"a batch of {b} does not split over the mesh: "
-                    "sequence parallelism is not ported")
+                    "sequence parallelism is not ported (ROADMAP item "
+                    "11.5)")
         with R.use_mesh(mesh, act):
             return model.forward(params, _batch_local(batch))
 

@@ -220,19 +220,55 @@ def test_meshes_the_port_cannot_build_raise():
             make_mesh((2, 2), ("data", "model"), device="cpu")
 
 
-@pytest.mark.parametrize("case", ["moe", "int8", "batch"])
+@pytest.mark.parametrize("case", ["xlstm", "int8", "batch"])
 def test_sharded_step_refuses_what_it_does_not_run(case):
-    """Families other than the dense and vision LMs, int8 AdamW moments
-    and a batch that does not split over the mesh raise when the step is
-    built (no process group needed: the placements are computed first)."""
+    """The xLSTM family, int8 AdamW moments and a batch that does not
+    split over the mesh raise when the step is built, each naming its
+    ROADMAP item (no process group needed: the placements are computed
+    first)."""
     from repro_torch.models.model import reduce_config
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.train.step import make_train_step
-    arch = "granite-moe-1b-a400m" if case == "moe" else "llama3.2-3b"
+    arch = "xlstm-1.3b" if case == "xlstm" else "llama3.2-3b"
     model = build_model(reduce_config(ARCHS[arch]))
     opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
                          else "float32")
     batch = 3 if case == "batch" else 4
-    with pytest.raises(NotImplementedError):
+    item = {"xlstm": "11.3", "int8": "11.6", "batch": "11.5"}[case]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         make_train_step(model, opt, ShapeConfig("t", 16, batch, "train"),
                         mesh=Mesh((2, 2), ("data", "model")))
+
+
+@pytest.mark.parametrize("mesh_key", ["1x1", "2x2", "4x1", "1x4"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m",
+                                  "zamba2-7b", "whisper-tiny",
+                                  "llama-3.2-vision-11b"])
+def test_partial_over_model_names_what_the_ranks_split(arch, mesh_key):
+    """The replicated parameters whose gradients the step sums over
+    ``model``, as the modules' specs declare them: every attention weight
+    where the activation rules split the heads, the router where the
+    placement splits the experts, and a mamba layer's ``A_log``, ``D``
+    and ``dt_bias`` wherever ``model`` has more than one rank; nothing on
+    a ``model`` axis of one."""
+    model = build_model(ARCHS[arch])
+    mesh = _port_mesh(mesh_key)
+    shape = ShapeConfig("t", 4096, 4, "train")
+    act = api.activation_rules(model.cfg, shape, mesh)
+    p_shard = api.param_shardings(mesh, model.cfg, model.param_specs(),
+                                  model.param_shapes())
+    with use_mesh(mesh, act):
+        got = api.partial_over_model(model.cfg, model.specs(), p_shard)
+    split = mesh.shape["model"] > 1
+    want = set()
+    for n, sh in p_shard.items():
+        owner, _, leaf = n.rpartition(".")
+        kind = owner.rpartition(".")[2]
+        if kind in ("attn", "xattn") and split and act.get("heads"):
+            want.add(n)
+        elif kind == "moe" and leaf == "router" and split \
+                and "model" in p_shard[f"{owner}.gate"].dim_axes(0):
+            want.add(n)
+        elif kind == "ssm" and leaf in ("A_log", "D", "dt_bias") and split:
+            want.add(n)
+    assert got == want

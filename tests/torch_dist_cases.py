@@ -6,6 +6,7 @@ results to the JAX reference in their own process."""
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -35,17 +36,37 @@ def _capturing(opt: Optimizer, into: dict) -> Optimizer:
     return Optimizer(init=opt.init, update_=update_, name=opt.name)
 
 
+@contextlib.contextmanager
+def _record_routing():
+    """Yields the list of every MoE layer's top-k expert indices (G, S, k)
+    of this rank's rows, in call order."""
+    from repro_torch.models import moe
+    real, found = moe._top_k_mask, []
+
+    def spy(probs, k):
+        found.append(torch.topk(probs, k, dim=-1)[1].detach())
+        return real(probs, k)
+
+    moe._top_k_mask = spy
+    try:
+        yield found
+    finally:
+        moe._top_k_mask = real
+
+
 def _gather_tree(values: dict, shardings: dict) -> dict:
     return {n: _np(C.gather_global(v, shardings[n]))
             for n, v in values.items()}
 
 
-def train(rank: int, world: int, outdir: Path) -> None:
+def train(rank: int, world: int, outdir: Path, stem: str = "train"
+          ) -> None:
     """Every (mesh, config, FSDP, micro-batches) case of
-    ``tests/test_torch_dist_train.py``: one AdamW step from the reference's
-    parameters, its loss, its reduced grads and its updated parameters,
-    all gathered; then the prefill logits."""
-    inp = torch.load(outdir / "train_in.pt", weights_only=False)
+    ``tests/test_torch_dist_train.py`` (``<stem>_in.pt``; ``stem``
+    "families": ``tests/test_torch_dist_families.py``): one AdamW step
+    from the reference's parameters, its loss, its reduced grads and its
+    updated parameters, all gathered; then the prefill logits."""
+    inp = torch.load(outdir / f"{stem}_in.pt", weights_only=False)
     out = {}
     for mesh_shape in inp["meshes"]:
         mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
@@ -72,6 +93,8 @@ def train(rank: int, world: int, outdir: Path) -> None:
                     continue
                 grads = {}
                 opt = _capturing(make_optimizer("adamw", lr=1e-2), grads)
+                routing = _record_routing() if case.get("routing") \
+                    else contextlib.nullcontext([])
                 shape = ShapeConfig("t", batch["tokens"].shape[1],
                                     batch["tokens"].shape[0], "train")
                 bundle = make_train_step(model, opt, shape, mesh=mesh,
@@ -81,7 +104,8 @@ def train(rank: int, world: int, outdir: Path) -> None:
                                            trainable=True,
                                            shardings=p_shard)
                 state = bundle.init_state(params)
-                _, _, metrics = bundle(params, state, batch)
+                with routing as chosen:
+                    _, _, metrics = bundle(params, state, batch)
                 m_shard = {n: o_shard["mu"][n]["m"] for n in grads}
                 out[(mkey, name, fsdp, mb)] = {
                     "loss": float(metrics["loss"]),
@@ -91,11 +115,99 @@ def train(rank: int, world: int, outdir: Path) -> None:
                         dict(params.named_parameters()), p_shard),
                     "moments": _gather_tree(
                         {n: state["mu"][n]["m"] for n in grads}, m_shard),
+                    # each MoE layer's top-k choices, the global batch's
+                    "routing": [_np(C.all_gather(t, "data", 0, mesh=mesh))
+                                for t in chosen],
                 }
             finally:
                 api.clear_overrides()
     if rank == 0:
-        torch.save(out, outdir / "train_out.pt")
+        torch.save(out, outdir / f"{stem}_out.pt")
+
+
+def families(rank: int, world: int, outdir: Path, *,
+             rendezvous: str) -> None:
+    """``tests/test_torch_dist_families.py``: the sharded steps of
+    :func:`train` on the hybrid, MoE and audio families; the MoE
+    auxiliary loss of one layer on (2, 2) against the one-device value;
+    then ``launch.train --distributed`` on zamba2, granite-moe and
+    whisper, each a world of its own as torchrun would start it."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import use_mesh
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        train(rank, world, outdir, stem="families")
+        inp = torch.load(outdir / "families_in.pt", weights_only=False)
+        arch, over = inp["aux"]["config"]
+        cfg = reduce_config(ARCHS[arch], **over)
+        x = torch.from_numpy(inp["aux"]["x"])
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        model = build_model(cfg)
+        p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
+                                      model.param_shapes())
+        shape = ShapeConfig("t", x.shape[1], x.shape[0], "train")
+        params = params_from_numpy(inp["trees"][inp["aux"]["tree"]], cfg,
+                                   "cpu", trainable=True, shardings=p_shard)
+        layer = params.blocks[0].moe
+        act = api.activation_rules(cfg, shape, mesh)
+        rows = x.shape[0] // 2
+        mine = x[mesh.coords()["data"] * rows:][:rows]
+        with use_mesh(mesh, act):
+            _, aux = moe.moe_forward(cfg, layer, mine)
+        with use_mesh(None):
+            # the same rows without the batch axes' sums: a mean over this
+            # rank's tokens only
+            full = {k: C.gather_global(v.detach(), p_shard[
+                f"blocks.0.moe.{k}"]) for k, v in layer.items()}
+            _, local = moe.moe_forward(cfg, full, mine)
+        auxes = C.all_gather(torch.stack([aux.detach(), local])[None],
+                             "data", 0, mesh=mesh)
+
+        # every collective of one zamba2 step with remat on (each mamba
+        # layer replayed in the backward), in order, on every rank
+        name = inp["order"]
+        cfg = reduce_config(ARCHS[inp["configs"][name][0]],
+                            **inp["configs"][name][1])
+        batch = {k: torch.from_numpy(v)
+                 for k, v in inp["batches"][name].items()}
+        bundle = make_train_step(
+            build_model(cfg), make_optimizer("adamw"),
+            ShapeConfig("t", batch["tokens"].shape[1],
+                        batch["tokens"].shape[0], "train"), mesh=mesh)
+        params = params_from_numpy(inp["trees"][name], cfg, "cpu",
+                                   trainable=True,
+                                   shardings=bundle.in_shardings[0])
+        state = bundle.init_state(params)
+        with C.record_calls() as calls:
+            bundle(params, state, batch)
+        order = [None] * world
+        dist.all_gather_object(order, [(c["kind"], c["axis"],
+                                        c["operand_shape"]) for c in calls])
+        if rank == 0:
+            torch.save({"aux": _np(auxes), "order": order},
+                       outdir / "aux_out.pt")
+    finally:
+        dist.destroy_process_group()
+
+    from repro_torch.launch import train as launch
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    runs = {}
+    for arch in inp["launch"]:
+        out = launch.main(["--arch", arch, "--test-mesh", "--device",
+                           "cpu", "--steps", "2", "--distributed",
+                           "--stub-frontend",
+                           "--dist-init", f"file://{rendezvous}_{arch}"])
+        runs[arch] = out["history"]
+    if rank == 0:
+        torch.save(runs, outdir / "launch_families_out.pt")
 
 
 def pipeline(rank: int, world: int, outdir: Path) -> None:

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""llama-3.2-vision-11b trained at full width and depth on four H100s.
+"""One model trained at full width and depth on four H100s.
 
-    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
-        --device cpu --test-mesh            # a reduced rehearsal on gloo
+        [--arch llama-3.2-vision-11b | zamba2-7b | granite-moe-1b-a400m |
+         whisper-tiny]
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
+        --device cpu --test-mesh [--arch ...]   # a reduced rehearsal on gloo
 
 The port's sharded train step (``repro_torch.train.step`` with a mesh) on
 the reference's (data, model) = (2, 2) mesh over NCCL, one card per
-``LOCAL_RANK``: all 40 layers (8 super-blocks of 4 self blocks and one
-cross block, each super-block one checkpoint region), FSDP by the
-reference's size rule (the attention weights split 2 ways over data, the
-rest 4 ways), fp32 parameters and AdamW moments, bf16 compute, every
-cross block's xgate at 0.5.  Global batch 4 x 4096 tokens against 1600
-image embeddings each, 2 micro-batches, 3 steps.  Each rank initialises
-its own blocks layer by layer from one seed (a whole fp32 copy of the
-model is 40 GB).
+``LOCAL_RANK``, FSDP by the reference's size rule, fp32 parameters and
+AdamW moments, bf16 compute, every cross block's xgate at 0.5.  Global
+batch 4 x 4096 tokens, 2 micro-batches, 3 steps.  The default,
+llama-3.2-vision-11b: all 40 layers (8 super-blocks of 4 self blocks and
+one cross block, each super-block one checkpoint region; the attention
+weights split 2 ways over data, the rest 4 ways) against 1600 image
+embeddings a sequence; each rank initialises its own blocks layer by
+layer from one seed (a whole fp32 copy of the model is 40 GB).
+zamba2-7b: all 81 mamba layers (each its own region, replayed with
+nothing saved; the SSD scan on each rank's 56 heads) and the shared
+block's 13 applications (27 GB of fp32 parameters, drawn whole on each
+card from one seed and cut).  granite-moe-1b-a400m (16 of its 32 experts
+a rank) and whisper-tiny (3 heads a rank, 1500 frames a sequence) fit on
+one card; they run here for their ``--test-mesh`` rehearsals.
 
 Rank 0 prints one JSON line per step (loss, step s, tokens/s, the
 collectives of each rank by kind from ``launch/comm_analysis.py``) and a
 last line with every card's peak, the device idle share of one more step
-under ``torch.profiler`` (NCCL kernels counted busy, their time apart)
-and the card's name and power limit.  Any non-finite loss exits non-zero.
+under ``torch.profiler`` (the share of the wall no kernel covers, NCCL's
+counted busy; their time apart) and the card's name and power limit.  Any non-finite loss exits non-zero.
 """
 
 from __future__ import annotations
@@ -43,6 +51,17 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 ARCH = "llama-3.2-vision-11b"
+ARCHS_RUN = ("llama-3.2-vision-11b", "zamba2-7b", "granite-moe-1b-a400m",
+             "whisper-tiny")
+# --test-mesh: each family reduced (the reference's reduce_config with
+# these overrides), every attention through the flash path
+TEST_MESH = {
+    "llama-3.2-vision-11b": dict(n_layers=4, cross_attn_every=2,
+                                 image_tokens=40),
+    "zamba2-7b": dict(),
+    "granite-moe-1b-a400m": dict(n_layers=2),
+    "whisper-tiny": dict(n_heads=6, n_kv_heads=6, encoder_seq=40),
+}
 MESH = (2, 2)
 SEQ, BATCH, MICRO, STEPS = 4096, 4, 2, 3
 XGATE = 0.5
@@ -85,19 +104,51 @@ def init_sharded(cfg, shardings, device, seed: int = 0):
     return mark_sharded(VisionLM(cfg, tree, trainable=True), shardings)
 
 
+def init_whole(model, shardings, device, seed: int = 0):
+    """The model drawn whole from ``seed`` on ``device`` (every cross
+    gate at ``XGATE``), then cut to this rank's blocks."""
+    from repro_torch.sharding.api import shard_module
+
+    params = model.init(seed, device=device, trainable=True)
+    for blk in getattr(params, "dec_blocks", ()):
+        blk.xgate.data.fill_(XGATE)
+    params = shard_module(params, shardings)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return params
+
+
 def batch_for(cfg, seq: int, step: int, device):
     g = torch.Generator(device).manual_seed(1000 + step)
     tokens = torch.randint(0, cfg.vocab, (BATCH, seq + 1), generator=g,
                            device=device)
-    return {"tokens": tokens[:, :-1].contiguous(),
-            "targets": tokens[:, 1:].contiguous(),
-            "image_embeds": torch.randn(BATCH, cfg.image_tokens, cfg.d_model,
-                                        generator=g, device=device)}
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "targets": tokens[:, 1:].contiguous()}
+    if cfg.family in ("vlm", "audio"):
+        key, t = (("image_embeds", cfg.image_tokens) if cfg.family == "vlm"
+                  else ("enc_frames", cfg.encoder_seq))
+        batch[key] = torch.randn(BATCH, t, cfg.d_model, generator=g,
+                                 device=device)
+    return batch
+
+
+def _covered(spans):
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def idle_share(step):
-    """(wall s, busy s, NCCL s, idle share) of ``step()`` under the
-    profiler; busy is the kernels' device time, NCCL's included."""
+    """(wall s, kernel s, covered s, NCCL s, idle share) of ``step()``
+    under the profiler: kernel s sums every kernel's device time over the
+    streams (NCCL's included), covered s is the time some kernel runs (the
+    union of their intervals: the collectives' stream overlaps the compute
+    stream, so the sum can exceed the wall), and the idle share is 1 -
+    covered / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,16 +160,18 @@ def idle_share(step):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = nccl = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith("Memcpy") \
-                or e.key == "Command Buffer Full":
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith("Memcpy") \
+                or e.name == "Command Buffer Full":
             continue
-        us = float(getattr(e, "self_device_time_total", 0.0)
-                   or getattr(e, "self_cuda_time_total", 0.0))
+        us = e.time_range.end - e.time_range.start
         busy += us
-        if "nccl" in e.key.lower():
+        spans.append((e.time_range.start, e.time_range.end))
+        if "nccl" in e.name.lower():
             nccl += us
-    return wall, busy / 1e6, nccl / 1e6, 1 - busy / 1e6 / wall
+    covered = _covered(spans) / 1e6
+    return wall, busy / 1e6, covered, nccl / 1e6, 1 - covered / wall
 
 
 def main(argv=None) -> int:
@@ -128,6 +181,7 @@ def main(argv=None) -> int:
     ap.add_argument("--test-mesh", action="store_true",
                     help="the reduced config (with --device cpu)")
     ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--arch", default=ARCH, choices=ARCHS_RUN)
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ARCHS
@@ -154,12 +208,12 @@ def main(argv=None) -> int:
     dist.init_process_group("nccl" if on_card else "gloo",
                             timeout=timedelta(minutes=4))
     try:
-        cfg = dataclasses.replace(ARCHS[ARCH], attention_impl="pallas")
+        cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
         seq = SEQ
         if args.test_mesh:
-            cfg = reduce_config(cfg, n_layers=4, cross_attn_every=2,
-                                block_q=32, block_kv=32, image_tokens=40,
-                                attention_impl="pallas", remat=True)
+            cfg = reduce_config(cfg, block_q=32, block_kv=32,
+                                attention_impl="pallas", remat=True,
+                                **TEST_MESH[args.arch])
             seq = 48
         mesh = make_mesh(MESH, ("data", "model"),
                          device="cuda" if on_card else "cpu")
@@ -168,7 +222,10 @@ def main(argv=None) -> int:
         bundle = make_train_step(model, make_optimizer("adamw"), shape,
                                  mesh=mesh, microbatches=MICRO)
         t0 = time.perf_counter()
-        params = init_sharded(cfg, bundle.in_shardings[0], device)
+        if cfg.family == "vlm":
+            params = init_sharded(cfg, bundle.in_shardings[0], device)
+        else:
+            params = init_whole(model, bundle.in_shardings[0], device)
         state = bundle.init_state(params)
         init_s = time.perf_counter() - t0
         gpu = subprocess.run(
@@ -208,14 +265,14 @@ def main(argv=None) -> int:
                "losses": losses}
         if on_card:
             batch = batch_for(cfg, seq, args.steps, device)
-            wall, busy, nccl, idle = idle_share(
+            wall, busy, covered, nccl, idle = idle_share(
                 lambda: bundle(params, state, batch))
             peaks = [None] * world
             dist.all_gather_object(
                 peaks, torch.cuda.max_memory_allocated(device) / 1e9)
-            out.update(profiled_step_s=wall, device_busy_s=busy,
-                       nccl_s=nccl, device_idle_share=idle, peak_gb=peaks,
-                       gpu=gpu)
+            out.update(profiled_step_s=wall, device_kernel_s=busy,
+                       device_covered_s=covered, nccl_s=nccl,
+                       device_idle_share=idle, peak_gb=peaks, gpu=gpu)
         if rank == 0:
             print(json.dumps(out), flush=True)
         return 0 if out["ok"] else 1
