@@ -185,8 +185,8 @@ them:
    (``kernels/recompute.py``, timed on the card's clock): (e) zamba2-7b,
    depth 81 -> 39 (6 groups of 6 and a tail of 3; 81 layers' fp32 state is
    108 GB) and batch 256 -> 2, train_4k's 4096 tokens, 3 steps of 2
-   micro-batches; (f) xlstm-1.3b at full depth (48 blocks), batch 2,
-   sequence 4096 -> 1024, 2 steps.  Gates: finite losses, the first within
+   micro-batches; (f) xlstm-1.3b at full width, depth 48 -> 16 (two
+   groups), batch 2, sequence 4096 -> 1024, 2 steps.  Gates: finite losses, the first within
    1.0 of ln(vocab) (the untied unembedding starts at logits ~N(0, 1)),
    SSD / mLSTM / flash / SwiGLU launches exactly as the checkpoint
    structure implies (each scan in its forward and its block's replay;
@@ -296,9 +296,9 @@ them:
    launches by shape equal (bf16: train (a)'s shapes, all wgmma); (l)
    four ranks sharing the card over gloo (every collective staged through
    host copies), mesh (2, 2), FSDP by the reference's size rule, at full
-   width, 2 sequences of 4096: llama3.2-3b (2 layers, bf16),
+   width, 2 sequences of 4096: llama3.2-3b (1 layer, bf16),
    llama-3.2-vision-11b (one self and one cross block, xgate 0.5, 1600
-   image embeddings; fp32 and bf16), zamba2-7b (one group of six mamba
+   image embeddings; fp32 and bf16), zamba2-7b (one group of three mamba
    layers and the shared block; fp32 and bf16: each rank's 56 SSD heads),
    granite-moe-1b-a400m (2 layers, bf16: each rank's 16 experts, the
    one-rank run's routing replayed, flips counted) and whisper-tiny
@@ -309,9 +309,20 @@ them:
    zamba2-7b's and whisper-tiny's bf16 gradients to the fixed
    ``DIST_BF16_TOL``, each also read against the one-rank fp32 gradient;
    granite's routing flips at most ``DIST_FLIP_FRACTION`` of a rank's
-   choices), every flash, SwiGLU and SSD launch at the per-rank shapes,
-   all wgmma, each held against its twin there and timed for its
-   kernel-table row; the tally's collectives by kind per rank.
+   choices), and xlstm-1.3b (one group of 7 mLSTM blocks and the sLSTM
+   block, 4 sequences of 1024 in 2 micro-batches; fp32 and bf16: each
+   rank's 2 mLSTM heads, every backward's normaliser branches pinned to
+   the one-rank run's, its rows and heads of them; fp32 per leaf 1e-4,
+   bf16 at the fixed ``DIST_BF16_TOL``); then every family's decode step
+   on the mesh (``make_decode_step(..., mesh=...)``, the same depths, 4
+   sequences, 4 tokens from a zero state with seeded cross caches)
+   against the one-rank decode, each rank's blocks of every step's
+   logits and of the final state (fp32 normwise 1e-4; bf16 within twice
+   the one-rank bf16 decode's own distance from the fp32 one, at least
+   2e-2; granite's routing replayed); every flash, SwiGLU, SSD and mLSTM
+   launch at the per-rank shapes, the train steps' all wgmma, each held
+   against its twin there and timed for its kernel-table row; the
+   tally's collectives by kind per rank.
 
 The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
 20 (e), (f), 22 (h), (i)) and generate's SwiGLU launches must
@@ -517,7 +528,7 @@ def main() -> int:
     mm_rows = phase_multimodal(torch, fa, sw, gpu)
     # before the paper's phases, whose host pools (~76 GB resident) would
     # leave too little host memory for the four ranks of (l)
-    dist_rows = phase_dist(torch, fa, ssd, sw, gpu)
+    dist_rows = phase_dist(torch, fa, ssd, ml, sw, gpu)
     _zero(fa, ssd, ml, sw)
     paper_rows = phase_paper_zoo(torch, gpu) + phase_paper_trunk(torch, gpu)
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
@@ -1410,7 +1421,9 @@ def phase_xlstm(torch, ml, gpu):
     weights_gb = sum(p.numel() * p.element_size()
                      for p in params.parameters()) / 1e9
     step = make_prefill_step(model)
-    step(params, batch)                         # warm-up
+    # no separate warm-up: the kernel phases built and launched the mLSTM
+    # kernel already, and the median of the three steps below drops a
+    # slower first one (a step is ~10 s, host-bound by the sLSTM loops)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3364,11 +3377,14 @@ def _train_resume(torch):
 # (e) zamba2-7b: depth 81 -> 39 (6 groups of 6 and a tail of 3: the fp32
 # parameters, grads and AdamW moments of 81 layers, 108 GB, do not fit the
 # card), global batch 256 -> 2 (2 micro-batches of 1), train_4k's 4096
-# tokens; (f) xlstm-1.3b at full depth, batch 2 likewise, sequence 4096 ->
+# tokens; (f) xlstm-1.3b at full width, batch 2 likewise, sequence 4096 ->
 # 1024 (the sLSTM loop, replayed and backpropagated step by step on the
 # host, would add minutes at 4096)
 REC_ZAMBA_DEPTH, REC_ZAMBA_SEQ, REC_ZAMBA_STEPS = 39, 4096, 3
 REC_XLSTM_SEQ, REC_XLSTM_STEPS = 1024, 2
+# (f)'s depth: 2 groups of 7 mLSTM blocks and the sLSTM block (cut from
+# all 48 to keep the whole run well inside its limit)
+REC_XLSTM_DEPTH = 16
 REC_BATCH, REC_MICRO = 2, 2
 # (g) fp32 parity: full width, S = 1024, zamba one group and a tail of 1,
 # xlstm one group of 7 mLSTM blocks and 1 sLSTM block
@@ -3619,6 +3635,9 @@ def _train_recurrent_full(torch, fa, ssd, ml, sw, gpu, arch):
         seq, steps = REC_XLSTM_SEQ, REC_XLSTM_STEPS
         cuts["seq_len"] = [4096, seq, "the sLSTM loop is replayed and "
                            "backpropagated step by step on the host"]
+        cfg = dataclasses.replace(cfg, n_layers=REC_XLSTM_DEPTH)
+        cuts["n_layers"] = [48, REC_XLSTM_DEPTH, "the whole chip check's "
+                            "time limit: each sLSTM block is ~8 s a step"]
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
                                 global_batch=REC_BATCH)
     tokens = seq * REC_BATCH // REC_MICRO
@@ -5005,11 +5024,27 @@ def phase_roofline(torch, kernels, gpu):
 
 DIST_SEQ, DIST_BATCH = 4096, 2
 DIST_K_DEPTH = {"float32": 2, "bfloat16": 4}
-# (l): each model's depth: llama's 2 layers, the vlm's one self and one
-# cross block, zamba2-7b's one group (six mamba layers, then the shared
-# block), granite-moe's 2 layers, whisper-tiny whole (4 + 4 blocks)
-DIST_DEPTH = {"llama3.2-3b": 2, "llama-3.2-vision-11b": 2, "zamba2-7b": 6,
-              "granite-moe-1b-a400m": 2, "whisper-tiny": 4}
+# (l): each model's depth: llama's 1 layer (cut from 2), the vlm's one
+# self and one
+# cross block, zamba2-7b's one group cut to three mamba layers, then the
+# shared block (cut from six to keep the whole run near 900 s),
+# granite-moe's 2 layers, whisper-tiny whole (4 + 4 blocks), xlstm-1.3b's
+# one group (7 mLSTM blocks, then the sLSTM block)
+DIST_DEPTH = {"llama3.2-3b": 1, "llama-3.2-vision-11b": 2, "zamba2-7b": 3,
+              "granite-moe-1b-a400m": 2, "whisper-tiny": 4, "xlstm-1.3b": 8}
+# (l)'s train shapes other than (DIST_SEQ, DIST_BATCH, 1 micro-batch):
+# xlstm-1.3b's one group (7 mLSTM blocks, then the sLSTM block) at train
+# (f)'s sequence, 2 micro-batches of 2 sequences (one a data rank)
+DIST_SHAPES = {"xlstm-1.3b": (1024, 4, 2)}
+# the models whose fp32 runs take every rank's mLSTM normaliser branches
+# from the one-rank run (its rows and heads of them): at full width the
+# kink max(|n|, exp(-m)) flips under a rounding of the projections, and
+# xlstm-1.3b's kernel and twin paths, one rank each, part by 0.115 per
+# leaf unpinned, 1.3e-3 pinned (C.3, (g)).  Not in bf16: there two
+# correct runs' inputs to the kink part by enough that one run's branch
+# divides the other's by a near-zero |n| (the twin path pinned to the
+# kernel path's branches: 134 normwise, 0.52 unpinned; PERF.md section 6)
+DIST_PINNED_RUNS = ("xlstm-1.3b",)
 DIST_MESH = (2, 2)
 DIST_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DIST_FLASH = {   # each rank's shapes on the (2, 2) mesh, one sequence
@@ -5034,9 +5069,35 @@ DIST_SWIGLU = {"llama3.2-3b MLP": (1, 4096, 3072, 4096),
                "whisper-tiny encoder MLP": (1, 1500, 384, 768),
                "whisper-tiny decoder MLP": (1, 4096, 384, 768)}
 DIST_SSD = {"zamba2-7b mamba layer": (1, 4096, 56, 64, 64, 256)}
+# each rank's mLSTM chunk call: one sequence of a micro-batch, 2 of the 4
+# heads (b, s, h, p, chunk)
+DIST_MLSTM = {"xlstm-1.3b mLSTM block": (1, 1024, 2, 1024, 256)}
+# (l)'s decode: each family at DIST_DEPTH, 4 sequences whose lengths start
+# 0-3 apart, a cache of 64, 4 steps from a zero state (the cross caches
+# written from a seed), the step on (2, 2) against the one-rank step, in
+# fp32 (logits and each state leaf normwise within 1e-4) and in bf16
+# (within twice the one-rank bf16 run's own distance from the one-rank
+# fp32 run, by logits and by leaf, at least 2e-2: the mesh's bf16 run is
+# a second rounding of the same function)
+DIST_DECODE_BATCH, DIST_DECODE_LEN, DIST_DECODE_STEPS = 4, 64, 4
+DIST_DECODE_DTYPES = ("float32", "bfloat16")
+DIST_DECODE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# each rank's SwiGLU calls at decode (2 sequences a data rank, one token):
+# its mlp columns, or its 16 experts with one slot each (a group is one
+# token: capacity ceil(1 * 8 / 32 * 1.25) = 1)
+DIST_DECODE_SWIGLU = {
+    "llama3.2-3b decode MLP": (1, 2, 3072, 4096),
+    "llama-3.2-vision-11b decode MLP": (1, 2, 4096, 7168),
+    "zamba2-7b decode shared MLP": (1, 2, 3584, 7168),
+    "granite-moe-1b-a400m decode experts": (16, 2, 1024, 512),
+    "whisper-tiny decode MLP": (1, 2, 384, 768)}
+# SwiGLU launches a rank makes in one decode step
+DIST_DECODE_SWIGLU_CALLS = {"llama3.2-3b": 1, "llama-3.2-vision-11b": 2,
+                            "zamba2-7b": 1, "granite-moe-1b-a400m": 2,
+                            "whisper-tiny": 4, "xlstm-1.3b": 0}
 # SwiGLU launches a rank makes in one step: one per MLP (each plan keeps
 # the hidden, so no replay launches the kernel again)
-DIST_SWIGLU_CALLS = {"llama3.2-3b": 2, "llama-3.2-vision-11b": 2,
+DIST_SWIGLU_CALLS = {"llama3.2-3b": 1, "llama-3.2-vision-11b": 2,
                      "zamba2-7b": 1, "granite-moe-1b-a400m": 2,
                      "whisper-tiny": 8}
 # (l)'s runs: fp32 on the vision LM and zamba2-7b (their blocks cover the
@@ -5046,11 +5107,14 @@ DIST_RUNS = {"llama3.2-3b": ("bfloat16",),
              "llama-3.2-vision-11b": ("float32", "bfloat16"),
              "zamba2-7b": ("float32", "bfloat16"),
              "granite-moe-1b-a400m": ("bfloat16",),
-             "whisper-tiny": ("bfloat16",)}
+             "whisper-tiny": ("bfloat16",),
+             "xlstm-1.3b": ("float32", "bfloat16")}
 # the models whose fp32 leaves widen to SPREAD_FACTOR x the spread of two
 # other correct one-rank runs where that exceeds 1e-4, as (g)'s SSD decay
-# leaves (cancelling sums); the others keep the gate
-DIST_SPREAD_RUNS = ("zamba2-7b",)
+# leaves (cancelling sums) and xlstm-1.3b's grads behind the normaliser
+# (for a DIST_PINNED_RUNS model one such run: the twin path pinned to the
+# kernel path's branches); the others keep the gate
+DIST_SPREAD_RUNS = ("zamba2-7b", "xlstm-1.3b")
 # the bf16 gradient gates of the models whose correct bf16 runs part by
 # more than 2e-2 (whisper's scalar xgate, zamba's SSD decay leaves: sums
 # of cancelling terms): fixed, twice the largest normwise distance between
@@ -5059,7 +5123,13 @@ DIST_SPREAD_RUNS = ("zamba2-7b",)
 # section 6).  Each of these runs is also measured against the
 # one-rank fp32 gradient, beside the one-rank bf16 step's own distance
 # from it
-DIST_BF16_TOL = {"zamba2-7b": 0.027, "whisper-tiny": 0.038}
+DIST_BF16_TOL = {"zamba2-7b": 0.027, "whisper-tiny": 0.038,
+                 # xlstm-1.3b at depth 8: its one-rank kernel and twin
+                 # paths part by 0.522 normwise in bf16 (the normaliser's
+                 # kink, 1976 of 114,688 branches flipped; measured on
+                 # one H100): the bf16 gradient is a weak check here, the
+                 # pinned fp32 one carries the sharding's correctness
+                 "xlstm-1.3b": 1.05}
 # the most of a granite rank's token choices that may differ from the
 # one-rank run's it replays (a one-ulp difference in the residual stream
 # flips a near-tie; 2.7-2.9% measured on the card): a router that
@@ -5083,9 +5153,14 @@ def _capture(into, base=None):
                      name=base.name if base is not None else "adamw_float32")
 
 
-def _dist_batch(torch, cfg, b, seed=17):
+def _dist_shape(arch):
+    """(sequence, batch, micro-batches) of ``arch``'s (l) train run."""
+    return DIST_SHAPES.get(arch, (DIST_SEQ, DIST_BATCH, 1))
+
+
+def _dist_batch(torch, cfg, b, seed=17, seq=DIST_SEQ):
     g = torch.Generator("cuda").manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab, (b, DIST_SEQ + 1), generator=g,
+    tokens = torch.randint(0, cfg.vocab, (b, seq + 1), generator=g,
                            device="cuda")
     batch = {"tokens": tokens[:, :-1].contiguous(),
              "targets": tokens[:, 1:].contiguous()}
@@ -5101,6 +5176,12 @@ def _ssd_key(x, dt, A_log, B, C, variant):
     """(b, s, h, p, n, chunk, variant) of a chunked SSD call."""
     b, nc, q, h, p = x.shape
     return (b, nc * q, h, p, B.shape[-1], q, variant)
+
+
+def _mlstm_key(q, k, v, li, lf, sm_scale, variant):
+    """(b, s, h, p, chunk, variant) of a chunked mLSTM call."""
+    b, nc, nq, h, p = q.shape
+    return (b, nc * nq, h, p, nq, variant)
 
 
 def _expert_swiglu_key(x, wg, wu, variant):
@@ -5143,8 +5224,9 @@ def _moe_routing(torch, pin=None, rows=slice(None)):
 
 def _dist_cfg(arch, **over):
     from repro_torch.configs import ARCHS
-    extra = {"cross_attn_every": DIST_DEPTH[arch]} \
-        if arch == "llama-3.2-vision-11b" else {}
+    extra = {"llama-3.2-vision-11b": {"cross_attn_every": DIST_DEPTH[arch]},
+             "zamba2-7b": {"shared_attn_every": DIST_DEPTH[arch]}
+             }.get(arch, {})
     return dataclasses.replace(ARCHS[arch], attention_impl="pallas",
                                **extra, **over)
 
@@ -5154,7 +5236,7 @@ def _normwise(torch, got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def phase_dist(torch, fa, ssd, sw, gpu):
+def phase_dist(torch, fa, ssd, ml, sw, gpu):
     """(k) one rank on the card; (l) four ranks sharing it.  Returns the
     kernel rows of (l)'s per-rank shapes."""
     import gc
@@ -5173,26 +5255,39 @@ def phase_dist(torch, fa, ssd, sw, gpu):
     rows = {}
     twins = {"flash": _flash_twin_checks(torch, fa, list(DIST_FLASH.values()),
                                          phase="dist"),
-             "swiglu": _swiglu_twin_checks(torch, sw,
-                                           list(DIST_SWIGLU.values()),
-                                           phase="dist"),
+             "swiglu": _swiglu_twin_checks(
+                 torch, sw, list({**DIST_SWIGLU,
+                                  **DIST_DECODE_SWIGLU}.values()),
+                 phase="dist"),
              "ssd": _twin_checks(torch, ssd, "ssd_chunk",
                                  list(DIST_SSD.values()), _ssd_inputs,
-                                 SSD_OUTPUTS, SSD_TOL, ssd_variant)}
+                                 SSD_OUTPUTS, SSD_TOL, ssd_variant),
+             "mlstm": _twin_checks(torch, ml, "mlstm_chunk",
+                                   list(DIST_MLSTM.values()), _mlstm_inputs,
+                                   MLSTM_OUTPUTS, MLSTM_TOL, mlstm_variant)}
     for path, case in DIST_SSD.items():
         rows[path] = _scan_row(torch, ssd, "ssd_chunk", case, _ssd_inputs,
                                ssd_bound, SSD_TOL, gpu, "zamba2-7b")
         rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
                               "(one rank's heads, launches of all 4)")
-        rows[path]["launches"] = l_out["ssd_launches"][path]
+        rows[path]["launches"] = l_out["scan_launches"][path]
+    for path, case in DIST_MLSTM.items():
+        rows[path] = _scan_row(torch, ml, "mlstm_chunk", case,
+                               _mlstm_inputs, mlstm_bound, MLSTM_TOL, gpu,
+                               "xlstm-1.3b")
+        rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
+                              "(one rank's heads and sequence, launches of "
+                              "all 4)")
+        rows[path]["launches"] = l_out["scan_launches"][path]
     for path, shape in DIST_FLASH.items():
         rows[path] = _flash_times(torch, fa, gpu, shape, path.split(" ")[0])
         rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
                               "(one rank's shape, launches of all 4)")
         rows[path]["launches"] = l_out["flash_launches"][path]
-    for path, case in DIST_SWIGLU.items():
+    for path, case in {**DIST_SWIGLU, **DIST_DECODE_SWIGLU}.items():
         rows[path] = _swiglu_times(torch, sw, gpu, case, path)
-        rows[path]["path"] = (f"{path}, train step on the (2, 2) mesh "
+        step = "decode" if path in DIST_DECODE_SWIGLU else "train"
+        rows[path]["path"] = (f"{path}, {step} step on the (2, 2) mesh "
                               "(one rank's shape, launches of all 4)")
         rows[path]["launches"] = l_out["swiglu_launches"][path]
     emit({"phase": "dist", "ok": True, "gpu": gpu,
@@ -5302,11 +5397,12 @@ def _dist_shared_card(torch):
     from repro_torch.models.model import build_model
     from repro_torch.train.step import make_train_step
 
-    shape = ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train")
     out_dir = ROOT / "build" / "chip_dist"
     out_dir.mkdir(parents=True, exist_ok=True)
     spreads, anchors = {}, {}
     for arch, dtypes in DIST_RUNS.items():
+        seq, b, micro = _dist_shape(arch)
+        shape = ShapeConfig("train_4k", seq, b, "train")
         model, params, batch = _dist_model(torch, arch)
         # an fp32 one-rank gradient for each bf16 run of DIST_BF16_TOL
         anchor = ("float32",) if arch in DIST_BF16_TOL \
@@ -5315,8 +5411,12 @@ def _dist_shared_card(torch):
             grads = {}
             run_model = build_model(dataclasses.replace(model.cfg,
                                                         dtype=dtype))
-            step = make_train_step(run_model, _capture(grads), shape)
-            with _moe_routing(torch) as routing:
+            step = make_train_step(run_model, _capture(grads), shape,
+                                   microbatches=micro)
+            pinned = arch in DIST_PINNED_RUNS and dtype == "float32"
+            with _moe_routing(torch) as routing, \
+                    (_normaliser_branches(torch) if pinned
+                     else contextlib.nullcontext([])) as branches:
                 _, _, metrics = step(params, {}, batch)
             # for DIST_SPREAD_RUNS in fp32, the spread of two other
             # correct one-rank runs, each leaf's: a plain path (the scans'
@@ -5325,17 +5425,24 @@ def _dist_shared_card(torch):
             # halves of the batch are summed apart as the data ranks sum
             # theirs.  The SSD decay leaves (A_log, dt_bias) sum
             # cancelling terms whose value moves with the order and
-            # rounding of the sums (C.3)
+            # rounding of the sums (C.3).  A pinned model's one such run
+            # is the twin path with this run's normaliser branches
             top = {n: g.float().abs().max().item() for n, g in grads.items()}
             spread = dict.fromkeys(grads, 0.0)
-            probes = ((True, 1), (False, 2)) \
-                if arch in DIST_SPREAD_RUNS and dtype == "float32" else ()
-            for plain_path, micro in probes:
+            probes = ()
+            if arch in DIST_SPREAD_RUNS and dtype == "float32":
+                # (plain path's scans, micro-batches, branches to pin)
+                probes = (("twin", micro, branches),) if pinned \
+                    else (("chunked", 1, None), (None, 2, None))
+            for scans, probe_micro, pin in probes:
                 other = {}
-                with (_plain_path(torch, fa, ssd, ml, sw, "chunked")
-                      if plain_path else contextlib.nullcontext()):
+                with (_plain_path(torch, fa, ssd, ml, sw, scans)
+                      if scans else contextlib.nullcontext()), \
+                        (_normaliser_branches(torch, pin) if pin
+                         else contextlib.nullcontext()):
                     make_train_step(run_model, _capture(other), shape,
-                                    microbatches=micro)(params, {}, batch)
+                                    microbatches=probe_micro)(params, {},
+                                                              batch)
                 err = {n: (other[n].float() - g.float()).abs().max().item()
                        for n, g in grads.items()}
                 for n in grads:
@@ -5349,14 +5456,17 @@ def _dist_shared_card(torch):
             torch.save({"loss": float(metrics["loss"]),
                         "grads": {n: g.to("cpu", keep)
                                   for n, g in grads.items()},
-                        "routing": routing},
+                        "routing": routing,
+                        "branches": [m.cpu() for m in branches]},
                        out_dir / f"ref_{arch}_{dtype}.pt")
+            del branches
             for p in params.parameters():
                 p.grad = None
             del metrics, step, grads
         del model, params, batch
         gc.collect()
         torch.cuda.empty_cache()
+    decode_spread = _dist_decode_refs(torch, out_dir)
     rdv = out_dir / f"rendezvous_l_{os.getpid()}"
     rdv.unlink(missing_ok=True)
     for r in range(4):
@@ -5369,8 +5479,9 @@ def _dist_shared_card(torch):
     for ref in out_dir.glob("ref_*.pt"):
         ref.unlink()
     flash = {p: 0 for p in DIST_FLASH}
-    swiglu = {p: 0 for p in DIST_SWIGLU}
-    scans = {p: 0 for p in DIST_SSD}
+    swiglu = {p: 0 for p in {**DIST_SWIGLU, **DIST_DECODE_SWIGLU}}
+    scans = {p: 0 for p in {**DIST_SSD, **DIST_MLSTM}}
+    decodes = _dist_decode_checks(ranks, swiglu, decode_spread)
     runs = ranks[0]["runs"]
     check(set(runs) == {f"{a} {d}" for a, ds in DIST_RUNS.items()
                         for d in ds}, "dist", f"(l) ran {sorted(runs)}")
@@ -5424,6 +5535,19 @@ def _dist_shared_card(torch):
                           and n == len(run["ssd_calls"]), "dist",
                           f"(l) {key}: SSD calls {run['ssd_calls']}")
                     scans[p] += n if key.endswith("bfloat16") else 0
+            for p, case in DIST_MLSTM.items():
+                if p.startswith(arch):
+                    # every mLSTM block's scan, in the forward and in its
+                    # replay, on the rank's heads and rows (fp32 in either
+                    # dtype)
+                    _, _, micro = _dist_shape(arch)
+                    blocks = _xlstm_blocks(arch)[0]
+                    n = sum(1 for c in run["mlstm_calls"]
+                            if tuple(c[:5]) == case and c[5] == "wgmma")
+                    check(n == 2 * blocks * micro
+                          and n == len(run["mlstm_calls"]), "dist",
+                          f"(l) {key}: mLSTM calls {run['mlstm_calls']}")
+                    scans[p] += n if key.endswith("bfloat16") else 0
             if not key.endswith("bfloat16"):
                 continue
             want_f = {tuple(s[:7]) for p, s in DIST_FLASH.items()
@@ -5440,19 +5564,204 @@ def _dist_shared_card(torch):
                       if p.startswith(arch)}
             got_s = [tuple(c[:4]) for c in run["swiglu_calls"]]
             check(set(got_s) == want_s
-                  and len(got_s) == DIST_SWIGLU_CALLS[arch]
+                  and len(got_s) == DIST_SWIGLU_CALLS.get(arch, 0)
                   and all(c[4] == "wgmma" for c in run["swiglu_calls"]),
                   "dist", f"(l) {key}: SwiGLU calls {run['swiglu_calls']}")
             for p, case in DIST_SWIGLU.items():
                 swiglu[p] += got_s.count(case) if p.startswith(arch) else 0
     return {"mesh": list(DIST_MESH), "transport": ranks[0]["transport"],
-            "runs": runs, "flash_launches": flash, "swiglu_launches": swiglu,
-            "ssd_launches": scans,
+            "runs": runs, "decodes": decodes, "flash_launches": flash,
+            "swiglu_launches": swiglu, "scan_launches": scans,
             "parent_reserved_gb": reserved,
             "parent_host_rss_gb": _host_rss_bytes() / 1e9,
             "peak_gb_by_rank": [{k: r["peak_gb"]
                                  for k, r in rk["runs"].items()}
                                 for rk in ranks]}
+
+
+def _xlstm_blocks(arch):
+    """(mLSTM blocks, sLSTM blocks) of ``arch`` at ``DIST_DEPTH``."""
+    from repro_torch.models.transformer import xlstm_counts
+    return xlstm_counts(_dist_cfg(arch, n_layers=DIST_DEPTH[arch]))
+
+
+def _decode_case(torch, arch, dtype):
+    """(model, its served parameters from seed 0, a zero decode state
+    whose cross caches are drawn from seed 5, the tokens (steps, B), the
+    lengths by step), ``dtype`` the compute dtype: the same in every
+    process that asks."""
+    from repro_torch.models.model import build_model
+
+    cfg = _dist_cfg(arch, n_layers=DIST_DEPTH[arch], dtype=dtype)
+    model = build_model(cfg)
+    if cfg.family in ("vlm", "audio"):
+        model = _gated(model)
+    b = DIST_DECODE_BATCH
+    state = model.decode_init(b, DIST_DECODE_LEN)
+    g = torch.Generator("cuda").manual_seed(5)
+    for k in ("xk", "xv"):
+        if k in state:
+            state[k].copy_(torch.randn(state[k].shape, generator=g,
+                                       device="cuda"))
+    tokens = torch.randint(0, cfg.vocab, (DIST_DECODE_STEPS, b),
+                           generator=g, device="cuda")
+    lens = [torch.arange(b, device="cuda") + t
+            for t in range(DIST_DECODE_STEPS)]
+    return model, model.init(0), state, tokens, lens
+
+
+def _leaves(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _dist_decode_refs(torch, out_dir):
+    """(l)'s one-rank decode of every family in each dtype: each step's
+    logits, the final state and the MoE routing, written under
+    ``out_dir``; for bf16 also its distance from the fp32 run (normwise,
+    the logits' largest over the steps and each state leaf's)."""
+    import gc
+
+    from repro_torch.train.step import make_decode_step
+
+    spread = {}
+    for arch in DIST_DEPTH:
+        runs = {}
+        for dtype in DIST_DECODE_DTYPES:
+            model, params, state, tokens, lens = _decode_case(torch, arch,
+                                                              dtype)
+            step = make_decode_step(model)
+            logits = []
+            with _moe_routing(torch) as routing:
+                for t in range(DIST_DECODE_STEPS):
+                    lg, state = step(params, state, {"tokens": tokens[t],
+                                                     "cache_len": lens[t]})
+                    logits.append(lg.float().cpu())
+            runs[dtype] = {"logits": logits, "routing": routing,
+                           "state": {k: v.cpu() for k, v in
+                                     _leaves(state).items()}}
+            torch.save(runs[dtype], out_dir / f"ref_decode_{arch}_{dtype}.pt")
+            del model, params, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        if len(runs) == 2:
+            lo, hi = runs["bfloat16"], runs["float32"]
+            spread[arch] = {
+                "logits": max(_normwise(torch, a, b) for a, b in
+                              zip(lo["logits"], hi["logits"])),
+                **{n: _normwise(torch, lo["state"][n], hi["state"][n])
+                   for n in hi["state"]}}
+        del runs
+    return spread
+
+
+def _dist_rank_decode(torch, arch, dtype, mesh, out_dir):
+    """One of (l)'s ranks: ``arch``'s decode step on the mesh
+    (``make_decode_step(..., mesh=)``), its blocks of every step's logits
+    and of the final state against the one-rank run's (the largest error
+    and value over the ranks), its SwiGLU calls by shape, the expert
+    choices replayed from the one-rank run (flips counted)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_decode_step
+
+    model, params, full, tokens, lens = _decode_case(torch, arch, dtype)
+    bundle = make_decode_step(model, mesh=mesh, shape=ShapeConfig(
+        "decode", DIST_DECODE_LEN, DIST_DECODE_BATCH, "decode"))
+    params = bundle.shard_params(params)
+    state = bundle.shard_state(full)
+    del full
+    torch.cuda.empty_cache()
+    ref = torch.load(Path(out_dir) / f"ref_decode_{arch}_{dtype}.pt",
+                     mmap=True, weights_only=True)
+    per = DIST_DECODE_BATCH // DIST_MESH[0]
+    d = mesh.coords()["data"]
+    lsh, ssh = bundle.out_shardings
+    stats = []
+    _zero(sw)
+    C.reset_tally()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _launch_calls(sw, _expert_swiglu_key) as sc, \
+            _moe_routing(torch, ref["routing"],
+                         slice(d * per, (d + 1) * per)) as flips:
+        for t in range(DIST_DECODE_STEPS):
+            lg, state = bundle(params, state, {"tokens": tokens[t],
+                                               "cache_len": lens[t]})
+            want = lsh.shard(ref["logits"][t]).to("cuda")
+            stats.append([(lg.float() - want).abs().max().item(),
+                          want.abs().max().item()])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DIST_DECODE_STEPS * 1e3
+    tally = analyze_collectives()
+    names = sorted(ref["state"])
+    got, shards = _leaves(state), _leaves(ssh)
+    for n in names:
+        want = shards[n].shard(ref["state"][n]).to("cuda").float()
+        stats.append([(got[n].float() - want).abs().max().item(),
+                      want.abs().max().item()])
+    stats = torch.tensor(stats, dtype=torch.float64)
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    rel = (stats[:, 0] / stats[:, 1].clamp_min(1e-30)).tolist()
+    k = DIST_DECODE_STEPS
+    return {"logits_rel": max(rel[:k]),
+            "state_rel": dict(zip(names, rel[k:])),
+            "swiglu_calls": [list(c) for c in sc],
+            "routing_flips": sum(flips), "routing_calls": len(flips),
+            "step_ms": step_ms, "collectives": tally["per_op"],
+            "collective_bytes": tally["collective_bytes"],
+            "state_gb_rank": sum(t.numel() * t.element_size()
+                                 for t in got.values()) / 1e9}
+
+
+def _dist_decode_checks(ranks, swiglu, spread):
+    """(l)'s decode results: every family's logits and state within its
+    dtype's gate of the one-rank run's (bf16: twice ``spread``, the
+    one-rank bf16 run's distance from fp32, where that is larger), each
+    rank's SwiGLU calls at ``DIST_DECODE_SWIGLU``'s shapes in bf16 (their
+    launches added to ``swiglu``), the routing flips within
+    ``DIST_FLIP_FRACTION``."""
+    out = {}
+    for key, dec in ranks[0]["decodes"].items():
+        arch, dtype = key.split(" ")
+        tol = DIST_DECODE_TOL[dtype]
+        tols = {n: max(tol, 2 * spread[arch][n]) if dtype == "bfloat16"
+                else tol for n in ["logits", *dec["state_rel"]]}
+        got = {"logits": dec["logits_rel"], **dec["state_rel"]}
+        bad = {n: (v, tols[n]) for n, v in got.items() if not v <= tols[n]}
+        check(not bad, "dist", f"(l) {key} decode: {bad}")
+        calls = [[tuple(c[:4]) for c in rk["decodes"][key]["swiglu_calls"]]
+                 for rk in ranks]
+        if dtype == "bfloat16":
+            want = {case for p, case in DIST_DECODE_SWIGLU.items()
+                    if p.startswith(arch)}
+            for c in calls:
+                check(set(c) == want and len(c) ==
+                      DIST_DECODE_SWIGLU_CALLS[arch] * DIST_DECODE_STEPS,
+                      "dist", f"(l) {key} decode: SwiGLU calls {c}")
+                for p, case in DIST_DECODE_SWIGLU.items():
+                    swiglu[p] += c.count(case) if p.startswith(arch) else 0
+        flips = [rk["decodes"][key]["routing_flips"] for rk in ranks]
+        if dec["routing_calls"]:
+            tokens = dec["routing_calls"] * DIST_DECODE_BATCH \
+                // DIST_MESH[0]
+            check(max(flips) <= DIST_FLIP_FRACTION * tokens, "dist",
+                  f"(l) {key} decode: routing flips {flips} of {tokens}")
+        out[key] = {**{k: v for k, v in dec.items() if k != "swiglu_calls"},
+                    "tols": tols, "swiglu_variants": sorted(
+                        {c[4] for c in dec["swiglu_calls"]}),
+                    "routing_flips_by_rank": flips,
+                    "step_ms_by_rank": [rk["decodes"][key]["step_ms"]
+                                        for rk in ranks]}
+    return out
 
 
 def _fp32_distance(torch, grads, path):
@@ -5480,8 +5789,9 @@ def _dist_model(torch, arch):
     model = build_model(cfg)
     if cfg.family in ("vlm", "audio"):
         model = _gated(model)
+    seq, b, _ = _dist_shape(arch)
     return model, model.init(0, trainable=True), \
-        _dist_batch(torch, cfg, DIST_BATCH)
+        _dist_batch(torch, cfg, b, seq=seq)
 
 
 def _dist_rank(rank, world, rdv, out_dir):
@@ -5506,14 +5816,21 @@ def _dist_rank(rank, world, rdv, out_dir):
         from repro_torch.launch.mesh import make_mesh
 
         mesh = make_mesh(DIST_MESH, ("data", "model"), device="cpu")
-        shape = ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train")
-        runs = {}
+        runs, decodes = {}, {}
         for arch, dtypes in DIST_RUNS.items():
+            seq, b, _ = _dist_shape(arch)
+            shape = ShapeConfig("train_4k", seq, b, "train")
             _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs)
             gc.collect()
             torch.cuda.empty_cache()
+        for arch in DIST_DEPTH:
+            for dtype in DIST_DECODE_DTYPES:
+                decodes[f"{arch} {dtype}"] = _dist_rank_decode(
+                    torch, arch, dtype, mesh, out_dir)
+                gc.collect()
+                torch.cuda.empty_cache()
         Path(out_dir, f"dist_l_{rank}.json").write_text(json.dumps({
-            "rank": rank, "runs": runs,
+            "rank": rank, "runs": runs, "decodes": decodes,
             "transport": "gloo, its collectives on CUDA tensors staged "
                          "through host copies (sharding.collectives)"}))
     finally:
@@ -5528,6 +5845,7 @@ def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.kernels.mlstm_scan import kernel as ml
     from repro_torch.kernels.ssm_scan import kernel as ssd
     from repro_torch.launch.comm_analysis import analyze_collectives
     from repro_torch.models.model import build_model
@@ -5536,13 +5854,14 @@ def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
     from repro_torch.train.step import make_train_step
 
     model, module, batch = _dist_model(torch, arch)
+    _, _, micro = _dist_shape(arch)
     first = None
     for dtype in dtypes:
         cfg = dataclasses.replace(model.cfg, dtype=dtype)
         grads = {}
         bundle = make_train_step(
             build_model(cfg), _capture(grads, make_optimizer("adamw")),
-            shape, mesh=mesh)
+            shape, mesh=mesh, microbatches=micro)
         p_shard, o_shard, _ = bundle.in_shardings
         with torch.no_grad():
             if first is None:      # this rank's blocks of the draw
@@ -5557,9 +5876,18 @@ def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
         state = bundle.init_state(module)
         ref = torch.load(Path(out_dir) / f"ref_{arch}_{dtype}.pt", mmap=True,
                          weights_only=True)
-        per, d = DIST_BATCH // DIST_MESH[0], mesh.coords()["data"]
+        per, d = shape.global_batch // DIST_MESH[0], mesh.coords()["data"]
         rows = slice(d * per, (d + 1) * per)      # this rank's sequences
-        _zero(fa, ssd, sw)
+        pin = None
+        if ref["branches"]:
+            # each micro-batch's call holds its rows of the batch: this
+            # rank's row block of those, and its block of the heads
+            mine = per // micro
+            hl = cfg.n_heads // DIST_MESH[1]
+            h0 = mesh.coords()["model"] * hl
+            pin = [m[d * mine:(d + 1) * mine, ..., h0:h0 + hl].to("cuda")
+                   for m in ref["branches"]]
+        _zero(fa, ssd, ml, sw)
         C.reset_tally()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -5569,9 +5897,15 @@ def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
         with _launch_calls(fa, _flash_key) as fc, \
                 _launch_calls(sw, _expert_swiglu_key) as sc, \
                 _launch_calls(ssd, _ssd_key) as dc, \
-                _moe_routing(torch, ref["routing"], rows) as flips:
+                _launch_calls(ml, _mlstm_key) as mc, \
+                _moe_routing(torch, ref["routing"], rows) as flips, \
+                (_normaliser_branches(torch, pin) if pin is not None
+                 else contextlib.nullcontext([])) as seen:
             _, _, metrics = bundle(module, state, batch)
             loss = float(metrics["loss"])
+        check(pin is None or len(seen) == len(pin), "dist",
+              f"(l) {arch} {dtype}: {len(seen)} normaliser calls, the "
+              f"one-rank run made {len(pin or ())}")
         step_s = time.perf_counter() - t0
         tally = analyze_collectives()
         names = sorted(grads)
@@ -5616,10 +5950,11 @@ def _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs):
             "flash_calls": [list(c) for c in fc],
             "swiglu_calls": [list(c) for c in sc],
             "ssd_calls": [list(c) for c in dc],
+            "mlstm_calls": [list(c) for c in mc],
             "routing_flips": sum(flips),
             "routing_calls": len(flips),
             # each call routes the rank's sequences (DIST_SEQ = MAX_GROUP)
-            "routing_tokens": len(flips) * per * DIST_SEQ,
+            "routing_tokens": len(flips) * per * shape.seq_len,
             **anchor,
             "collectives": tally["per_op"],
             "collective_bytes": tally["collective_bytes"],

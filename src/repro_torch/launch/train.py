@@ -39,9 +39,9 @@ written under ``--dryrun-dir``) and returns its record.
 a ``file://`` path for instance) and trains on ``make_test_mesh(model=2)``
 over it, the counterpart of the reference's mesh over however many
 devices there are: NCCL with one card per ``LOCAL_RANK``, gloo only with
-``--device cpu``.  The dense, MoE, hybrid, audio and vision LMs train
-there (``train/step.py``; xlstm-1.3b raises; the multimodal families
-with ``--stub-frontend``, as on one card); with ``--dry-run`` it
+``--device cpu``.  Every family trains there (``train/step.py``; the
+multimodal families with ``--stub-frontend``, as on one card); with
+``--dry-run`` it
 writes the mesh cell's record of one sharded step and its collectives
 (``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
 second pod is a second host.

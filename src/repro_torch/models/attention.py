@@ -338,21 +338,91 @@ def decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
 
     x: (B, 1, d); cache_k/v: (B, max_seq, KV, hd); cache_len: (B,) current
     lengths.  Returns (out, cache_k, cache_v).
-    """
+
+    Under a mesh the cache is this rank's block of the reference's
+    placement (``kv_cache_specs``).  Where it holds a block of the kv
+    heads, the rank projects, writes and attends its heads' groups
+    (:func:`decode_heads`) and ``wo``'s row block gives a partial output
+    summed over ``model``.  Where the rules put the cache's positions
+    over ``model`` instead (kv heads that do not divide it), every rank
+    computes all heads, only the rank whose block holds position
+    ``cache_len[b]`` writes sequence b's new row, and each attends over
+    its block of positions: the blocks' softmax statistics are combined
+    by an all-reduce of the row maxima and one of the (numerator,
+    denominator) sums, the flash-decode combine."""
     dt = layers.dtype_of(cfg.dtype)
     b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = layers.dense(params["wq"], x, dt).view(b, 1, h, hd)
-    k = layers.dense(params["wk"], x, dt).view(b, 1, kv, hd)
-    v = layers.dense(params["wv"], x, dt).view(b, 1, kv, hd)
+    hd = cfg.head_dim
+    q0, h, k0, kv = decode_heads(cfg, cache_k.shape[2])
+    split = h < cfg.n_heads
+    q = layers.dense(C.fetch(params["wq"], 1, q0 * hd, h * hd), x,
+                     dt).view(b, 1, h, hd)
+    k = layers.dense(C.fetch(params["wk"], 1, k0 * hd, kv * hd), x,
+                     dt).view(b, 1, kv, hd)
+    v = layers.dense(C.fetch(params["wv"], 1, k0 * hd, kv * hd), x,
+                     dt).view(b, 1, kv, hd)
     pos = cache_len[:, None]
     q = layers.apply_rope(q, pos, cfg.rope_theta)
     k = layers.apply_rope(k, pos, cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, cache_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, cache_len] = v[:, 0].to(cache_v.dtype)
-    o = naive_attention(q, _repeat_kv(cache_k, h // kv),
-                        _repeat_kv(cache_v, h // kv), causal=False,
-                        kv_len=cache_len + 1)
-    return layers.dense(params["wo"], o.reshape(b, 1, h * hd), dt), \
-        cache_k, cache_v
+    if _positions_split():
+        s0 = cache_k.shape[1] * R.current_mesh().coords()["model"]
+        local = cache_len - s0
+        mine = (local >= 0) & (local < cache_k.shape[1])
+        cache_k[rows[mine], local[mine]] = k[mine, 0].to(cache_k.dtype)
+        cache_v[rows[mine], local[mine]] = v[mine, 0].to(cache_v.dtype)
+        o = _combined_attention(q, _repeat_kv(cache_k, h // kv),
+                                _repeat_kv(cache_v, h // kv), s0,
+                                cache_len + 1)
+    else:
+        cache_k[rows, cache_len] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, cache_len] = v[:, 0].to(cache_v.dtype)
+        o = naive_attention(q, _repeat_kv(cache_k, h // kv),
+                            _repeat_kv(cache_v, h // kv), causal=False,
+                            kv_len=cache_len + 1)
+    out = layers.dense(C.fetch(params["wo"], 0, q0 * hd, h * hd),
+                       o.reshape(b, 1, h * hd), dt)
+    return (C.reduce_from(out) if split else out), cache_k, cache_v
+
+
+def decode_heads(cfg: ModelConfig, kv_local: int):
+    """(first q head, q heads, first kv head, kv heads) of a decode step
+    whose cache (or cross cache) holds ``kv_local`` kv heads: its kv block
+    and their GQA groups' q heads where that is a block of the kv heads
+    (split over ``model``), else every head."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if kv_local == kv:
+        return 0, h, 0, kv
+    k0 = C.block_start_of(kv_local, kv)
+    groups = h // kv
+    return k0 * groups, kv_local * groups, k0, kv_local
+
+
+def _positions_split() -> bool:
+    """Whether the active rules put the KV cache's positions over a
+    ``model`` axis of more than one rank."""
+    mesh = R.current_mesh()
+    return mesh is not None and mesh.shape.get("model", 1) > 1 \
+        and "model" in (R.current_rules().get("kv_seq") or ())
+
+
+def _combined_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        s0: int, kv_len: torch.Tensor) -> torch.Tensor:
+    """One query row against this rank's block of cache positions (global
+    index ``s0`` on), the blocks of every ``model`` rank combined: the
+    global row maximum (an all-reduce), then the sums of exp(score - max)
+    x v and of exp(score - max) over the blocks (one all-reduce), in fp32.
+    q: (B, 1, H, hd); k, v: (B, S_block, H, hd) -> (B, 1, H, hd)."""
+    b, _, h, hd = q.shape
+    sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
+        * (1.0 / math.sqrt(hd))
+    keep = (s0 + torch.arange(sk, device=q.device))[None, None, None, :] \
+        < kv_len[:, None, None, None]
+    scores = scores.masked_fill(~keep, NEG_INF)
+    top = C.all_reduce(scores.amax(dim=-1, keepdim=True), "model", op="max")
+    p = torch.exp(scores - top)
+    num = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    den = p.sum(dim=-1).permute(0, 2, 1)[..., None]        # (B, 1, H, 1)
+    both = C.all_reduce(torch.cat([num, den], dim=-1), "model")
+    return (both[..., :hd] / both[..., hd:]).to(q.dtype)

@@ -11,6 +11,8 @@ Port of ``repro/models/model.py`` for every ``family``: "dense", "moe",
     model.decode_init(batch, max_seq, device=None) -> decode state
     model.decode_fn(params, state, tokens, cache_len) -> (logits, state)
     model.prefill_fn(params, state, tokens)    -> (last_logits, state)
+    model.decode_specs()                       -> the decode state's
+                                                  logical axes
 
 ``batch`` holds ``tokens`` (B, S), and for "audio" ``enc_frames`` (B,
 T_enc, d), for "vlm" ``image_embeds`` (B, n_img, d): the stubbed
@@ -50,6 +52,7 @@ class Model:
     prefill_fn: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
     specs: Optional[Callable] = None
+    decode_specs: Optional[Callable] = None
 
     def param_specs(self) -> Dict[str, tuple]:
         """Logical axes of every parameter, keyed by its name in
@@ -96,6 +99,7 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_fn=lambda p, s, tok, ln: t.lm_decode_step(
                 cfg, p, s, tok, ln),
             prefill_fn=lambda p, s, tok: t.lm_prefill(cfg, p, s, tok),
+            decode_specs=lambda: t.lm_decode_specs(cfg),
         )
     if cfg.family == "hybrid":
         z = zamba
@@ -110,6 +114,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                     device=resolve_device(device)),
             decode_fn=lambda p, s, tok, ln: z.zamba_decode_step(
                 cfg, p, s, tok, ln),
+            decode_specs=lambda: z.zamba_decode_specs(cfg),
         )
     if cfg.family == "ssm":
         t = transformer
@@ -124,6 +129,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                     device=resolve_device(device)),
             decode_fn=lambda p, s, tok, ln: t.xlstm_decode_step(
                 cfg, p, s, tok, ln),
+            decode_specs=lambda: t.xlstm_decode_specs(cfg),
         )
     if cfg.family == "audio":
         m = multimodal
@@ -139,6 +145,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                      device=resolve_device(device)),
             decode_fn=lambda p, s, tok, ln: m.encdec_decode_step(
                 cfg, p, s, tok, ln),
+            decode_specs=lambda: m.encdec_decode_specs(cfg),
         )
     if cfg.family == "vlm":
         m = multimodal
@@ -154,6 +161,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                   device=resolve_device(device)),
             decode_fn=lambda p, s, tok, ln: m.vlm_decode_step(
                 cfg, p, s, tok, ln),
+            decode_specs=lambda: m.vlm_decode_specs(cfg),
         )
     raise ValueError(f"unknown family {cfg.family!r}")
 

@@ -52,6 +52,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.sharding import collectives as C
 from repro_torch.models.transformer import (Block, Tree, _Checkpointed,
                                             _mlp_residual, _param,
                                             block_forward, block_init,
@@ -82,15 +83,23 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def _cross_decode(cfg: ModelConfig, p: Block, h: torch.Tensor,
                   xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     """h + tanh(xgate) x the cross-attention of one token against the
-    cached ``xk``/``xv`` (B, T, KV, hd), all T of them."""
+    cached ``xk``/``xv`` (B, T, KV, hd), all T of them.  Under a mesh whose
+    cross cache holds a block of the kv heads, this rank's heads
+    (``attention.decode_heads``), ``wo``'s row block giving a partial
+    output summed over ``model``."""
     dt = layers.dtype_of(cfg.dtype)
     b = h.shape[0]
-    hq, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    q0, hq, _, kv = attn.decode_heads(cfg, xk.shape[2])
     hn = layers.rmsnorm(p.ln_x, h, cfg.norm_eps)
-    q = layers.dense(p.xattn["wq"], hn, dt).view(b, 1, hq, hd)
+    q = layers.dense(C.fetch(p.xattn["wq"], 1, q0 * hd, hq * hd), hn,
+                     dt).view(b, 1, hq, hd)
     xo = attn.naive_attention(q, attn._repeat_kv(xk, hq // kv),
                               attn._repeat_kv(xv, hq // kv), causal=False)
-    xo = layers.dense(p.xattn["wo"], xo.reshape(b, 1, hq * hd), dt)
+    xo = layers.dense(C.fetch(p.xattn["wo"], 0, q0 * hd, hq * hd),
+                      xo.reshape(b, 1, hq * hd), dt)
+    if hq < cfg.n_heads:
+        xo = C.reduce_from(xo)
     return gated_cross_residual(p, h, xo)
 
 
@@ -211,6 +220,14 @@ def encdec_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *,
     cache.update(_cross_kv(cfg, cfg.n_layers, batch, cfg.encoder_seq,
                            device=device))
     return cache
+
+
+def encdec_decode_specs(cfg: ModelConfig) -> Tree:
+    """The decode state's logical axes (the reference's)."""
+    s = attn.kv_cache_specs()
+    s["xk"] = (None, "batch", None, "kv_heads", None)
+    s["xv"] = (None, "batch", None, "kv_heads", None)
+    return s
 
 
 def encdec_decode_step(cfg: ModelConfig, params: EncDecLM,
@@ -343,6 +360,14 @@ def vlm_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *, device
     cache.update(_cross_kv(cfg, n_super, batch, cfg.image_tokens,
                            device=device))
     return cache
+
+
+def vlm_decode_specs(cfg: ModelConfig) -> Tree:
+    """The decode state's logical axes (the reference's)."""
+    base = (None, "batch", "kv_seq", "kv_heads", None)
+    return {**{n: base for n in ("k", "v", "ck", "cv")},
+            "xk": (None, "batch", None, "kv_heads", None),
+            "xv": (None, "batch", None, "kv_heads", None)}
 
 
 def vlm_decode_step(cfg: ModelConfig, params: VisionLM,

@@ -259,34 +259,77 @@ def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device
     }
 
 
+def ssm_state_specs():
+    """The decode state's logical axes (the reference's): ``h`` splits its
+    state dim N over ``state``, the conv window its ``[x | B | C]``
+    columns over ``mlp`` in contiguous blocks."""
+    return {"h": (None, "batch", None, "state", None),
+            "conv": (None, "batch", None, "mlp")}
+
+
 def ssm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
                     state_h: torch.Tensor, state_conv: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token state update.  x: (B,1,d); state_h: (B,H,N,P);
-    state_conv: (B, K-1, di+2n).  Returns (y, new_h, new_conv)."""
+    state_conv: (B, K-1, di+2n).  Returns (y, new_h, new_conv).
+
+    Under a mesh the state keeps the reference's placement and the
+    compute fits itself to it (every collective moves B x a width):
+    ``in_proj``'s column block of the projection is all-gathered over
+    ``model``; the rank's block of the conv window's columns takes its
+    block of the new column and its block of the filtered window is
+    all-gathered; ``state_h`` holds a block of N, so the rank updates it
+    for all heads and sums its partial y over ``model``; the gated norm
+    and ``out_proj`` run on the rank's rows of ``d_inner``, their partial
+    output summed over ``model``."""
     dt_ = layers.dtype_of(cfg.dtype)
     b = x.shape[0]
     di, n, h, p = _widths(cfg)
 
-    z, xin, B, C, dt = _split(
-        layers.dense(params["in_proj"], x, dt_)[:, 0], cfg)
+    zxbcdt = layers.dense(C.fetch(params["in_proj"]), x, dt_)[:, 0]
+    if C.split_over(params["in_proj"], 1):
+        zxbcdt = C.all_gather(zxbcdt, "model", 1)
+    z, xin, B, Cm, dt = _split(zxbcdt, cfg)
 
-    # rolling conv buffer
-    xbc_new = torch.cat([xin, B, C], dim=-1)                   # (B, di+2n)
-    w = params["conv"].to(dt_)
+    # rolling conv buffer: this rank's block of its columns
+    xbc_new = torch.cat([xin, B, Cm], dim=-1)                  # (B, di+2n)
+    width = state_conv.shape[-1]
+    if width < di + 2 * n:
+        c0 = C.block_start_of(width, di + 2 * n)
+        xbc_new = xbc_new[:, c0:c0 + width]
+    w = C.fetch(params["conv"]).to(dt_)
+    if w.shape[-1] != width:
+        raise NotImplementedError(
+            f"{cfg.name}: the conv window's placement does not match the "
+            "conv weight's (ROADMAP item 11)")
     window = torch.cat([state_conv.to(dt_), xbc_new[:, None]], dim=1)
     xbc = layers.silu(torch.einsum("bkc,kc->bc", window, w))
     new_conv = window[:, 1:]
-    xin, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    if width < di + 2 * n:
+        xbc = C.all_gather(xbc, "model", 1)
+    xin, B, Cm = torch.split(xbc, [di, n, n], dim=-1)
 
     dt = layers.softplus(dt.float() + params["dt_bias"])        # (B,h)
     dA = torch.exp(dt * (-torch.exp(params["A_log"]))[None])   # (B,h)
     xh = xin.reshape(b, h, p).float()
+    nl = state_h.shape[2]                  # this rank's block of N
+    if nl < n:
+        n0 = C.block_start_of(nl, n)
+        B, Cm = B[:, n0:n0 + nl], Cm[:, n0:n0 + nl]
     dBx = torch.einsum("bn,bh,bhp->bhnp", B.float(), dt, xh)
     new_h = state_h * dA[..., None, None] + dBx
-    y = torch.einsum("bn,bhnp->bhp", C.float(), new_h)
+    y = torch.einsum("bn,bhnp->bhp", Cm.float(), new_h)
+    if nl < n:
+        y = C.all_reduce(y, "model")
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(b, 1, di).to(dt_)
-    y = layers.rmsnorm(params["norm"], y * layers.silu(z[:, None]),
-                       cfg.norm_eps)
-    return layers.dense(params["out_proj"], y, dt_), new_h, new_conv
+    y = y * layers.silu(z[:, None])
+    split = C.split_over(params["out_proj"], 0)
+    if split:
+        rows = params["out_proj"].shape[0]
+        r0 = C.block_start(params["out_proj"], 0)
+        y = y[..., r0:r0 + rows]
+    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps,
+                       ways=di // y.shape[-1])
+    out = layers.dense(C.fetch(params["out_proj"]), y, dt_)
+    return (C.reduce_from(out) if split else out), new_h, new_conv

@@ -597,6 +597,14 @@ def xlstm_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *, device
     return st
 
 
+def xlstm_decode_specs(cfg: ModelConfig) -> Tree:
+    """The decode state's logical axes (the reference's)."""
+    s: Tree = {"m": xlstm.mlstm_state_specs()}
+    if cfg.slstm_every:
+        s["s"] = xlstm.slstm_state_specs()
+    return s
+
+
 def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state,
                       tokens: torch.Tensor, cache_len: torch.Tensor):
     """tokens: (B,) new ids; ``cache_len`` is unused (recurrent state).

@@ -22,6 +22,35 @@ projection ``w_if``, its bias ``b_if``, the sLSTM ``bias`` and the norm
 scales in float32 (the reference casts ``bias`` to the compute dtype at
 use).  The reference's cost-probe ``mixer_skip`` mode (``launch/probe.py``)
 bypasses the mLSTM scan: y = q + v in float32, and no kernel is launched.
+
+Under a mesh whose ``model`` axis has more than one rank, each rank runs
+the mLSTM on its own block of the heads (:func:`rank_heads`).  The
+placement gives it column blocks of ``up_l`` and ``up_r`` (its heads'
+``di`` columns exactly) but row blocks of the square ``wq``, ``wk`` and
+``wv`` (the reference's ``("mlp", "mlp")`` specs give ``model`` to the
+first dim only): a rank's ``xl`` block times its row block is a partial
+product over all of ``di``, and a reduce-scatter over ``model``
+(``collectives.sum_scatter``, an all-gather backward) keeps its heads'
+columns of the sum, 3 x B x S x di values of the compute dtype a layer
+where gathering the weights would move 3 x di^2.  The gate logits are
+the sum of the row blocks' products over ``model``
+(``collectives.shared_sum``), ``b_if`` added after it; each rank reads
+its heads' (i, f) columns, so ``b_if``'s gradient is partial
+(:func:`mlstm_specs`).  The norm's variance runs over all of ``di``
+(``layers.rmsnorm(ways=)``) and ``down``'s row block gives a partial
+output summed over ``model``.  The sLSTM recurrence runs whole on every
+rank: ``wx``, ``wh`` and ``bias`` are gathered over ``model`` once,
+before the loop (``collectives.gather_whole``, whose backward hands each
+rank its block of the gradient every rank holds whole), so no step of the
+loop makes a collective.  Every weight is read through
+``collectives.fetch`` (FSDP shards gathered).  Without such a mesh each
+of these steps is the identity and the blocks are the reference's.
+
+At decode the state keeps the reference's placement: the mLSTM memory
+``C`` splits its value dim over ``model`` (``mlstm_state_specs``), so
+each rank sums q, k and v over ``model`` (B x 3 di values), updates its
+value columns of ``C`` (``n`` and ``m`` whole), and all-gathers its
+columns of y; the sLSTM state is replicated and its step runs whole.
 """
 
 from __future__ import annotations
@@ -35,6 +64,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.remat_policy import tag
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.models import layers
+from repro_torch.sharding import api
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 Tree = Dict[str, torch.Tensor]
 
@@ -70,15 +102,58 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def mlstm_specs():
-    return {"up_l": layers.dense_specs("embed", "mlp"),
-            "up_r": layers.dense_specs("embed", "mlp"),
-            "wq": layers.dense_specs("mlp", "mlp"),
-            "wk": layers.dense_specs("mlp", "mlp"),
-            "wv": layers.dense_specs("mlp", "mlp"),
-            "w_if": ("mlp", None),
-            "b_if": (None,),
-            "norm": ("mlp",),
-            "down": layers.dense_specs("mlp", "embed")}
+    """The reference's.  Where the ranks split the heads
+    (:func:`rank_heads`), each reads only its heads' entries of the
+    replicated ``b_if``, so its gradient is partial over ``model``."""
+    return api.SplitSpecs({"up_l": layers.dense_specs("embed", "mlp"),
+                           "up_r": layers.dense_specs("embed", "mlp"),
+                           "wq": layers.dense_specs("mlp", "mlp"),
+                           "wk": layers.dense_specs("mlp", "mlp"),
+                           "wv": layers.dense_specs("mlp", "mlp"),
+                           "w_if": ("mlp", None),
+                           "b_if": (None,),
+                           "norm": ("mlp",),
+                           "down": layers.dense_specs("mlp", "embed")},
+                          lambda cfg, shardings: ("b_if",)
+                          if rank_heads(cfg)[1] < cfg.n_heads else ())
+
+
+def mlstm_state_specs():
+    """The decode state's logical axes (the reference's): ``C``'s value
+    dim over ``state``."""
+    return {"C": (None, "batch", None, "sp_seq", "state"),
+            "n": (None, "batch", None, "sp_seq"),
+            "m": (None, "batch", None)}
+
+
+def slstm_state_specs():
+    return {k: (None, "batch", None) for k in ("h", "c", "n", "m")}
+
+
+def rank_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(first head, heads) of the mLSTM heads this rank computes: all of
+    them without a mesh or on a ``model`` axis of one rank, else its block
+    of them."""
+    mesh = R.current_mesh()
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    h = cfg.n_heads
+    if h % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} mLSTM heads do not split over a model axis of "
+            f"{m} ranks (ROADMAP item 11: only whole heads a rank are run)")
+    return (mesh.coords()["model"] * (h // m) if m > 1 else 0), h // m
+
+
+_SPLIT_DIMS = (("up_l", 1), ("up_r", 1), ("wq", 0), ("wk", 0), ("wv", 0),
+               ("w_if", 0), ("norm", 0), ("down", 0))
+
+
+def _check_split(cfg: ModelConfig, params) -> None:
+    for name, dim in _SPLIT_DIMS:
+        if not C.split_over(params[name], dim):
+            raise NotImplementedError(
+                f"{cfg.name}: {name}'s placement does not split its mlp "
+                "dim over the model axis (ROADMAP item 11)")
 
 
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,35 +250,50 @@ def _normaliser(n: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.maximum(torch.abs(n), torch.exp(-m))
 
 
-def _gates(params, xl: torch.Tensor):
-    """(input gate, forget gate) logits in float32, as the reference's
-    ``xl.astype(f32) @ w_if + b_if``."""
-    gates = xl.float() @ params["w_if"] + params["b_if"]
-    return gates.chunk(2, dim=-1)
+def _gates(cfg: ModelConfig, params, xl: torch.Tensor, h0: int, hl: int):
+    """(input gate, forget gate) logits in float32 of heads ``h0`` to
+    ``h0 + hl``, as the reference's ``xl.astype(f32) @ w_if + b_if``: under
+    a mesh ``xl`` is this rank's block of columns and ``w_if`` its row
+    block, whose products are summed over ``model`` before the bias."""
+    gates = C.shared_sum(xl.float() @ C.fetch(params["w_if"]), "model") \
+        + C.fetch(params["b_if"])
+    h = cfg.n_heads
+    return gates[..., h0:h0 + hl], gates[..., h + h0:h + h0 + hl]
 
 
 def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  Prefill path."""
+    """x: (B, S, d) -> (B, S, d).  Prefill path.  Under a mesh that splits
+    the heads (:func:`rank_heads`), the block on this rank's heads, its
+    partial output summed over ``model``."""
     dt = layers.dtype_of(cfg.dtype)
     b, s, _ = x.shape
     di, h, p = _widths(cfg)
-    xl = layers.dense(params["up_l"], x, dt)
-    xr = layers.dense(params["up_r"], x, dt)
-    q = layers.dense(params["wq"], xl, dt).reshape(b, s, h, p)
-    k = layers.dense(params["wk"], xl, dt).reshape(b, s, h, p)
-    v = layers.dense(params["wv"], xl, dt).reshape(b, s, h, p)
+    h0, hl = rank_heads(cfg)
+    if hl < h:
+        _check_split(cfg, params)
+    x = C.copy_to(x)
+    xl = layers.dense(C.fetch(params["up_l"]), x, dt)   # the rank's heads'
+    xr = layers.dense(C.fetch(params["up_r"]), x, dt)   # di columns
+
+    def project(name):
+        # a row block's partial product over all of di: the rank keeps its
+        # heads' columns of the sum
+        part = layers.dense(C.fetch(params[name]), xl, dt)
+        return C.sum_scatter(part, "model", 2).reshape(b, s, hl, p)
+
+    q, k, v = project("wq"), project("wk"), project("wv")
     q = tag("qkv", q)
-    i_gate, f_gate = _gates(params, xl)                  # (b,s,h) each
+    i_gate, f_gate = _gates(cfg, params, xl, h0, hl)    # (b,s,hl) each
     if cfg.mixer_skip:
         # cost-probe mode: the mLSTM kernel's cost is added analytically
         # (launch/costs.py)
         y = (q + v).float()
     else:
         y = mlstm_scan(q.float(), k.float(), v.float(), i_gate, f_gate)
-    y = tag("attn_out", y.reshape(b, s, di).to(dt))
-    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
+    y = tag("attn_out", y.reshape(b, s, hl * p).to(dt))
+    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps, ways=h // hl)
     y = y * layers.silu(xr)
-    return layers.dense(params["down"], y, dt)
+    return C.reduce_from(layers.dense(C.fetch(params["down"]), y, dt))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device
@@ -217,37 +307,60 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device
 
 
 def mlstm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
-                      C: torch.Tensor, n: torch.Tensor, m: torch.Tensor):
-    """O(1) mLSTM decode.  x: (B,1,d); C: (B,H,P,P); n: (B,H,P); m: (B,H).
-    Returns (y, C, n, m), the state as new tensors."""
+                      C_: torch.Tensor, n: torch.Tensor, m: torch.Tensor):
+    """O(1) mLSTM decode.  x: (B,1,d); C_: (B,H,P,P); n: (B,H,P); m: (B,H).
+    Returns (y, C, n, m), the state as new tensors.
+
+    Under a mesh ``C_`` is this rank's block of the value dim (B, H, P,
+    P / ranks): q, k and v are summed over ``model`` from the row blocks'
+    partial products, the rank updates its value columns of C (``n`` and
+    ``m`` whole, the same on every rank), forms its columns of y and
+    all-gathers them."""
     dt = layers.dtype_of(cfg.dtype)
     b = x.shape[0]
     di, h, p = _widths(cfg)
-    xl = layers.dense(params["up_l"], x, dt)[:, 0]
-    xr = layers.dense(params["up_r"], x, dt)[:, 0]
+    h0, hl = rank_heads(cfg)
+    if hl < h:
+        _check_split(cfg, params)
+    pl = C_.shape[-1]                       # this rank's value columns
+    r0 = C.block_start_of(pl, p, "model")
+    xl = layers.dense(C.fetch(params["up_l"]), x, dt)[:, 0]
+    xr = layers.dense(C.fetch(params["up_r"]), x, dt)[:, 0]
     # the reference scales q in the compute dtype: its weak-typed Python
     # scale is first rounded to that dtype
     scale = torch.tensor(1.0 / math.sqrt(p), dtype=dt).item()
-    q = layers.dense(params["wq"], xl[:, None], dt).reshape(b, h, p) * scale
-    k = layers.dense(params["wk"], xl[:, None], dt).reshape(b, h, p)
-    v = layers.dense(params["wv"], xl[:, None], dt).reshape(b, h, p)
-    li, fg = _gates(params, xl)                          # (b,h)
+    qkv = torch.cat([layers.dense(C.fetch(params[w]), xl, dt)
+                     for w in ("wq", "wk", "wv")], dim=-1)
+    if hl < h:
+        # the row blocks' partial q, k and v summed in one call
+        qkv = C.all_reduce(qkv, "model")
+    q, k, v = (t.reshape(b, h, p) for t in qkv.chunk(3, dim=-1))
+    q = q * scale
+    li, fg = _gates(cfg, params, xl, 0, h)               # (b,h)
     lf = layers.log_sigmoid(fg)
     m_new = torch.maximum(lf + m, li)
     alpha = torch.exp(lf + m - m_new)
     beta = torch.exp(li - m_new)
     kf, vf = k.float(), v.float()
-    C_new = C * alpha[..., None, None] + beta[..., None, None] \
+    if pl < p:
+        vf = vf[..., r0:r0 + pl]
+    C_new = C_ * alpha[..., None, None] + beta[..., None, None] \
         * torch.einsum("bhp,bhr->bhpr", kf, vf)
     n_new = n * alpha[..., None] + beta[..., None] * kf
     qf = q.float()
     num = torch.einsum("bhp,bhpr->bhr", qf, C_new)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", qf, n_new).abs(),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(b, 1, di).to(dt)
-    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps)
+    y = num / den[..., None]
+    if pl < p:
+        y = C.all_gather(y, "model", 2)
+    y = y.reshape(b, 1, di).to(dt)
+    if hl < h:
+        y = y[..., h0 * p:(h0 + hl) * p]      # the rank's heads' columns
+    y = layers.rmsnorm(params["norm"], y, cfg.norm_eps, ways=h // hl)
     y = y * layers.silu(xr[:, None])
-    return layers.dense(params["down"], y, dt), C_new, n_new, m_new
+    out = layers.dense(C.fetch(params["down"]), y, dt)
+    return C.reduce_from(out), C_new, n_new, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -298,8 +411,8 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     among the residuals autograd saves."""
     dt = layers.dtype_of(cfg.dtype)
     b, s, d = x.shape
-    gx = layers.dense(params["wx"], x, dt) + params["bias"].to(dt)
-    wh = params["wh"].to(dt)
+    wx, wh, bias = _slstm_weights(params, dt)
+    gx = layers.dense(wx, x, dt) + bias
     h = torch.zeros(b, d, dtype=dt, device=x.device)
     c = torch.zeros(b, d, device=x.device)
     n = torch.zeros(b, d, device=x.device)
@@ -311,7 +424,17 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         h = h.to(dt)
         ys[:, t] = h
     y = layers.rmsnorm(params["norm"], ys, cfg.norm_eps)
-    return layers.dense(params["proj"], y, dt)
+    return layers.dense(C.fetch(params["proj"]), y, dt)
+
+
+def _slstm_weights(params, dt: torch.dtype):
+    """(wx, wh, bias) whole in the compute dtype: under a mesh that splits
+    their gate columns over ``model``, each gathered over it once
+    (``collectives.gather_whole``: every rank runs the whole recurrence,
+    and its gradient of each is the whole one, of which it keeps its
+    block)."""
+    return tuple(C.gather_whole(C.fetch(params[n]).to(dt), "model", dim)
+                 for n, dim in (("wx", 1), ("wh", 1), ("bias", 0)))
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, n_layers: int, *, device
@@ -329,8 +452,9 @@ def slstm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
                       m: torch.Tensor):
     """x: (B,1,d); h, c, n, m: (B, d) float32.  Returns (y, h, c, n, m)."""
     dt = layers.dtype_of(cfg.dtype)
-    g = layers.dense(params["wx"], x, dt)[:, 0] + params["bias"].to(dt) \
-        + layers.dense(params["wh"], h.to(dt), dt)
+    wx, wh, bias = _slstm_weights(params, dt)
+    g = layers.dense(wx, x, dt)[:, 0] + bias + layers.dense(wh, h.to(dt), dt)
     h_new, c_new, n_new, m_new = _slstm_cell(g.float(), c, n, m)
     y = layers.rmsnorm(params["norm"], h_new[:, None].to(dt), cfg.norm_eps)
-    return layers.dense(params["proj"], y, dt), h_new, c_new, n_new, m_new
+    return layers.dense(C.fetch(params["proj"]), y, dt), h_new, c_new, \
+        n_new, m_new

@@ -174,6 +174,15 @@ def zamba_decode_init(cfg: ModelConfig, batch: int, max_seq: int, *, device
     return st
 
 
+def zamba_decode_specs(cfg: ModelConfig) -> Tree:
+    """The decode state's logical axes (the reference's)."""
+    _, tail = layout(cfg)
+    s = {"ssm": ssm.ssm_state_specs(), "attn": attn.kv_cache_specs()}
+    if tail:
+        s["tail"] = ssm.ssm_state_specs()
+    return s
+
+
 def _mamba_step(cfg: ModelConfig, p: MambaLayer, x: torch.Tensor,
                 state: Dict[str, torch.Tensor], i: int) -> torch.Tensor:
     """One mamba layer's decode step; writes its state ``i`` in place."""

@@ -7,9 +7,13 @@ collectives (:func:`all_reduce`, :func:`all_gather`,
 them (:func:`copy_to` and :func:`reduce_from`, the two ends of a
 tensor-parallel region; :func:`gather`, an all-gather whose backward
 reduce-scatters the gradient, for an FSDP shard or a weight whose
-columns a rank reads beyond its own block; :func:`shared_sum`, the sum of
-partial values every rank then uses, whose backward sums the ranks'
-partial gradients as well) and :func:`fetch`, which brings a stored
+columns a rank reads beyond its own block; :func:`gather_whole`, an
+all-gather whose backward hands each rank its block of the gradient,
+for a weight every rank then uses whole in the same replicated compute;
+:func:`sum_scatter`, the sum of partial products of which each rank keeps
+its block, whose backward all-gathers the gradient; :func:`shared_sum`,
+the sum of partial values every rank then uses, whose backward sums the
+ranks' partial gradients as well) and :func:`fetch`, which brings a stored
 parameter shard to the layout its compute reads.  Each call adds to the
 tally the reference's HLO analysis reads off a compiled module
 (``repro/launch/hlo_analysis.py``): per kind a count, the operand bytes
@@ -241,6 +245,43 @@ class _Gather(torch.autograd.Function):
             None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    """All-gather forward; this rank's block of the gradient backward.
+    Every rank runs the same replicated compute from the gathered tensor
+    (the sLSTM recurrence), so each already holds the whole gradient of
+    it: the block is a slice.  (``_Gather``'s reduce-scatter would sum
+    the ranks' equal gradients, so multiply them by the ranks.)"""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        ctx.size = x.shape[dim]
+        return all_gather(x, axis, dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = _mesh(ctx.mesh)
+        start = mesh.coords()[ctx.axis] * ctx.size
+        return g.narrow(ctx.dim, start, ctx.size).contiguous(), None, \
+            None, None
+
+
+class _SumScatter(torch.autograd.Function):
+    """Reduce-scatter forward: each rank holds a partial product over the
+    whole of ``dim`` and keeps its block of the sum; the all-gather of the
+    gradient backward (every rank's partial product reaches every block)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return reduce_scatter(x, axis, dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim, mesh=ctx.mesh), None, \
+            None, None
+
+
 class _SharedSum(torch.autograd.Function):
     """All-reduce forward and backward: each rank holds a partial sum of a
     value that every rank then uses (a variance over columns split across
@@ -281,6 +322,28 @@ def gather(x: torch.Tensor, axis: str, dim: int, *,
     if mesh is None or mesh.shape.get(axis, 1) == 1:
         return x
     return _Gather.apply(x, axis, dim, mesh)
+
+
+def gather_whole(x: torch.Tensor, axis: str, dim: int, *,
+                 mesh=None) -> torch.Tensor:
+    """The whole of ``x`` along ``dim`` over ``axis``
+    (:class:`_GatherWhole`); ``x`` itself without a mesh or on an axis of
+    size 1."""
+    mesh = R.current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return x
+    return _GatherWhole.apply(x, axis, dim, mesh)
+
+
+def sum_scatter(x: torch.Tensor, axis: str, dim: int, *,
+                mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``
+    over ``axis`` (:class:`_SumScatter`); ``x`` itself without a mesh or
+    on an axis of size 1."""
+    mesh = R.current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return x
+    return _SumScatter.apply(x, axis, dim, mesh)
 
 
 def shared_sum(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
@@ -328,6 +391,15 @@ def block_start(p: torch.Tensor, dim: int) -> int:
     """The global index of the first entry of this rank's block of ``p``
     along ``dim``."""
     return p._sharding.block(dim) * p.shape[dim]
+
+
+def block_start_of(local: int, whole: int, axis: str = "model") -> int:
+    """The global index of the first entry of this rank's block of a dim
+    of ``whole`` entries of which it holds ``local`` (its block along
+    ``axis`` when ``local`` < ``whole``, else 0)."""
+    if local == whole:
+        return 0
+    return R.current_mesh().coords()[axis] * local
 
 
 def gather_global(t: torch.Tensor, sharding: "R.NamedSharding"

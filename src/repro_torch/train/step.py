@@ -1,11 +1,11 @@
 """Train, prefill and decode steps, on one device or on a mesh.
 
 Port of ``repro/train/step.py``: ``make_train_step``, ``make_prefill_step``
-and ``make_decode_step``.  Without a mesh the steps are the model calls
-themselves (the serve steps without autograd).  With a mesh
-(``repro_torch.launch.mesh``) the train and prefill steps run the dense,
-MoE, hybrid (zamba2), audio (whisper) and vision LMs sharded over
-``(data, model)``, every placement from the reference's rule tables
+and ``make_decode_step``, and ``build_step``, which picks one by the shape's
+kind.  Without a mesh the steps are the model calls themselves (the serve
+steps without autograd).  With a mesh (``repro_torch.launch.mesh``) every
+family's train, prefill and decode steps run sharded over ``(data,
+model)``, every placement from the reference's rule tables
 (``repro_torch.sharding``):
 
 * each parameter is stored as this rank's block of it
@@ -13,10 +13,11 @@ MoE, hybrid (zamba2), audio (whisper) and vision LMs sharded over
   FSDP the ``embed`` dim over ``data``), each AdamW moment as its block
   under :func:`opt_state_spec_tree` (``embed`` over ``data`` always:
   ZeRO-1), and the batch over (pod, data);
-* the forward computes heads, mamba heads, experts, mlp columns and the
-  vocabulary over ``model`` and gathers FSDP shards at use
-  (``models/attention.py``, ``ssm.py``, ``moe.py``, ``layers.py``,
-  ``transformer.py``);
+* the forward computes heads, mamba heads, mLSTM heads, experts, mlp
+  columns and the vocabulary over ``model`` and gathers FSDP shards at
+  use (``models/attention.py``, ``ssm.py``, ``xlstm.py``, ``moe.py``,
+  ``layers.py``, ``transformer.py``); the sLSTM recurrence runs whole on
+  every ``model`` rank;
 * after the backward each gradient is summed over the batch axes (an
   FSDP gather's backward has reduce-scattered it over ``data`` already; a
   ZeRO-1 parameter's is reduce-scattered to its moment's block) and, for
@@ -30,9 +31,11 @@ MoE, hybrid (zamba2), audio (whisper) and vision LMs sharded over
   ``data``.
 
 The loss is the mean over the global batch and ``grad_norm`` the norm of
-the global gradient, every block counted once.  A :class:`StepBundle`
-carries the placements as the reference's does: ``in_shardings`` and
-``out_shardings``.
+the global gradient, every block counted once.  The decode step holds
+the state in the reference's placement (``Model.decode_specs``) and
+updates each rank's blocks in place; its layers fit their compute to
+that placement.  A :class:`StepBundle` carries the placements as the
+reference's does: ``in_shardings`` and ``out_shardings``.
 """
 
 from __future__ import annotations
@@ -53,10 +56,6 @@ from repro_torch.sharding import api
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import NamedSharding
-
-# the families whose compute runs sharded (the others raise under a mesh)
-MESH_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
-
 
 @dataclasses.dataclass
 class StepBundle:
@@ -84,6 +83,13 @@ class StepBundle:
         if self.mesh is None:
             return params
         return api.shard_module(params, self.in_shardings[0])
+
+    def shard_state(self, state):
+        """This rank's blocks of a global decode state (copies); the state
+        itself without a mesh."""
+        if self.mesh is None:
+            return state
+        return _shard_state(state, self.in_shardings[1])
 
 
 def opt_state_spec_tree(opt_state, param_spec_tree):
@@ -113,12 +119,13 @@ def _batch_local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if v.dim() else v for k, v in batch.items()}
 
 
-def _check_mesh_model(cfg) -> None:
-    if cfg.family not in MESH_FAMILIES:
+def _check_mesh_model(cfg, mesh) -> None:
+    m = mesh.shape.get("model", 1)
+    if cfg.family == "ssm" and cfg.n_heads % m:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) does not run on a mesh yet: its "
-            "mLSTM and sLSTM blocks are not split over the mesh (ROADMAP "
-            "item 11.3)")
+            f"{cfg.name}: {cfg.n_heads} mLSTM heads do not split over a "
+            f"model axis of {m} ranks (ROADMAP item 11: only whole heads a "
+            "rank are run)")
 
 
 def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
@@ -233,7 +240,7 @@ def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
     parameter's ZeRO-1 cuts, how many ranks hold each moment block and
     the parameters whose gradients are partial over ``model``."""
     cfg = model.cfg
-    _check_mesh_model(cfg)
+    _check_mesh_model(cfg, mesh)
     if not optimizer.name.startswith("adamw") or \
             optimizer.name == "adamw_int8":
         raise NotImplementedError(
@@ -320,7 +327,7 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
 
     if mesh is None:
         return StepBundle(fn=prefill)
-    _check_mesh_model(cfg)
+    _check_mesh_model(cfg, mesh)
     p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
                                   model.param_shapes())
     rows = ("pod", "data") if "pod" in mesh.shape else "data"
@@ -330,13 +337,133 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
                       mesh=mesh)
 
 
-def make_decode_step(model: Model) -> Callable:
+def make_decode_step(model: Model, *, mesh=None,
+                     shape: Optional[ShapeConfig] = None):
     """(params, cache, {"tokens": (B,), "cache_len": (B,)})
-    -> (logits (B, padded_vocab), cache); the cache is updated in place."""
+    -> (logits (B, padded_vocab), cache); the cache is updated in place.
+
+    Without a ``mesh``, that function.  On one, a :class:`StepBundle` of
+    the reference's placements for ``shape`` (its ``global_batch`` and
+    ``seq_len``, the cache's length): ``in_shardings`` = (the parameters',
+    the state's by ``model.decode_specs()`` under the activation rules,
+    the tokens'), ``out_shardings`` = (the logits' over (batch,
+    ``model``), the state's).  The bundle's function takes this rank's
+    blocks of the parameters (``bundle.shard_params``) and of the state
+    (``bundle.shard_state`` or ``bundle.init_state``) and the global
+    tokens and lengths (each rank takes its rows), and returns this
+    rank's block of the logits and the state, updated in place."""
 
     @torch.no_grad()
     def decode(params, state, batch):
         return model.decode_fn(params, state, batch["tokens"],
                                batch["cache_len"])
 
-    return decode
+    if mesh is None:
+        return decode
+    cfg = model.cfg
+    if shape is None:
+        raise ValueError("a decode step on a mesh needs its shape (the "
+                         "global batch and the cache's length)")
+    _check_mesh_model(cfg, mesh)
+    act = api.activation_rules(cfg, shape, mesh)
+    if act["batch"] is None:
+        raise NotImplementedError(
+            f"a decode batch of {shape.global_batch} does not split over "
+            "the mesh: sequence parallelism is not ported (ROADMAP item "
+            "11.5)")
+    p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
+                                  model.param_shapes())
+    specs = model.decode_specs()
+    # the state's leaves on the meta device: shapes and dtypes, nothing
+    # allocated
+    meta = model.decode_init(shape.global_batch, shape.seq_len,
+                             device="meta")
+    shapes = _map(lambda t: tuple(t.shape), meta)
+    s_shard = api.tree_shardings(mesh, specs, act, shapes)
+    unfit = api.tree_shardings(mesh, specs, act)
+    flat_unfit, flat_shapes = _flat(unfit), _flat(shapes)
+    for name, sh in _flat(s_shard).items():
+        if sh.spec != flat_unfit[name].spec:
+            raise NotImplementedError(
+                f"{cfg.name}: decode state {name} {flat_shapes[name]} does "
+                f"not split as the rules place it ({flat_unfit[name].spec}):"
+                " only whole blocks are run (ROADMAP item 11)")
+    axes = act["batch"]
+    rows = tuple(axes) if len(axes) > 1 else axes[0]
+
+    @torch.no_grad()
+    def sharded(params, state, batch):
+        with R.use_mesh(mesh, act):
+            local = _batch_local(batch)
+            return model.decode_fn(params, state, local["tokens"],
+                                   local["cache_len"])
+
+    bundle = StepBundle(fn=sharded,
+                        in_shardings=(p_shard, s_shard,
+                                      NamedSharding(mesh, (rows,))),
+                        out_shardings=(NamedSharding(mesh, (rows, "model")),
+                                       s_shard),
+                        act_rules=act, mesh=mesh)
+    bundle.init_state = lambda device=None: _init_state(model, meta,
+                                                         s_shard, device)
+    return bundle
+
+
+def _flat(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict as a flat one keyed by dotted paths."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else fn(tree)
+
+
+def _shard_state(state, shardings):
+    """This rank's block of every leaf of the global decode ``state``
+    (copies)."""
+    return {k: _shard_state(v, shardings[k]) for k, v in state.items()} \
+        if isinstance(state, dict) \
+        else shardings.shard(state).contiguous().clone()
+
+
+def _init_state(model: Model, meta, shardings, device):
+    """This rank's blocks of a fresh decode state (``meta``: its leaves on
+    the meta device), allocated at their block shapes: every leaf of
+    ``decode_init`` starts at one value (the mLSTM and sLSTM stabilisers
+    at -1e30, the rest at 0), read off a state of one sequence of one
+    position on the host."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    small = model.decode_init(1, 1, device="cpu")
+
+    def one(m, s, sh):
+        if isinstance(m, dict):
+            return {k: one(m[k], s[k], sh[k]) for k in m}
+        fill = s.flatten()[0]
+        if not bool((s == fill).all()):
+            raise ValueError("a decode state leaf does not start constant")
+        return torch.full(sh.shard_shape(m.shape), fill.item(),
+                          dtype=m.dtype, device=dev)
+
+    return one(meta, small, shardings)
+
+
+def build_step(model: Model, optimizer: Optional[Optimizer], mesh,
+               shape: ShapeConfig, *, microbatches: int = 1) -> StepBundle:
+    """The step of ``shape``'s kind on ``mesh``: the train step (with
+    ``optimizer`` and ``microbatches``), the prefill or the decode step
+    (the reference's ``build_step``)."""
+    if shape.kind == "train":
+        if optimizer is None:
+            raise ValueError("a train step needs an optimizer")
+        return make_train_step(model, optimizer, shape, mesh=mesh,
+                               microbatches=microbatches)
+    if shape.kind == "prefill":
+        return make_prefill_step(model, mesh=mesh)
+    return make_decode_step(model, mesh=mesh, shape=shape)

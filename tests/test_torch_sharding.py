@@ -220,37 +220,46 @@ def test_meshes_the_port_cannot_build_raise():
             make_mesh((2, 2), ("data", "model"), device="cpu")
 
 
-@pytest.mark.parametrize("case", ["xlstm", "int8", "batch"])
+@pytest.mark.parametrize("case", ["xlstm", "int8", "batch",
+                                  "decode_batch"])
 def test_sharded_step_refuses_what_it_does_not_run(case):
-    """The xLSTM family, int8 AdamW moments and a batch that does not
-    split over the mesh raise when the step is built, each naming its
-    ROADMAP item (no process group needed: the placements are computed
-    first)."""
+    """xLSTM heads that do not divide the model axis, int8 AdamW moments,
+    a batch that does not split over the mesh and a decode batch that
+    does not split raise when the step is built, each naming its ROADMAP
+    item (no process group needed: the placements are computed first)."""
     from repro_torch.models.model import reduce_config
     from repro_torch.optim.optimizers import make_optimizer
-    from repro_torch.train.step import make_train_step
-    arch = "xlstm-1.3b" if case == "xlstm" else "llama3.2-3b"
-    model = build_model(reduce_config(ARCHS[arch]))
-    opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
-                         else "float32")
-    batch = 3 if case == "batch" else 4
-    item = {"xlstm": "11.3", "int8": "11.6", "batch": "11.5"}[case]
+    from repro_torch.train.step import make_decode_step, make_train_step
+    mesh = Mesh((2, 2), ("data", "model"))
+    if case == "xlstm":
+        model = build_model(reduce_config(ARCHS["xlstm-1.3b"], n_heads=1))
+    else:
+        model = build_model(reduce_config(ARCHS["llama3.2-3b"]))
+    item = {"xlstm": "11:", "int8": "11.6", "batch": "11.5",
+            "decode_batch": "11.5"}[case]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        if case == "decode_batch":
+            make_decode_step(model, mesh=mesh,
+                             shape=ShapeConfig("d", 16, 3, "decode"))
+            return
+        opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
+                             else "float32")
+        batch = 3 if case == "batch" else 4
         make_train_step(model, opt, ShapeConfig("t", 16, batch, "train"),
-                        mesh=Mesh((2, 2), ("data", "model")))
+                        mesh=mesh)
 
 
 @pytest.mark.parametrize("mesh_key", ["1x1", "2x2", "4x1", "1x4"])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m",
                                   "zamba2-7b", "whisper-tiny",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "xlstm-1.3b"])
 def test_partial_over_model_names_what_the_ranks_split(arch, mesh_key):
     """The replicated parameters whose gradients the step sums over
     ``model``, as the modules' specs declare them: every attention weight
     where the activation rules split the heads, the router where the
-    placement splits the experts, and a mamba layer's ``A_log``, ``D``
-    and ``dt_bias`` wherever ``model`` has more than one rank; nothing on
-    a ``model`` axis of one."""
+    placement splits the experts, a mamba layer's ``A_log``, ``D`` and
+    ``dt_bias`` and an mLSTM block's ``b_if`` wherever ``model`` has more
+    than one rank; nothing on a ``model`` axis of one."""
     model = build_model(ARCHS[arch])
     mesh = _port_mesh(mesh_key)
     shape = ShapeConfig("t", 4096, 4, "train")
@@ -270,5 +279,7 @@ def test_partial_over_model_names_what_the_ranks_split(arch, mesh_key):
                 and "model" in p_shard[f"{owner}.gate"].dim_axes(0):
             want.add(n)
         elif kind == "ssm" and leaf in ("A_log", "D", "dt_bias") and split:
+            want.add(n)
+        elif kind == "mlstm" and leaf == "b_if" and split:
             want.add(n)
     assert got == want

@@ -355,3 +355,73 @@ def launch_train(rank: int, world: int, outdir: Path, *,
         torch.save({"history": out["history"],
                     "final_loss": out["final_loss"], "dry_run": rec},
                    outdir / "launch_out.pt")
+
+
+def xlstm(rank: int, world: int, outdir: Path, *, rendezvous: str) -> None:
+    """``tests/test_torch_dist_xlstm.py``: the sharded steps of
+    :func:`train` on the xLSTM family, then ``launch.train --distributed
+    --arch xlstm-1.3b`` in a world of its own, as torchrun would start
+    it."""
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        train(rank, world, outdir, stem="xlstm")
+    finally:
+        dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    out = launch.main(["--arch", "xlstm-1.3b", "--test-mesh", "--device",
+                       "cpu", "--steps", "2", "--distributed",
+                       "--dist-init", f"file://{rendezvous}_launch"])
+    if rank == 0:
+        torch.save(out["history"], outdir / "launch_xlstm_out.pt")
+
+
+def decode(rank: int, world: int, outdir: Path) -> None:
+    """``tests/test_torch_dist_decode.py``: every (mesh, config) case's
+    sharded decode steps over ``decode_in.pt``'s tokens and lengths from
+    a zero state (the cross caches written from the input first): each
+    step's logits and the final state, gathered."""
+    from repro_torch.train.step import make_decode_step
+    inp = torch.load(outdir / "decode_in.pt", weights_only=False)
+    out = {}
+    b, length = inp["batch"], inp["max_seq"]
+    shape = ShapeConfig("decode", length, b, "decode")
+    for mesh_shape in inp["meshes"]:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mkey = "x".join(map(str, mesh_shape))
+        for name, (arch, over) in inp["configs"].items():
+            cfg = reduce_config(ARCHS[arch], **over)
+            model = build_model(cfg)
+            bundle = make_decode_step(model, mesh=mesh, shape=shape)
+            params = params_from_numpy(inp["trees"][name], cfg, "cpu",
+                                       shardings=bundle.in_shardings[0])
+            state = model.decode_init(b, length, device="cpu")
+            for k, v in inp["cross"].get(name, {}).items():
+                state[k].copy_(torch.from_numpy(v))
+            state = bundle.shard_state(state)
+            logits = []
+            for tok, lens in zip(inp["tokens"][name], inp["lens"]):
+                lg, state = bundle(params, state,
+                                   {"tokens": torch.from_numpy(tok),
+                                    "cache_len": torch.from_numpy(lens)})
+                logits.append(_np(C.gather_global(
+                    lg, bundle.out_shardings[0])))
+            out[(mkey, name)] = {
+                "logits": np.stack(logits),
+                "state": _gather_state(state, bundle.in_shardings[1])}
+    if rank == 0:
+        torch.save(out, outdir / "decode_out.pt")
+
+
+def _gather_state(state, shardings):
+    if isinstance(state, dict):
+        return {k: _gather_state(v, shardings[k]) for k, v in state.items()}
+    return _np(C.gather_global(state, shardings))

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""One model trained at full width and depth on four H100s.
+"""One model trained at full width and depth on four H100s, or
+llama3.2-3b's sharded decode over a long cache.
 
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
         [--arch llama-3.2-vision-11b | zamba2-7b | granite-moe-1b-a400m |
-         whisper-tiny]
+         whisper-tiny | xlstm-1.3b]
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --decode
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
-        --device cpu --test-mesh [--arch ...]   # a reduced rehearsal on gloo
+        --device cpu --test-mesh [--arch ... | --decode]   # reduced, gloo
 
 The port's sharded train step (``repro_torch.train.step`` with a mesh) on
 the reference's (data, model) = (2, 2) mesh over NCCL, one card per
@@ -23,6 +25,18 @@ block's 13 applications (27 GB of fp32 parameters, drawn whole on each
 card from one seed and cut).  granite-moe-1b-a400m (16 of its 32 experts
 a rank) and whisper-tiny (3 heads a rank, 1500 frames a sequence) fit on
 one card; they run here for their ``--test-mesh`` rehearsals.
+xlstm-1.3b: all 48 blocks (each its own region, replayed with nothing
+saved; the mLSTM kernel on each rank's 2 heads, every sLSTM recurrence
+whole on every rank) at train (f)'s 1024 tokens a sequence.
+
+``--decode``: llama3.2-3b's decode step on (2, 2) (``make_decode_step(...,
+mesh=)``, bf16, FSDP by the size rule), 32 sequences over 32,768 cached
+positions: 28 x 32 x 32768 x 8 x 128 x 2 x 2 bytes = 120 GB of KV cache,
+30 GB a card (each rank its 16 sequences' 4 kv heads), allocated at the
+block shapes and filled with seeded normals (the step reads every cached
+position whatever its values), then ``DECODE_STEPS`` tokens at lengths
+32,760 on.  Rank 0 prints one line per step (step ms, tokens/s, the
+collectives of each rank by kind) and a last line with every card's peak.
 
 Rank 0 prints one JSON line per step (loss, step s, tokens/s, the
 collectives of each rank by kind from ``launch/comm_analysis.py``) and a
@@ -52,7 +66,7 @@ import torch.distributed as dist  # noqa: E402
 
 ARCH = "llama-3.2-vision-11b"
 ARCHS_RUN = ("llama-3.2-vision-11b", "zamba2-7b", "granite-moe-1b-a400m",
-             "whisper-tiny")
+             "whisper-tiny", "xlstm-1.3b")
 # --test-mesh: each family reduced (the reference's reduce_config with
 # these overrides), every attention through the flash path
 TEST_MESH = {
@@ -61,10 +75,15 @@ TEST_MESH = {
     "zamba2-7b": dict(),
     "granite-moe-1b-a400m": dict(n_layers=2),
     "whisper-tiny": dict(n_heads=6, n_kv_heads=6, encoder_seq=40),
+    "xlstm-1.3b": dict(),
 }
 MESH = (2, 2)
 SEQ, BATCH, MICRO, STEPS = 4096, 4, 2, 3
+# each arch's sequence where it is not SEQ (xlstm-1.3b: train (f)'s)
+ARCH_SEQ = {"xlstm-1.3b": 1024}
 XGATE = 0.5
+DECODE_ARCH = "llama3.2-3b"
+DECODE_BATCH, DECODE_LEN, DECODE_STEPS = 32, 32768, 8
 
 
 def init_sharded(cfg, shardings, device, seed: int = 0):
@@ -174,6 +193,87 @@ def idle_share(step):
     return wall, busy / 1e6, covered, nccl / 1e6, 1 - covered / wall
 
 
+def run_decode(args, rank, world, device, on_card, gpu) -> int:
+    """``--decode``: the sharded decode step over a long cache."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model, reduce_config
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_decode_step
+
+    cfg, b, length = ARCHS[DECODE_ARCH], DECODE_BATCH, DECODE_LEN
+    if args.test_mesh:
+        cfg, b, length = reduce_config(cfg), 8, 64
+    mesh = make_mesh(MESH, ("data", "model"),
+                     device="cuda" if on_card else "cpu")
+    model = build_model(cfg)
+    bundle = make_decode_step(model, mesh=mesh, shape=ShapeConfig(
+        "decode_32k", length, b, "decode"))
+    t0 = time.perf_counter()
+    params = bundle.shard_params(model.init(0, device=device))
+    state = bundle.init_state(device)
+    g = torch.Generator(device).manual_seed(100 + rank)
+    for leaf in state.values():
+        leaf.normal_(generator=g)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    cache_gb = sum(t.numel() * t.element_size() for t in state.values()) / 1e9
+    if rank == 0:
+        print(json.dumps({"phase": "init", "arch": cfg.name,
+                          "layers": cfg.n_layers, "mesh": list(MESH),
+                          "batch": b, "cached_positions": length,
+                          "kv_cache_gb_per_card": cache_gb,
+                          "fsdp": any("data" in sh.used_axes() for sh in
+                                      bundle.in_shardings[0].values()),
+                          "init_s": time.perf_counter() - t0, "gpu": gpu}),
+              flush=True)
+    tok = torch.Generator(device).manual_seed(7)
+    start = length - DECODE_STEPS
+    times = []
+    for step in range(DECODE_STEPS):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b,), generator=tok,
+                                         device=device),
+                 "cache_len": torch.full((b,), start + step, device=device)}
+        C.reset_tally()
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits, state = bundle(params, state, batch)
+        ok = bool(torch.isfinite(logits).all())
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        step_s = time.perf_counter() - t0
+        times.append(step_s)
+        coll = analyze_collectives()
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, coll["per_op"])
+        if rank == 0:
+            print(json.dumps({"phase": "step", "step": step, "finite": ok,
+                              "step_ms": step_s * 1e3,
+                              "tokens_per_s": b / step_s,
+                              "collective_bytes_rank0":
+                                  coll["collective_bytes"],
+                              "collectives_by_rank": per_rank}), flush=True)
+        if not ok:
+            return 1
+    out = {"phase": "done", "ok": True,
+           "median_step_ms": sorted(times)[len(times) // 2] * 1e3,
+           "tokens_per_s_median": b / sorted(times)[len(times) // 2]}
+    if on_card:
+        peaks = [None] * world
+        dist.all_gather_object(
+            peaks, torch.cuda.max_memory_allocated(device) / 1e9)
+        out.update(peak_gb=peaks, gpu=gpu)
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
@@ -182,6 +282,9 @@ def main(argv=None) -> int:
                     help="the reduced config (with --device cpu)")
     ap.add_argument("--steps", type=int, default=STEPS)
     ap.add_argument("--arch", default=ARCH, choices=ARCHS_RUN)
+    ap.add_argument("--decode", action="store_true",
+                    help="llama3.2-3b's sharded decode over 32,768 cached "
+                         "positions instead of a train step")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ARCHS
@@ -208,8 +311,14 @@ def main(argv=None) -> int:
     dist.init_process_group("nccl" if on_card else "gloo",
                             timeout=timedelta(minutes=4))
     try:
+        gpu = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip().splitlines()[:1] if on_card else []
+        if args.decode:
+            return run_decode(args, rank, world, device, on_card, gpu)
         cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
-        seq = SEQ
+        seq = ARCH_SEQ.get(args.arch, SEQ)
         if args.test_mesh:
             cfg = reduce_config(cfg, block_q=32, block_kv=32,
                                 attention_impl="pallas", remat=True,
@@ -228,10 +337,6 @@ def main(argv=None) -> int:
             params = init_whole(model, bundle.in_shardings[0], device)
         state = bundle.init_state(params)
         init_s = time.perf_counter() - t0
-        gpu = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip().splitlines()[:1] if on_card else []
         if rank == 0:
             print(json.dumps({"phase": "init", "arch": cfg.name,
                               "layers": cfg.n_layers, "mesh": list(MESH),
