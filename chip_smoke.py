@@ -237,8 +237,8 @@ them:
    seed), fp32 parameters and AdamW state, bf16 compute, the default
    keep-all plan, every xgate at 0.5 (at 0 no gradient reaches a
    cross-attention, nor whisper's encoder): (h) llama-3.2-vision-11b at
-   full width, depth 40 -> 10 (two super-blocks, each one checkpoint
-   region; 40 layers' fp32 state is 162 GB), train_4k's 4096 tokens
+   full width, depth 40 -> 5 (one super-block, one checkpoint region;
+   40 layers' fp32 state is 162 GB), train_4k's 4096 tokens
    against 1600 image embeddings, batch 256 -> 2, 3 steps of 2
    micro-batches; (i) whisper-tiny at full width and depth, 4096 decoder
    tokens against 1500 frames, batch 256 -> 8 in 2 micro-batches of 4.
@@ -455,8 +455,14 @@ LOGITS_REL_TOL = 1e-3
 STEP_S = {}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the seconds since the script started
+    (``t_s``: the phases' timeline)."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def check(ok: bool, phase: str, what: str) -> None:
@@ -3382,9 +3388,9 @@ def _train_resume(torch):
 # host, would add minutes at 4096)
 REC_ZAMBA_DEPTH, REC_ZAMBA_SEQ, REC_ZAMBA_STEPS = 39, 4096, 3
 REC_XLSTM_SEQ, REC_XLSTM_STEPS = 1024, 2
-# (f)'s depth: 2 groups of 7 mLSTM blocks and the sLSTM block (cut from
+# (f)'s depth: 1 group of 7 mLSTM blocks and the sLSTM block (cut from
 # all 48 to keep the whole run well inside its limit)
-REC_XLSTM_DEPTH = 16
+REC_XLSTM_DEPTH = 8
 REC_BATCH, REC_MICRO = 2, 2
 # (g) fp32 parity: full width, S = 1024, zamba one group and a tail of 1,
 # xlstm one group of 7 mLSTM blocks and 1 sLSTM block
@@ -4413,14 +4419,15 @@ def _mm_generate(torch, fa, sw, gpu, cfg, model, params, phase):
 # 22. train_multimodal: llama-3.2-vision-11b and whisper-tiny trained
 # ---------------------------------------------------------------------------
 
-# (h) llama-3.2-vision-11b at full width, depth 40 -> 10 (two super-blocks
-# of 4 self + 1 cross block: 3.316 B parameters, 53.1 GB of fp32 params,
-# grads and AdamW moments; all 40 layers need 162 GB), train_4k's 4096
+# (h) llama-3.2-vision-11b at full width, depth 40 -> 5 (one super-block
+# of 4 self + 1 cross block; all 40 layers' fp32 params, grads and AdamW
+# moments need 162 GB),
+# cut to keep the whole run near its time target, train_4k's 4096
 # tokens against 1600 image embeddings, global batch 256 -> 2 in 2
 # micro-batches; (i) whisper-tiny at full width and depth, 4096 decoder
 # tokens against 1500 frames, batch 256 -> 8 in 2 micro-batches of 4
 MM_TRAIN_SEQ, MM_TRAIN_STEPS, MM_TRAIN_MICRO = 4096, 3, 2
-VLM_TRAIN_DEPTH, VLM_TRAIN_BATCH, WHISPER_TRAIN_BATCH = 10, 2, 8
+VLM_TRAIN_DEPTH, VLM_TRAIN_BATCH, WHISPER_TRAIN_BATCH = 5, 2, 8
 # (j) fp32, every tag recomputed: the vlm at depth 5 (one super-block)
 # against 1600 image tokens, whisper at full depth against 1500 frames
 MM_FP32_SEQ, VLM_FP32_TRAIN_DEPTH = 1024, 5
@@ -5090,7 +5097,34 @@ DIST_DECODE_SWIGLU = {
     "llama-3.2-vision-11b decode MLP": (1, 2, 4096, 7168),
     "zamba2-7b decode shared MLP": (1, 2, 3584, 7168),
     "granite-moe-1b-a400m decode experts": (16, 2, 1024, 512),
-    "whisper-tiny decode MLP": (1, 2, 384, 768)}
+    "whisper-tiny decode MLP": (1, 2, 384, 768),
+    # batch 1 (it does not split: every rank holds the one sequence), the
+    # rank's columns of the shared MLP: x (1, 3584), W (3584, 7168)
+    "zamba2-7b batch-1 decode shared MLP": (1, 1, 3584, 7168)}
+# (l)'s batch-1 decodes: each family at DIST_DEPTH, one sequence (the
+# reference's rules then put the state's sequence over data: the caches'
+# positions, the mLSTM state's key dim), DIST_DECODE_STEPS steps from a
+# zero state at lengths from DIST_DECODE1_START, across the boundary of
+# the data ranks' blocks of positions, in both dtypes, gated as the
+# batch-4 decodes; every SwiGLU call one row
+DIST_DECODE1_START = DIST_DECODE_LEN // 2 - 2
+# zamba2-7b's long_500k decode on (2, 2): one shared-block group (6 mamba
+# layers, then the shared block), its cache at all 524,288 positions
+# filled with seeded normals (drawn in chunks of DIST_LONG_CHUNK positions
+# from their own seeds, so that a rank draws only its blocks), 7.5 GB in
+# bf16, 1.9 GB a rank; DIST_DECODE_STEPS tokens from DIST_LONG_START.  The
+# mesh's bf16 run against the one-rank bf16 run, within twice the
+# one-rank bf16 run's distance from the one-rank fp32 run
+DIST_LONG_ARCH, DIST_LONG_DEPTH, DIST_LONG_LEN = "zamba2-7b", 6, 524288
+DIST_LONG_START, DIST_LONG_CHUNK = DIST_LONG_LEN - 8, 4096
+# llama3.2-3b at 1 layer, fp32: the train step and the prefill at a batch
+# of 1 (it does not split over data: every rank takes the sequence) of
+# DIST_SEQ, each gradient leaf within 1e-4 of one rank's; then
+# DIST_INT8_STEPS steps of int8 AdamW at DIST_BATCH sequences: the
+# moments within one quantisation step of one rank's own int8 steps (the
+# q entries that differ counted), and rank 0 replays one rank's int8
+# update on the mesh's own gradients: parameters within 1e-5
+DIST_B1_ARCH, DIST_INT8_STEPS, DIST_INT8_LR = "llama3.2-3b", 2, 3e-4
 # SwiGLU launches a rank makes in one decode step
 DIST_DECODE_SWIGLU_CALLS = {"llama3.2-3b": 1, "llama-3.2-vision-11b": 2,
                             "zamba2-7b": 1, "granite-moe-1b-a400m": 2,
@@ -5140,17 +5174,20 @@ DIST_FLIP_FRACTION = 0.05
 def _capture(into, base=None):
     """An optimizer that keeps a copy of the grads it is handed (after the
     step's reductions) and then runs ``base``'s update; without ``base``
-    it updates nothing and holds no state."""
-    from repro_torch.optim.optimizers import Optimizer
+    it updates nothing and holds no state (fp32 AdamW's layout)."""
+    import dataclasses
+
+    from repro_torch.optim.optimizers import make_optimizer
 
     def update_(grads, state, params, *rest):
         into.update({n: g.detach().clone() for n, g in grads.items()})
         if base is not None:
             base.update_(grads, state, params, *rest)
 
-    return Optimizer(init=base.init if base is not None else dict,
-                     update_=update_,
-                     name=base.name if base is not None else "adamw_float32")
+    if base is None:
+        return dataclasses.replace(make_optimizer("adamw"), init=dict,
+                                   update_=update_)
+    return dataclasses.replace(base, update_=update_)
 
 
 def _dist_shape(arch):
@@ -5400,6 +5437,7 @@ def _dist_shared_card(torch):
     out_dir = ROOT / "build" / "chip_dist"
     out_dir.mkdir(parents=True, exist_ok=True)
     spreads, anchors = {}, {}
+    t_refs = time.perf_counter()
     for arch, dtypes in DIST_RUNS.items():
         seq, b, micro = _dist_shape(arch)
         shape = ShapeConfig("train_4k", seq, b, "train")
@@ -5466,22 +5504,34 @@ def _dist_shared_card(torch):
         del model, params, batch
         gc.collect()
         torch.cuda.empty_cache()
+    walls = {"train_refs": time.perf_counter() - t_refs}
+    t_refs = time.perf_counter()
     decode_spread = _dist_decode_refs(torch, out_dir)
+    walls["decode_refs"] = time.perf_counter() - t_refs
+    t_refs = time.perf_counter()
+    _dist_extra_refs(torch, out_dir)
+    walls["extra_refs"] = time.perf_counter() - t_refs
     rdv = out_dir / f"rendezvous_l_{os.getpid()}"
     rdv.unlink(missing_ok=True)
     for r in range(4):
         (out_dir / f"dist_l_{r}.json").unlink(missing_ok=True)
     reserved = torch.cuda.memory_reserved() / 1e9   # while the ranks run
+    t_ranks = time.perf_counter()
     mp.spawn(_dist_rank, args=(4, str(rdv), str(out_dir)), nprocs=4,
              join=True)
+    walls["ranks"] = time.perf_counter() - t_ranks
     ranks = [json.loads((out_dir / f"dist_l_{r}.json").read_text())
              for r in range(4)]
+    emit({"phase": "dist_l_walls", "parent": walls,
+          "rank0": ranks[0]["walls"]})
     for ref in out_dir.glob("ref_*.pt"):
         ref.unlink()
     flash = {p: 0 for p in DIST_FLASH}
     swiglu = {p: 0 for p in {**DIST_SWIGLU, **DIST_DECODE_SWIGLU}}
     scans = {p: 0 for p in {**DIST_SSD, **DIST_MLSTM}}
     decodes = _dist_decode_checks(ranks, swiglu, decode_spread)
+    long = _dist_long_checks(ranks, swiglu, decode_spread)
+    extras = _dist_extra_checks(ranks)
     runs = ranks[0]["runs"]
     check(set(runs) == {f"{a} {d}" for a, ds in DIST_RUNS.items()
                         for d in ds}, "dist", f"(l) ran {sorted(runs)}")
@@ -5570,7 +5620,9 @@ def _dist_shared_card(torch):
             for p, case in DIST_SWIGLU.items():
                 swiglu[p] += got_s.count(case) if p.startswith(arch) else 0
     return {"mesh": list(DIST_MESH), "transport": ranks[0]["transport"],
-            "runs": runs, "decodes": decodes, "flash_launches": flash,
+            "runs": runs, "decodes": decodes, "long": long,
+            "extras": extras, "roofline": _dist_roofline(ranks),
+            "flash_launches": flash,
             "swiglu_launches": swiglu, "scan_launches": scans,
             "parent_reserved_gb": reserved,
             "parent_host_rss_gb": _host_rss_bytes() / 1e9,
@@ -5585,18 +5637,21 @@ def _xlstm_blocks(arch):
     return xlstm_counts(_dist_cfg(arch, n_layers=DIST_DEPTH[arch]))
 
 
-def _decode_case(torch, arch, dtype):
-    """(model, its served parameters from seed 0, a zero decode state
-    whose cross caches are drawn from seed 5, the tokens (steps, B), the
-    lengths by step), ``dtype`` the compute dtype: the same in every
-    process that asks."""
+def _decode_case(torch, arch, dtype, b=DIST_DECODE_BATCH, start=0,
+                 model=None):
+    """(model, its served parameters from seed 0, a zero decode state of
+    ``b`` sequences whose cross caches are drawn from seed 5, the tokens
+    (steps, B), the lengths by step, from ``start``), ``dtype`` the
+    compute dtype: the same in every process that asks.  A ``model``
+    given is used with its parameters (None in the tuple)."""
     from repro_torch.models.model import build_model
 
     cfg = _dist_cfg(arch, n_layers=DIST_DEPTH[arch], dtype=dtype)
-    model = build_model(cfg)
-    if cfg.family in ("vlm", "audio"):
-        model = _gated(model)
-    b = DIST_DECODE_BATCH
+    given = model is not None
+    if not given:
+        model = build_model(cfg)
+        if cfg.family in ("vlm", "audio"):
+            model = _gated(model)
     state = model.decode_init(b, DIST_DECODE_LEN)
     g = torch.Generator("cuda").manual_seed(5)
     for k in ("xk", "xv"):
@@ -5605,9 +5660,9 @@ def _decode_case(torch, arch, dtype):
                                        device="cuda"))
     tokens = torch.randint(0, cfg.vocab, (DIST_DECODE_STEPS, b),
                            generator=g, device="cuda")
-    lens = [torch.arange(b, device="cuda") + t
+    lens = [torch.arange(b, device="cuda") + start + t
             for t in range(DIST_DECODE_STEPS)]
-    return model, model.init(0), state, tokens, lens
+    return model, None if given else model.init(0), state, tokens, lens
 
 
 def _leaves(tree, prefix=""):
@@ -5620,10 +5675,12 @@ def _leaves(tree, prefix=""):
 
 
 def _dist_decode_refs(torch, out_dir):
-    """(l)'s one-rank decode of every family in each dtype: each step's
-    logits, the final state and the MoE routing, written under
-    ``out_dir``; for bf16 also its distance from the fp32 run (normwise,
-    the logits' largest over the steps and each state leaf's)."""
+    """(l)'s one-rank decode of every family in each dtype, at
+    ``DIST_DECODE_BATCH`` sequences and at one (the same parameters, from
+    ``DIST_DECODE1_START``): each step's logits, the final state and the
+    MoE routing, written under ``out_dir``; for bf16 also its distance
+    from the fp32 run (normwise, the logits' largest over the steps and
+    each state leaf's), keyed by the arch (and " b1" for batch 1)."""
     import gc
 
     from repro_torch.train.step import make_decode_step
@@ -5634,37 +5691,143 @@ def _dist_decode_refs(torch, out_dir):
         for dtype in DIST_DECODE_DTYPES:
             model, params, state, tokens, lens = _decode_case(torch, arch,
                                                               dtype)
-            step = make_decode_step(model)
-            logits = []
-            with _moe_routing(torch) as routing:
-                for t in range(DIST_DECODE_STEPS):
-                    lg, state = step(params, state, {"tokens": tokens[t],
-                                                     "cache_len": lens[t]})
-                    logits.append(lg.float().cpu())
-            runs[dtype] = {"logits": logits, "routing": routing,
-                           "state": {k: v.cpu() for k, v in
-                                     _leaves(state).items()}}
-            torch.save(runs[dtype], out_dir / f"ref_decode_{arch}_{dtype}.pt")
+            for b, tag in ((DIST_DECODE_BATCH, ""), (1, " b1")):
+                if b == 1:
+                    _, _, state, tokens, lens = _decode_case(
+                        torch, arch, dtype, 1, DIST_DECODE1_START, model)
+                step = make_decode_step(model)
+                logits = []
+                with _moe_routing(torch) as routing:
+                    for t in range(DIST_DECODE_STEPS):
+                        lg, state = step(params, state,
+                                         {"tokens": tokens[t],
+                                          "cache_len": lens[t]})
+                        logits.append(lg.float().cpu())
+                runs[dtype + tag] = {"logits": logits, "routing": routing,
+                                     "state": {k: v.cpu() for k, v in
+                                               _leaves(state).items()}}
+                torch.save(runs[dtype + tag], out_dir /
+                           f"ref_decode{tag.strip()}_{arch}_{dtype}.pt")
             del model, params, state, step
             gc.collect()
             torch.cuda.empty_cache()
-        if len(runs) == 2:
-            lo, hi = runs["bfloat16"], runs["float32"]
-            spread[arch] = {
-                "logits": max(_normwise(torch, a, b) for a, b in
-                              zip(lo["logits"], hi["logits"])),
-                **{n: _normwise(torch, lo["state"][n], hi["state"][n])
-                   for n in hi["state"]}}
+        for tag in ("", " b1"):
+            if f"float32{tag}" in runs and f"bfloat16{tag}" in runs:
+                lo, hi = runs[f"bfloat16{tag}"], runs[f"float32{tag}"]
+                spread[arch + tag] = {
+                    "logits": max(_normwise(torch, a, b) for a, b in
+                                  zip(lo["logits"], hi["logits"])),
+                    **{n: _normwise(torch, lo["state"][n], hi["state"][n])
+                       for n in hi["state"]}}
         del runs
+    spread.update(_dist_long_refs(torch, out_dir))
     return spread
 
 
-def _dist_rank_decode(torch, arch, dtype, mesh, out_dir):
-    """One of (l)'s ranks: ``arch``'s decode step on the mesh
-    (``make_decode_step(..., mesh=)``), its blocks of every step's logits
-    and of the final state against the one-rank run's (the largest error
-    and value over the ranks), its SwiGLU calls by shape, the expert
-    choices replayed from the one-rank run (flips counted)."""
+def _long_model(torch, dtype):
+    """zamba2-7b at ``DIST_LONG_DEPTH`` in ``dtype`` and its served
+    parameters from seed 0."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+
+    model = build_model(dataclasses.replace(
+        ARCHS[DIST_LONG_ARCH], attention_impl="pallas",
+        n_layers=DIST_LONG_DEPTH, dtype=dtype))
+    return model, model.init(0)
+
+
+def _fill_long_cache(torch, out, which, p0, h0):
+    """Fill ``out`` (P, H, hd) with positions ``[p0, p0 + P)`` and kv heads
+    ``[h0, h0 + H)`` of the long decode's global ``which`` cache ("k" or
+    "v"): standard normals, each chunk of ``DIST_LONG_CHUNK`` positions
+    drawn from its own seed (the same values in every process, whichever
+    block it draws)."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[DIST_LONG_ARCH]
+    p1, h1 = p0 + out.shape[0], h0 + out.shape[1]
+    g = torch.Generator("cuda")
+    for c in range(p0 // DIST_LONG_CHUNK, -(-p1 // DIST_LONG_CHUNK)):
+        a = c * DIST_LONG_CHUNK
+        g.manual_seed(7919 * ("kv".index(which) + 1) + c)
+        chunk = torch.randn((DIST_LONG_CHUNK, cfg.n_kv_heads, cfg.head_dim),
+                            generator=g, device="cuda")
+        lo, hi = max(a, p0), min(a + DIST_LONG_CHUNK, p1)
+        out[lo - p0:hi - p0] = chunk[lo - a:hi - a, h0:h1]
+        del chunk
+
+
+def _long_tokens(torch):
+    from repro_torch.configs import ARCHS
+
+    g = torch.Generator("cuda").manual_seed(23)
+    tokens = torch.randint(0, ARCHS[DIST_LONG_ARCH].vocab,
+                           (DIST_DECODE_STEPS, 1), generator=g,
+                           device="cuda")
+    return tokens, [torch.full((1,), DIST_LONG_START + t, device="cuda")
+                    for t in range(DIST_DECODE_STEPS)]
+
+
+def _long_written(state, start):
+    """The long decode's state leaves that a step writes: the cache rows
+    from ``start`` (the rank's block of positions from there; ``start``
+    within it) and the SSM state."""
+    s = DIST_DECODE_STEPS
+    return {"attn.k": state["attn"]["k"][:, :, start:start + s],
+            "attn.v": state["attn"]["v"][:, :, start:start + s],
+            **{f"ssm.{k}": v for k, v in state["ssm"].items()}}
+
+
+def _dist_long_refs(torch, out_dir):
+    """The long decode's one-rank runs (no mesh) in fp32 and bf16: every
+    step's logits and the written state (``_long_written``), under
+    ``out_dir``; returns the bf16 run's distance from the fp32 run, keyed
+    "zamba2-7b long"."""
+    import gc
+
+    from repro_torch.train.step import make_decode_step
+
+    tokens, lens = _long_tokens(torch)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model, params = _long_model(torch, dtype)
+        state = model.decode_init(1, DIST_LONG_LEN)
+        for which in ("k", "v"):
+            _fill_long_cache(torch, state["attn"][which][0, 0], which, 0, 0)
+        step = make_decode_step(model)
+        logits = []
+        for t in range(DIST_DECODE_STEPS):
+            lg, state = step(params, state, {"tokens": tokens[t],
+                                             "cache_len": lens[t]})
+            logits.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        runs[dtype] = {"logits": logits, "state": {
+            k: v.cpu() for k, v in
+            _long_written(state, DIST_LONG_START).items()}}
+        torch.save(runs[dtype], out_dir / f"ref_long_{dtype}.pt")
+        del model, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    lo, hi = runs["bfloat16"], runs["float32"]
+    return {f"{DIST_LONG_ARCH} long": {
+        "logits": max(_normwise(torch, a, b) for a, b in
+                      zip(lo["logits"], hi["logits"])),
+        **{n: _normwise(torch, lo["state"][n], hi["state"][n])
+           for n in hi["state"]}}}
+
+
+def _dist_rank_decode(torch, arch, dtype, mesh, out_dir,
+                      b=DIST_DECODE_BATCH, shared=None):
+    """One of (l)'s ranks: ``arch``'s decode step of ``b`` sequences on
+    the mesh (``make_decode_step(..., mesh=)``; at ``b`` = 1 the batch
+    does not split and every rank holds the sequence), its blocks of
+    every step's logits and of the final state against the one-rank
+    run's (the largest error and value over the ranks), its SwiGLU calls
+    by shape, the expert choices replayed from the one-rank run (flips
+    counted), its counted operations and bytes and its collectives.
+    ``shared``, a dict, carries the model and its sharded parameters from
+    one call to the next of the same arch and dtype (the placements of
+    the parameters do not depend on the batch)."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
@@ -5673,17 +5836,24 @@ def _dist_rank_decode(torch, arch, dtype, mesh, out_dir):
     from repro_torch.sharding import collectives as C
     from repro_torch.train.step import make_decode_step
 
-    model, params, full, tokens, lens = _decode_case(torch, arch, dtype)
-    bundle = make_decode_step(model, mesh=mesh, shape=ShapeConfig(
-        "decode", DIST_DECODE_LEN, DIST_DECODE_BATCH, "decode"))
-    params = bundle.shard_params(params)
+    one = b == 1
+    model, params = (shared or {}).get("model"), (shared or {}).get("params")
+    model_, params_, full, tokens, lens = _decode_case(
+        torch, arch, dtype, b, DIST_DECODE1_START if one else 0, model)
+    bundle = make_decode_step(model_, mesh=mesh, shape=ShapeConfig(
+        "decode", DIST_DECODE_LEN, b, "decode"))
+    if params is None:
+        model, params = model_, bundle.shard_params(params_)
+        if shared is not None:
+            shared.update(model=model, params=params)
     state = bundle.shard_state(full)
     del full
     torch.cuda.empty_cache()
-    ref = torch.load(Path(out_dir) / f"ref_decode_{arch}_{dtype}.pt",
+    ref = torch.load(Path(out_dir) /
+                     f"ref_decode{'b1' if one else ''}_{arch}_{dtype}.pt",
                      mmap=True, weights_only=True)
-    per = DIST_DECODE_BATCH // DIST_MESH[0]
-    d = mesh.coords()["data"]
+    per = 1 if one else b // DIST_MESH[0]
+    d = 0 if one else mesh.coords()["data"]
     lsh, ssh = bundle.out_shardings
     stats = []
     _zero(sw)
@@ -5711,6 +5881,7 @@ def _dist_rank_decode(torch, arch, dtype, mesh, out_dir):
     stats = torch.tensor(stats, dtype=torch.float64)
     dist.all_reduce(stats, op=dist.ReduceOp.MAX)
     rel = (stats[:, 0] / stats[:, 1].clamp_min(1e-30)).tolist()
+    counted = _counted_step(torch, bundle, params, state, tokens, lens)
     k = DIST_DECODE_STEPS
     return {"logits_rel": max(rel[:k]),
             "state_rel": dict(zip(names, rel[k:])),
@@ -5718,8 +5889,328 @@ def _dist_rank_decode(torch, arch, dtype, mesh, out_dir):
             "routing_flips": sum(flips), "routing_calls": len(flips),
             "step_ms": step_ms, "collectives": tally["per_op"],
             "collective_bytes": tally["collective_bytes"],
+            "counted": counted,
             "state_gb_rank": sum(t.numel() * t.element_size()
                                  for t in got.values()) / 1e9}
+
+
+def _counted(fc, bc, steps=1):
+    """A step's FLOPs and bytes as the cost probe's counters saw them
+    (the kernels, calls they do not see, left out)."""
+    return {"flops": fc.get_total_flops() / steps, "bytes": bc.bytes / steps}
+
+
+def _counted_step(torch, bundle, params, state, tokens, lens):
+    """One more decode step, after the timed and compared ones (the
+    counters' dispatch slows a host-bound step), at the next position:
+    its FLOPs and bytes as the cost probe counts them."""
+    from repro_torch.launch.probe import counting
+    with counting() as (fc, bc):
+        bundle(params, state, {"tokens": tokens[-1],
+                               "cache_len": lens[-1] + 1})
+    torch.cuda.synchronize()
+    return _counted(fc, bc)
+
+
+def _dist_rank_long(torch, mesh, out_dir):
+    """One of (l)'s ranks: the long decode on the mesh in bf16
+    (``make_decode_step(..., shape=long_500k)``: the cache's positions
+    over ``data``, its kv heads over ``model``), the rank's blocks of the
+    cache allocated (``bundle.init_state``) and filled with its blocks of
+    the seeded normals; its blocks of every step's logits and of the
+    written state against the one-rank run's (the largest error and value
+    over the ranks), its SwiGLU calls, counts and collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_decode_step
+
+    model, params = _long_model(torch, "bfloat16")
+    bundle = make_decode_step(model, mesh=mesh, shape=SHAPES["long_500k"])
+    params = bundle.shard_params(params)
+    state = bundle.init_state("cuda")
+    ssh = bundle.in_shardings[1]
+    starts = {}
+    for which in ("k", "v"):
+        sh, blk = ssh["attn"][which], state["attn"][which]
+        starts[which] = (sh.block(2) * blk.shape[2], sh.block(3) * blk.shape[3])
+        _fill_long_cache(torch, blk[0, 0], which, *starts[which])
+    torch.cuda.synchronize()
+    cache_gb = sum(state["attn"][w].numel() * state["attn"][w].element_size()
+                   for w in ("k", "v")) / 1e9
+    tokens, lens = _long_tokens(torch)
+    ref = torch.load(Path(out_dir) / "ref_long_bfloat16.pt", mmap=True,
+                     weights_only=True)
+    lsh = bundle.out_shardings[0]
+    stats = []
+    _zero(sw)
+    C.reset_tally()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _launch_calls(sw, _expert_swiglu_key) as sc:
+        for t in range(DIST_DECODE_STEPS):
+            lg, state = bundle(params, state, {"tokens": tokens[t],
+                                               "cache_len": lens[t]})
+            want = lsh.shard(ref["logits"][t]).to("cuda")
+            stats.append([(lg.float() - want).abs().max().item(),
+                          want.abs().max().item()])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DIST_DECODE_STEPS * 1e3
+    tally = analyze_collectives()
+    names = sorted(ref["state"])
+    p0, h0 = starts["k"]
+    local = DIST_LONG_START - p0
+    held = 0 <= local < state["attn"]["k"].shape[2]
+    mine = _long_written(state, local) if held else \
+        {f"ssm.{k}": v for k, v in state["ssm"].items()}
+    for n in names:
+        whole = ref["state"][n]
+        if n.startswith("attn."):
+            if not held:
+                stats.append([0.0, 0.0])
+                continue
+            hl = mine[n].shape[3]
+            want = whole[:, :, :, h0:h0 + hl]
+        else:
+            want = ssh["ssm"][n.split(".")[1]].shard(whole)
+        want = want.to("cuda").float()
+        stats.append([(mine[n].float() - want).abs().max().item(),
+                      want.abs().max().item()])
+    stats = torch.tensor(stats, dtype=torch.float64)
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    rel = (stats[:, 0] / stats[:, 1].clamp_min(1e-30)).tolist()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counted = _counted_step(torch, bundle, params, state, tokens, lens)
+    k = DIST_DECODE_STEPS
+    return {"logits_rel": max(rel[:k]), "state_rel": dict(zip(names, rel[k:])),
+            "swiglu_calls": [list(c) for c in sc], "step_ms": step_ms,
+            "collectives": tally["per_op"],
+            "collective_bytes": tally["collective_bytes"],
+            "counted": counted,
+            "cache_gb_rank": cache_gb, "writes_rows": held,
+            "peak_gb": peak_gb}
+
+
+def _extra_model(torch):
+    """llama3.2-3b at one layer in fp32 and its trainable parameters from
+    seed 0."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(_dist_cfg(DIST_B1_ARCH, n_layers=1,
+                                  dtype="float32"))
+    return model, model.init(0, trainable=True)
+
+
+def _int8_moments(torch, mu):
+    """Each leaf's int8 moments: {name.m|v: (q, scale)} on the host."""
+    return {f"{n}.{k}": (mv[k]["q"].cpu(), mv[k]["scale"].cpu())
+            for n, mv in mu.items() for k in ("m", "v")}
+
+
+def _dist_extra_refs(torch, out_dir):
+    """The one-rank runs of (l)'s llama3.2-3b extras: the prefill logits
+    and then one train step's loss and grads at a batch of 1; two int8
+    AdamW steps' losses and moments.  Written under ``out_dir``."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_prefill_step, make_train_step
+
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, 1)
+    logits = make_prefill_step(model)(params, {"tokens": batch["tokens"]})
+    grads = {}
+    step = make_train_step(model, _capture(grads), ShapeConfig(
+        "train_4k", DIST_SEQ, 1, "train"))
+    _, _, metrics = step(params, {}, batch)
+    torch.save({"logits": logits.cpu(), "loss": float(metrics["loss"]),
+                "grads": {n: g.cpu() for n, g in grads.items()}},
+               out_dir / "ref_b1.pt")
+    del model, params, logits, grads, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, DIST_BATCH)
+    opt = make_optimizer("adamw", state_dtype="int8", lr=DIST_INT8_LR)
+    step = make_train_step(model, opt, ShapeConfig("train_4k", DIST_SEQ,
+                                                   DIST_BATCH, "train"))
+    state = opt.init(dict(params.named_parameters()))
+    losses = [float(step(params, state, batch)[2]["loss"])
+              for _ in range(DIST_INT8_STEPS)]
+    torch.save({"losses": losses,
+                "moments": _int8_moments(torch, state["mu"])},
+               out_dir / "ref_int8.pt")
+    del model, params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dist_rank_extras(torch, mesh, out_dir):
+    """One of (l)'s ranks: llama3.2-3b's prefill and train step at a batch
+    of 1 on the mesh against the one-rank run's (logits normwise, each
+    gradient leaf), then its int8 AdamW steps: the losses, the moments'
+    blocks against the one-rank run's own (within one quantisation step,
+    q entries that differ counted), and rank 0 replays one rank's int8
+    update on the whole gradients the mesh reduced (each step's, gathered
+    from every rank's blocks) from the seed's parameters: the mesh's
+    parameters, gathered, against that."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.probe import counting
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import make_prefill_step, make_train_step
+
+    out = {}
+    rank = dist.get_rank()
+    # ---- batch 1: prefill, then one train step -------------------------
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, 1)
+    shape = ShapeConfig("train_4k", DIST_SEQ, 1, "train")
+    grads = {}
+    bundle = make_train_step(model, _capture(grads, make_optimizer("adamw")),
+                             shape, mesh=mesh)
+    prefill = make_prefill_step(model, mesh=mesh, shape=dataclasses.replace(
+        shape, kind="prefill"))
+    params = bundle.shard_params(params)
+    state = bundle.init_state(params)
+    ref = torch.load(Path(out_dir) / "ref_b1.pt", mmap=True,
+                     weights_only=True)
+    _zero(fa, sw)
+    with _launch_calls(fa, _flash_key) as fc1, \
+            _launch_calls(sw, _swiglu_key) as sc1:
+        logits = prefill(params, {"tokens": batch["tokens"]})
+        want = prefill.out_shardings.shard(ref["logits"]).to("cuda")
+        pre = [(logits - want).abs().max().item(), want.abs().max().item()]
+        del logits, want
+        C.reset_tally()
+        t0 = time.perf_counter()
+        with counting() as (fc, bc):
+            _, _, metrics = bundle(params, state, batch)
+            loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+    tally = analyze_collectives()
+    o_shard = bundle.in_shardings[1]
+    names = sorted(grads)
+    stats = torch.zeros(2, len(names) + 1, dtype=torch.float64)
+    stats[:, 0] = torch.tensor(pre)
+    for i, n in enumerate(names):
+        want = o_shard["mu"][n]["m"].shard(ref["grads"][n]).to("cuda")
+        stats[0, i + 1] = (grads[n] - want).abs().max().item()
+        stats[1, i + 1] = want.abs().max().item()
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    rel = (stats[0] / stats[1].clamp_min(1e-30)).tolist()
+    out["b1"] = {"loss": loss, "loss_ref": ref["loss"],
+                 "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                 "prefill_rel": rel[0],
+                 "leaf_rel": dict(zip(names, rel[1:])),
+                 "flash_calls": [list(c) for c in fc1],
+                 "swiglu_calls": [list(c) for c in sc1],
+                 "step_s": step_s, "collectives": tally["per_op"],
+                 "collective_bytes": tally["collective_bytes"],
+                 "counted": _counted(fc, bc)}
+    del model, params, state, bundle, prefill, grads, ref, metrics
+    torch.cuda.empty_cache()
+    # ---- int8 AdamW, DIST_INT8_STEPS steps ------------------------------
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, DIST_BATCH)
+    shape = ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train")
+    bundle = make_train_step(model, make_optimizer(
+        "adamw", state_dtype="int8", lr=DIST_INT8_LR), shape, mesh=mesh)
+    params = bundle.shard_params(params)
+    for n, p in params.named_parameters():
+        p._name = n
+    state = bundle.init_state(params)
+    seen = []
+    real_leaf = step_mod._int8_leaf_
+
+    def spy(adamw, g, mv, p, p_shard, q_shard, corrections):
+        if rank == 0:            # the whole summed gradient the update got
+            seen[-1][p._name] = g.cpu()
+        real_leaf(adamw, g, mv, p, p_shard, q_shard, corrections)
+
+    losses = []
+    C.reset_tally()
+    step_mod._int8_leaf_ = spy
+    try:
+        t0 = time.perf_counter()
+        for _ in range(DIST_INT8_STEPS):
+            seen.append({})
+            losses.append(float(bundle(params, state, batch)[2]["loss"]))
+        step_s = (time.perf_counter() - t0) / DIST_INT8_STEPS
+    finally:
+        step_mod._int8_leaf_ = real_leaf
+    tally = analyze_collectives()
+    ref = torch.load(Path(out_dir) / "ref_int8.pt", mmap=True,
+                     weights_only=True)
+    o_shard, p_shard = bundle.in_shardings[1], bundle.in_shardings[0]
+    mine = _int8_moments(torch, state["mu"])
+    # per moment: (largest excess over one quantisation step, q entries
+    # that differ, largest q difference)
+    excess, differ, top_dq = 0.0, 0, 0
+    for key, (q, scale) in mine.items():
+        n, k = key.rsplit(".", 1)
+        sh = o_shard["mu"][n][k]
+        rq = sh["q"].shard(ref["moments"][key][0])
+        rs = sh["scale"].shard(ref["moments"][key][1])
+        dq = (q.int() - rq.int()).abs()
+        if sh["q"].spec or rank == 0:     # a replicated leaf counted once
+            differ += int((dq > 0).sum())
+        top_dq = max(top_dq, int(dq.max()))
+        # one step of the block, the two scales' difference and the
+        # products' own rounding
+        step = (torch.maximum(scale, rs) + 127 * (scale - rs).abs()) \
+            * (1 + 1e-5)
+        gap = (q.float() * scale - rq.float() * rs).abs() - step
+        excess = max(excess, gap.max().item())
+    counts = torch.tensor([excess, differ, top_dq], dtype=torch.float64)
+    both = torch.stack([counts, counts])
+    dist.all_reduce(both[0], op=dist.ReduceOp.MAX)
+    dist.all_reduce(both[1], op=dist.ReduceOp.SUM)
+    gathered = {}
+    for n, p in params.named_parameters():
+        whole = C.gather_global(p.data, p_shard[n])
+        if rank == 0:
+            gathered[n] = whole.cpu()
+        del whole
+    replay = None
+    if rank == 0:
+        # one rank's int8 update on the mesh's gradients, from the seed's
+        # parameters
+        del params, state
+        torch.cuda.empty_cache()
+        _, whole = _extra_model(torch)
+        opt = make_optimizer("adamw", state_dtype="int8", lr=DIST_INT8_LR)
+        named = dict(whole.named_parameters())
+        one = opt.init({n: p.data for n, p in named.items()})
+        for g in seen:
+            opt.update_({n: g[n].to("cuda") for n in named}, one,
+                        {n: p.data for n, p in named.items()})
+        replay = max((named[n].data.cpu() - gathered[n]).abs().max().item()
+                     for n in named)
+        del whole, one, named
+    out["int8"] = {"losses": losses, "losses_ref": ref["losses"],
+                   "moment_excess": both[0, 0].item(),
+                   "q_differ": int(both[1, 1].item()),
+                   "q_entries": sum(q.numel() for q, _ in
+                                    ref["moments"].values()),
+                   "q_max_diff": int(both[0, 2].item()),
+                   "replay_param_err": replay, "step_s": step_s,
+                   "collectives": tally["per_op"],
+                   "collective_bytes": tally["collective_bytes"]
+                   / DIST_INT8_STEPS}
+    del gathered, seen
+    torch.cuda.empty_cache()
+    return out
 
 
 def _dist_decode_checks(ranks, swiglu, spread):
@@ -5727,13 +6218,16 @@ def _dist_decode_checks(ranks, swiglu, spread):
     dtype's gate of the one-rank run's (bf16: twice ``spread``, the
     one-rank bf16 run's distance from fp32, where that is larger), each
     rank's SwiGLU calls at ``DIST_DECODE_SWIGLU``'s shapes in bf16 (their
-    launches added to ``swiglu``), the routing flips within
+    launches added to ``swiglu``; at batch 1 every call one row, and
+    zamba2-7b's at its batch-1 shape), the routing flips within
     ``DIST_FLIP_FRACTION``."""
     out = {}
     for key, dec in ranks[0]["decodes"].items():
-        arch, dtype = key.split(" ")
+        arch, dtype = key.split(" ")[:2]
+        b1 = key.endswith(" b1")
+        ref = spread.get(arch + (" b1" if b1 else ""), {})
         tol = DIST_DECODE_TOL[dtype]
-        tols = {n: max(tol, 2 * spread[arch][n]) if dtype == "bfloat16"
+        tols = {n: max(tol, 2 * ref[n]) if dtype == "bfloat16"
                 else tol for n in ["logits", *dec["state_rel"]]}
         got = {"logits": dec["logits_rel"], **dec["state_rel"]}
         bad = {n: (v, tols[n]) for n, v in got.items() if not v <= tols[n]}
@@ -5742,18 +6236,27 @@ def _dist_decode_checks(ranks, swiglu, spread):
                  for rk in ranks]
         if dtype == "bfloat16":
             want = {case for p, case in DIST_DECODE_SWIGLU.items()
-                    if p.startswith(arch)}
+                    if p.startswith(arch) and ("batch-1" in p) == b1}
             for c in calls:
-                check(set(c) == want and len(c) ==
+                # at batch 1 a family without a row of its own: every
+                # call one row
+                shapes_ok = all(m == 1 for _, m, _, _ in c) \
+                    if b1 and not want else set(c) == want
+                check(shapes_ok and len(c) ==
                       DIST_DECODE_SWIGLU_CALLS[arch] * DIST_DECODE_STEPS,
                       "dist", f"(l) {key} decode: SwiGLU calls {c}")
                 for p, case in DIST_DECODE_SWIGLU.items():
-                    swiglu[p] += c.count(case) if p.startswith(arch) else 0
+                    if p.startswith(arch) and ("batch-1" in p) == b1:
+                        swiglu[p] += c.count(case)
         flips = [rk["decodes"][key]["routing_flips"] for rk in ranks]
         if dec["routing_calls"]:
-            tokens = dec["routing_calls"] * DIST_DECODE_BATCH \
-                // DIST_MESH[0]
-            check(max(flips) <= DIST_FLIP_FRACTION * tokens, "dist",
+            tokens = dec["routing_calls"] * (1 if b1 else DIST_DECODE_BATCH
+                                             // DIST_MESH[0])
+            # batch 1 routes 8 tokens a rank: one near-tie allowed (2.7-2.9%
+            # of a train step's tokens flip, so one of 8 does a fifth of
+            # the time)
+            check(max(flips) <= max(DIST_FLIP_FRACTION * tokens, b1),
+                  "dist",
                   f"(l) {key} decode: routing flips {flips} of {tokens}")
         out[key] = {**{k: v for k, v in dec.items() if k != "swiglu_calls"},
                     "tols": tols, "swiglu_variants": sorted(
@@ -5762,6 +6265,120 @@ def _dist_decode_checks(ranks, swiglu, spread):
                     "step_ms_by_rank": [rk["decodes"][key]["step_ms"]
                                         for rk in ranks]}
     return out
+
+
+def _dist_long_checks(ranks, swiglu, spread):
+    """The long decode: logits and written state within twice the
+    one-rank bf16 run's distance from fp32 (at least 2e-2), the rows
+    written by the ranks that hold them, every rank's SwiGLU calls at the
+    batch-1 shape (added to its row)."""
+    dec = ranks[0]["long"]
+    ref = spread[f"{DIST_LONG_ARCH} long"]
+    tols = {n: max(DIST_DECODE_TOL["bfloat16"], 2 * ref[n])
+            for n in ["logits", *dec["state_rel"]]}
+    got = {"logits": dec["logits_rel"], **dec["state_rel"]}
+    bad = {n: (v, tols[n]) for n, v in got.items() if not v <= tols[n]}
+    check(not bad, "dist", f"(l) long_500k decode: {bad}")
+    holders = [rk["rank"] for rk in ranks if rk["long"]["writes_rows"]]
+    check(len(holders) == DIST_MESH[1], "dist",
+          f"(l) long_500k decode: ranks {holders} hold the new rows")
+    path = "zamba2-7b batch-1 decode shared MLP"
+    for rk in ranks:
+        c = [tuple(x[:4]) for x in rk["long"]["swiglu_calls"]]
+        check(c == [DIST_DECODE_SWIGLU[path]] * DIST_DECODE_STEPS,
+              "dist", f"(l) long_500k decode: SwiGLU calls {c}")
+        swiglu[path] += len(c)
+    return {**{k: v for k, v in dec.items() if k != "swiglu_calls"},
+            "tols": tols, "one_rank_bf16_vs_fp32": ref,
+            "swiglu_variants": sorted({x[4] for x in dec["swiglu_calls"]}),
+            "step_ms_by_rank": [rk["long"]["step_ms"] for rk in ranks],
+            "peak_gb_by_rank": [rk["long"]["peak_gb"] for rk in ranks]}
+
+
+def _dist_extra_checks(ranks):
+    """llama3.2-3b at a batch of 1: loss and each gradient leaf within
+    1e-4 of one rank's, the prefill logits within 1e-4 normwise, the
+    flash and SwiGLU kernels launched; int8 AdamW: the losses within
+    1e-4, every moment within one quantisation step of one rank's own
+    (q entries differing by at most 1, counted), the parameters within
+    1e-5 of one rank's update of the mesh's gradients."""
+    b1, i8 = ranks[0]["extras"]["b1"], ranks[0]["extras"]["int8"]
+    worst = max(b1["leaf_rel"].values())
+    check(b1["loss_rel"] <= 1e-4 and worst <= 1e-4
+          and b1["prefill_rel"] <= 1e-4, "dist",
+          f"(l) batch 1: loss {b1['loss_rel']}, grads {worst}, prefill "
+          f"{b1['prefill_rel']}")
+    check(all(len(rk["extras"]["b1"]["flash_calls"]) >= 2
+              and len(rk["extras"]["b1"]["swiglu_calls"]) >= 2
+              for rk in ranks), "dist",
+          "(l) batch 1: the flash and SwiGLU kernels were not launched")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(i8["losses"], i8["losses_ref"]))
+    check(loss_rel <= 1e-4 and i8["moment_excess"] <= 0
+          and i8["q_max_diff"] <= 1 and i8["replay_param_err"] <= 1e-5,
+          "dist", f"(l) int8: losses {loss_rel}, moments beyond a step "
+          f"{i8['moment_excess']}, q {i8['q_max_diff']}, replay "
+          f"{i8['replay_param_err']}")
+    return {"b1": {**{k: v for k, v in b1.items()
+                      if k not in ("leaf_rel", "flash_calls",
+                                   "swiglu_calls")},
+                   "grad_rel": worst,
+                   "flash_launches": len(b1["flash_calls"]),
+                   "swiglu_launches": len(b1["swiglu_calls"])},
+            "int8": {**i8, "loss_rel": loss_rel}}
+
+
+def _dist_roofline(ranks):
+    """The roofline row of every (l) record, against one card's data
+    sheet (``launch/roofline.py``): its collective term (rank 0's
+    collective bytes a step over NVLink's rate) and, for the decodes and
+    the batch-1 train step, whose steps ran under the cost probe's
+    counters, the compute and memory terms at rank 0's counts (the
+    kernels, calls the counters do not see, left out) and the slowest of
+    the three.  The other train steps are not counted: the counters'
+    dispatch doubles the host-bound xlstm step, and the run keeps to its
+    time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hw
+    from repro_torch.launch.roofline import analyze, matmul_params
+
+    rk = ranks[0]
+    rows = []
+    chips = DIST_MESH[0] * DIST_MESH[1]
+
+    def row(name, arch, shape, rec, n_layers, steps=1, **over):
+        coll = rec["collective_bytes"] / steps
+        if "counted" not in rec:
+            rows.append({"record": name, "collective_bytes": coll,
+                         "t_collective_s": coll / hw.LINK_BYTES_PER_S,
+                         "t_compute_s": None, "t_memory_s": None})
+            return
+        cfg = dataclasses.replace(_dist_cfg(arch, n_layers=n_layers), **over)
+        r = analyze(arch, shape, rec["counted"]["flops"],
+                    rec["counted"]["bytes"], n_params=matmul_params(cfg),
+                    collective_bytes=coll, chips=chips)
+        rows.append({"record": name, **{k: r[k] for k in (
+            "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+            "collective_bytes", "roofline_fraction")}})
+
+    for key, run in rk["runs"].items():
+        arch = key.split(" ")[0]
+        seq, b, _ = _dist_shape(arch)
+        row(key, arch, ShapeConfig("train", seq, b, "train"), run,
+            DIST_DEPTH[arch])
+    for key, dec in rk["decodes"].items():
+        arch = key.split(" ")[0]
+        b = 1 if key.endswith(" b1") else DIST_DECODE_BATCH
+        row(key + " decode", arch, ShapeConfig("decode", DIST_DECODE_LEN, b,
+                                               "decode"),
+            dec, DIST_DEPTH[arch], DIST_DECODE_STEPS)
+    row("zamba2-7b long_500k decode", DIST_LONG_ARCH,
+        ShapeConfig("long_500k", DIST_LONG_LEN, 1, "decode"), rk["long"],
+        DIST_LONG_DEPTH, DIST_DECODE_STEPS,
+        shared_attn_every=DIST_LONG_DEPTH)
+    row("llama3.2-3b b1 train", DIST_B1_ARCH,
+        ShapeConfig("train", DIST_SEQ, 1, "train"), rk["extras"]["b1"], 1)
+    return rows
 
 
 def _fp32_distance(torch, grads, path):
@@ -5816,21 +6433,34 @@ def _dist_rank(rank, world, rdv, out_dir):
         from repro_torch.launch.mesh import make_mesh
 
         mesh = make_mesh(DIST_MESH, ("data", "model"), device="cpu")
-        runs, decodes = {}, {}
+        runs, decodes, walls = {}, {}, {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            gc.collect()
+            torch.cuda.empty_cache()
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
         for arch, dtypes in DIST_RUNS.items():
             seq, b, _ = _dist_shape(arch)
             shape = ShapeConfig("train_4k", seq, b, "train")
-            _dist_rank_runs(torch, arch, dtypes, mesh, shape, out_dir, runs)
-            gc.collect()
-            torch.cuda.empty_cache()
+            timed(f"train {arch}", _dist_rank_runs, torch, arch, dtypes,
+                  mesh, shape, out_dir, runs)
         for arch in DIST_DEPTH:
             for dtype in DIST_DECODE_DTYPES:
-                decodes[f"{arch} {dtype}"] = _dist_rank_decode(
-                    torch, arch, dtype, mesh, out_dir)
-                gc.collect()
-                torch.cuda.empty_cache()
+                shared = {}
+                for b, tag in ((DIST_DECODE_BATCH, ""), (1, " b1")):
+                    decodes[f"{arch} {dtype}{tag}"] = timed(
+                        f"decode {arch}", _dist_rank_decode, torch, arch,
+                        dtype, mesh, out_dir, b, shared)
+                del shared
+        long = timed("long", _dist_rank_long, torch, mesh, out_dir)
+        extras = timed("extras", _dist_rank_extras, torch, mesh, out_dir)
         Path(out_dir, f"dist_l_{rank}.json").write_text(json.dumps({
-            "rank": rank, "runs": runs, "decodes": decodes,
+            "rank": rank, "runs": runs, "decodes": decodes, "long": long,
+            "extras": extras, "walls": walls,
             "transport": "gloo, its collectives on CUDA tensors staged "
                          "through host copies (sharding.collectives)"}))
     finally:

@@ -29,11 +29,14 @@ needs the card's memory, so the CPU takes reduced configs
 (``launch.train --dry-run --test-mesh --device cpu``).
 
 :func:`run_mesh_cell` is the mesh's record: every rank of an initialised
-world runs one sharded step of the cell (``train/step.py`` with a mesh)
-and rank 0 writes ``<arch>__<shape>__<data>x<model>.json`` with the
-step's collectives per kind (``launch/comm_analysis.py``: the reference's
-``per_op``, ``collective_operand_bytes``, ``collective_result_bytes``,
-``collective_bytes``), its seconds and its loss
+world runs one sharded step of the cell (``train/step.py:build_step``:
+train with the reference's optimizer-state dtype, prefill, or decode,
+``long_500k`` included) and rank 0 writes
+``<arch>__<shape>__<data>x<model>.json`` with the rank's counted FLOPs
+and bytes, the step's collectives per kind (``launch/comm_analysis.py``:
+the reference's ``per_op``, ``collective_operand_bytes``,
+``collective_result_bytes``, ``collective_bytes``), its seconds, its loss
+and its roofline row with the collective term
 (``launch.train --distributed --dry-run``).
 """
 
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -168,62 +172,130 @@ def mesh_name(mesh) -> str:
     return "x".join(str(n) for n in mesh.shape.values())
 
 
+# the reference's optimizer-state dtype a cell trains with (int8 blocks for
+# the two largest models, fp32 elsewhere): repro/launch/dryrun.py
+OPT_STATE_DTYPE = {
+    "qwen3-moe-235b-a22b": "int8",
+    "granite-34b": "int8",
+}
+
+
 def run_mesh_cell(arch: str, shape_name: str, mesh, out_dir: Path = RESULTS,
                   *, cfg: Optional[ModelConfig] = None,
                   shape: Optional[ShapeConfig] = None,
                   microbatches: int = 1, device: DeviceLike = None,
                   seed: int = 0) -> Dict:
     """One sharded step of the cell on ``mesh`` (every rank calls this,
-    with the same arguments): random parameters from ``seed``, a batch of
-    random tokens (and, for the vision LM, image embeddings) from it;
-    rank 0 writes the record and every rank returns it."""
+    with the same arguments), built by ``train/step.py:build_step`` for
+    the shape's kind: a train step with AdamW moments of the reference's
+    dtype for the arch (:data:`OPT_STATE_DTYPE`), a prefill step,
+    or a decode step of one token per sequence against a full cache.
+    Random parameters from ``seed``, a batch of random tokens (and, for
+    a multimodal family, its frontend's embeddings) from it.  The step
+    runs under the cost probe's counters (``probe.counting``): the
+    record holds this rank's FLOPs and bytes, its collectives, its
+    seconds and its loss (train), so the roofline has all three terms
+    (``roofline.analyze_cell``; the kernels' terms as
+    :func:`mesh_probe` adds them).  Rank 0 writes the record and every
+    rank returns it."""
     import torch.distributed as dist
 
     from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.probe import counting
+    from repro_torch.launch.roofline import analyze_cell, matmul_params
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.sharding import collectives as C
-    from repro_torch.train.step import make_prefill_step, make_train_step
+    from repro_torch.train.step import build_step
     cfg = cfg or ARCHS[arch]
     shape = shape or SHAPES[shape_name]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(f"{arch} x {shape_name}: {why}")
     dev = resolve_device(device)
     model = build_model(cfg)
+    train, decode = shape.kind == "train", shape.kind == "decode"
+    state_dtype = OPT_STATE_DTYPE.get(arch, "float32")
     gen = torch.Generator(dev).manual_seed(seed)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch,
-                                                    shape.seq_len),
-                                     generator=gen, device=dev)}
-    if cfg.family == "vlm":
+    tokens = (shape.global_batch,) if decode \
+        else (shape.global_batch, shape.seq_len)
+    batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen,
+                                     device=dev)}
+    if cfg.family == "vlm" and not decode:
         batch["image_embeds"] = torch.randn(
             shape.global_batch, cfg.image_tokens, cfg.d_model,
             generator=gen, device=dev)
-    train = shape.kind == "train"
-    if train:
-        batch["targets"] = batch["tokens"].roll(-1, dims=1)
-        bundle = make_train_step(model, make_optimizer("adamw"), shape,
-                                 mesh=mesh, microbatches=microbatches)
-    else:
-        bundle = make_prefill_step(model, mesh=mesh)
+    if cfg.family == "audio" and not decode:
+        batch["enc_frames"] = torch.randn(
+            shape.global_batch, cfg.encoder_seq, cfg.d_model,
+            generator=gen, device=dev)
+    opt = make_optimizer("adamw", state_dtype=state_dtype) if train \
+        else None
+    bundle = build_step(model, opt, mesh, shape, microbatches=microbatches)
     params = bundle.shard_params(model.init(seed, device=dev,
                                             trainable=train))
-    args = (params, bundle.init_state(params), batch) if train \
-        else (params, batch)
+    if train:
+        batch["targets"] = batch["tokens"].roll(-1, dims=1)
+        args = (params, bundle.init_state(params), batch)
+    elif decode:
+        batch["cache_len"] = torch.full((shape.global_batch,),
+                                        shape.seq_len - 1, device=dev)
+        args = (params, bundle.init_state(dev), batch)
+    else:
+        args = (params, batch)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     C.reset_tally()
     t0 = time.perf_counter()
-    out = bundle(*args)
-    loss = float(out[2]["loss"]) if train else None
+    with counting() as (fc, bc):
+        out = bundle(*args)
+        loss = float(out[2]["loss"]) if train else None
     seconds = time.perf_counter() - t0
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh),
-           "kind": shape.kind, "seq_len": shape.seq_len,
+           "chips": math.prod(mesh.shape.values()), "kind": shape.kind,
+           "seq_len": shape.seq_len,
            "global_batch": shape.global_batch,
            "microbatches": microbatches, "status": "ok",
+           "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+           "state_dtype": state_dtype if train else None,
+           "matmul_param_count": matmul_params(cfg),
+           "probe": mesh_probe(cfg, shape, mesh, fc, bc, on_card),
            "collectives": analyze_collectives(), "step_s": seconds,
+           "measured_peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                   if on_card else None),
            "loss": loss}
+    rec["roofline"] = analyze_cell(rec)
     if dist.get_rank() == 0:
         out_path = Path(out_dir) / \
             f"{arch}__{shape_name}__{mesh_name(mesh)}.json"
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps(rec, indent=2))
     return rec
+
+
+def mesh_probe(cfg: ModelConfig, shape: ShapeConfig, mesh, fc, bc,
+               on_card: bool) -> Dict:
+    """A rank's FLOPs and bytes of a sharded step from the cost probe's
+    counters (``fc``, ``bc``: ``probe.counting``) around it.  On the card
+    the hand-written kernels are calls the counters do not see: their
+    analytic terms (``costs.kernel_true``) are added, split evenly over
+    the ranks that split the model and the batch (``kernel_share``, an
+    estimate); on the CPU their plain twins were counted as they ran."""
+    from repro_torch.launch import costs
+    from repro_torch.sharding.api import activation_rules
+    share = {"flops": 0.0, "bytes": 0.0}
+    if on_card:
+        split = mesh.shape.get("model", 1)
+        for a in activation_rules(cfg, shape, mesh)["batch"] or ():
+            split *= mesh.shape.get(a, 1)
+        kt = costs.kernel_true(cfg, shape,
+                               costs.skipped_kernels(cfg, shape.kind))
+        share = {k: kt[k] / split for k in share}
+    return {"flops": float(fc.get_total_flops()) + share["flops"],
+            "bytes": float(bc.bytes) + share["bytes"],
+            "kernel_share": share}
 
 
 def main(argv=None) -> int:

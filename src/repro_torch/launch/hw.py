@@ -26,16 +26,20 @@ class CardPeaks:
     """Published dense peaks of one card (no sparsity) at its full power
     limit.  ``flops`` by operand type: bfloat16 on the tensor cores,
     tfloat32 on the tensor cores (the rate of each pass of a 3xTF32
-    product), float32 on the CUDA cores."""
+    product), float32 on the CUDA cores.  ``link_bytes_per_s`` is the
+    rate of the card's links to its peers in one direction: the
+    denominator of a mesh's collective term."""
     flops: Dict[str, float]
     hbm_bytes_per_s: float
     hbm_bytes: float
+    link_bytes_per_s: float
 
 
-# NVIDIA H100 SXM data sheet, at 700 W
+# NVIDIA H100 SXM5 data sheet, at 700 W; NVLink 4: 18 links, 900 GB/s
+# in both directions together, so 450 GB/s a direction
 H100_SXM = CardPeaks(
     flops={"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12},
-    hbm_bytes_per_s=3.35e12, hbm_bytes=80e9)
+    hbm_bytes_per_s=3.35e12, hbm_bytes=80e9, link_bytes_per_s=450e9)
 
 PEAKS: Dict[str, CardPeaks] = {"NVIDIA H100 80GB HBM3": H100_SXM}
 
@@ -43,6 +47,7 @@ PEAKS: Dict[str, CardPeaks] = {"NVIDIA H100 80GB HBM3": H100_SXM}
 PEAK_FLOPS = H100_SXM.flops
 HBM_BYTES_PER_S = H100_SXM.hbm_bytes_per_s
 HBM_BYTES = H100_SXM.hbm_bytes
+LINK_BYTES_PER_S = H100_SXM.link_bytes_per_s
 
 
 def peaks(name: Optional[str] = None) -> CardPeaks:

@@ -49,10 +49,19 @@ class Mesh:
         return {a: self.device_mesh.get_local_rank(a)
                 for a in self.axis_names}
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
+    def group(self, axis):
+        """The process group of this rank's line along ``axis``; for a
+        tuple of axes that holds every axis of more than one rank, the
+        world's (the mesh covers it: :func:`make_mesh`)."""
         if self.device_mesh is None:
             raise RuntimeError("an abstract mesh has no process groups")
+        if isinstance(axis, tuple):
+            wide = {a for a, n in self.shape.items() if n > 1}
+            if not wide <= set(axis):
+                raise ValueError(f"no process group over {axis} of {self}:"
+                                 " a group of several axes spans the mesh")
+            import torch.distributed as dist
+            return dist.group.WORLD
         return self.device_mesh.get_group(axis)
 
     def __repr__(self) -> str:

@@ -8,7 +8,8 @@
         --arch llama3.2-3b --distributed --test-mesh
 
 Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
-``model.loss_fn`` with AdamW (the reference's defaults, fp32 state) on
+``model.loss_fn`` with AdamW (the reference's defaults, fp32 state, or
+int8-block moments with ``--optimizer adamw_int8``) on
 ``synthetic_lm_producer``, each block checkpointed as the reference's
 ``jax.checkpoint`` calls do (a transformer block under the memory plan's
 policy; a mamba, mLSTM or sLSTM block with nothing saved).  Every ported
@@ -40,9 +41,11 @@ a ``file://`` path for instance) and trains on ``make_test_mesh(model=2)``
 over it, the counterpart of the reference's mesh over however many
 devices there are: NCCL with one card per ``LOCAL_RANK``, gloo only with
 ``--device cpu``.  Every family trains there (``train/step.py``; the
-multimodal families with ``--stub-frontend``, as on one card); with
-``--dry-run`` it
-writes the mesh cell's record of one sharded step and its collectives
+multimodal families with ``--stub-frontend``, as on one card), a batch
+that does not split over the mesh (``--batch 1``: every rank takes every
+row) and int8 moments (``--optimizer adamw_int8``) included; with
+``--dry-run`` it writes the mesh cell's record of one sharded step, its
+counted FLOPs and bytes, its collectives and its roofline row
 (``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
 second pod is a second host.
 """
@@ -54,6 +57,9 @@ import dataclasses
 import json
 from typing import Dict, Optional, Sequence
 
+
+# the AdamW moments' dtype of each --optimizer
+STATE_DTYPE = {"adamw": "float32", "adamw_int8": "int8"}
 
 # the batch key each multimodal family needs beside tokens and targets
 _FRONTEND_INPUTS = {"audio": "enc_frames (B, encoder_seq, d_model)",
@@ -70,6 +76,11 @@ def parser() -> argparse.ArgumentParser:
                          "256 sequences of 4096 tokens do not fit one card "
                          "with an fp32 AdamW state: use 2)")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=sorted(STATE_DTYPE),
+                    help="AdamW's moments: fp32 (adamw) or int8 blocks "
+                         "(a --dry-run cell takes the reference's choice "
+                         "for its arch)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--heartbeat-dir", default=None)
     ap.add_argument("--device", default=None,
@@ -192,7 +203,8 @@ def _run(args, *, rank: int = 0, world: int = 1, device=None) -> Dict:
             device=device)
         if rank == 0:
             print(json.dumps({k: rec[k] for k in ("arch", "shape", "mesh",
-                                                  "collectives")}))
+                                                  "collectives",
+                                                  "roofline")}))
         return rec
     if args.dry_run:
         from repro_torch.launch import dryrun
@@ -224,7 +236,8 @@ def _run(args, *, rank: int = 0, world: int = 1, device=None) -> Dict:
                          ckpt_dir=args.ckpt_dir,
                          heartbeat_dir=args.heartbeat_dir, host_id=rank,
                          n_hosts=world)
-    trainer = Trainer(build_model(cfg), make_optimizer("adamw"), shape, tcfg,
+    opt = make_optimizer("adamw", state_dtype=STATE_DTYPE[args.optimizer])
+    trainer = Trainer(build_model(cfg), opt, shape, tcfg,
                       producer=producer, microbatches=args.microbatches,
                       device=device, mesh=mesh)
     out = trainer.run()

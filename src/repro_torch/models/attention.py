@@ -344,11 +344,14 @@ def decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
     heads, the rank projects, writes and attends its heads' groups
     (:func:`decode_heads`) and ``wo``'s row block gives a partial output
     summed over ``model``.  Where the rules put the cache's positions
-    over ``model`` instead (kv heads that do not divide it), every rank
-    computes all heads, only the rank whose block holds position
-    ``cache_len[b]`` writes sequence b's new row, and each attends over
-    its block of positions: the blocks' softmax statistics are combined
-    by an all-reduce of the row maxima and one of the (numerator,
+    over mesh axes (``kv_seq``: ``model`` for kv heads that do not divide
+    it, and then every rank computes all heads; ``data`` for a batch that
+    does not split; or both), the rank's block of positions starts at
+    its index over those axes times the block's length, only the rank
+    whose block holds position ``cache_len[b]`` writes sequence b's new
+    row, and each attends its heads over its block of positions: the
+    blocks' softmax statistics are combined over those axes (and only
+    those) by an all-reduce of the row maxima and one of the (numerator,
     denominator) sums, the flash-decode combine."""
     dt = layers.dtype_of(cfg.dtype)
     b = x.shape[0]
@@ -365,15 +368,16 @@ def decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
     q = layers.apply_rope(q, pos, cfg.rope_theta)
     k = layers.apply_rope(k, pos, cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
-    if _positions_split():
-        s0 = cache_k.shape[1] * R.current_mesh().coords()["model"]
+    seq_axes = _position_axes()
+    if seq_axes:
+        s0 = cache_k.shape[1] * _block_index(seq_axes)
         local = cache_len - s0
         mine = (local >= 0) & (local < cache_k.shape[1])
         cache_k[rows[mine], local[mine]] = k[mine, 0].to(cache_k.dtype)
         cache_v[rows[mine], local[mine]] = v[mine, 0].to(cache_v.dtype)
         o = _combined_attention(q, _repeat_kv(cache_k, h // kv),
                                 _repeat_kv(cache_v, h // kv), s0,
-                                cache_len + 1)
+                                cache_len + 1, seq_axes)
     else:
         cache_k[rows, cache_len] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, cache_len] = v[:, 0].to(cache_v.dtype)
@@ -398,31 +402,52 @@ def decode_heads(cfg: ModelConfig, kv_local: int):
     return k0 * groups, kv_local * groups, k0, kv_local
 
 
-def _positions_split() -> bool:
-    """Whether the active rules put the KV cache's positions over a
-    ``model`` axis of more than one rank."""
+def _position_axes() -> Tuple[str, ...]:
+    """The mesh axes of more than one rank the active rules put the KV
+    cache's positions over (``kv_seq``, in rule order): ``model`` where
+    the kv heads do not divide it, ``data`` where the batch does not
+    split (batch-1 long context), or both; () without a mesh."""
     mesh = R.current_mesh()
-    return mesh is not None and mesh.shape.get("model", 1) > 1 \
-        and "model" in (R.current_rules().get("kv_seq") or ())
+    if mesh is None:
+        return ()
+    return tuple(a for a in R.current_rules().get("kv_seq") or ()
+                 if mesh.shape.get(a, 1) > 1)
+
+
+def _block_index(axes: Tuple[str, ...]) -> int:
+    """This rank's block of a dim cut over ``axes`` row-major (the first
+    axis slowest), as a placement over them cuts it."""
+    mesh = R.current_mesh()
+    coords = mesh.coords()
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
 
 
 def _combined_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        s0: int, kv_len: torch.Tensor) -> torch.Tensor:
+                        s0: int, kv_len: torch.Tensor,
+                        axes: Tuple[str, ...]) -> torch.Tensor:
     """One query row against this rank's block of cache positions (global
-    index ``s0`` on), the blocks of every ``model`` rank combined: the
-    global row maximum (an all-reduce), then the sums of exp(score - max)
-    x v and of exp(score - max) over the blocks (one all-reduce), in fp32.
+    index ``s0`` on), the blocks of every rank along ``axes`` combined as
+    :func:`naive_attention` computes the whole row: the global row maximum
+    and the sum of exp(score - max) (an all-reduce each, over all of
+    ``axes`` at once where they span the mesh), the probabilities rounded
+    to q's dtype as its softmax's are, then each block's probabilities x
+    v summed over the blocks in fp32 (one more all-reduce) and rounded
+    once.  A block that holds no
+    position below ``kv_len`` adds zeros.
     q: (B, 1, H, hd); k, v: (B, S_block, H, hd) -> (B, 1, H, hd)."""
-    b, _, h, hd = q.shape
+    hd = q.shape[-1]
     sk = k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
         * (1.0 / math.sqrt(hd))
     keep = (s0 + torch.arange(sk, device=q.device))[None, None, None, :] \
         < kv_len[:, None, None, None]
     scores = scores.masked_fill(~keep, NEG_INF)
-    top = C.all_reduce(scores.amax(dim=-1, keepdim=True), "model", op="max")
+    top = C.all_reduce(scores.amax(dim=-1, keepdim=True), axes, op="max")
     p = torch.exp(scores - top)
-    num = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    den = p.sum(dim=-1).permute(0, 2, 1)[..., None]        # (B, 1, H, 1)
-    both = C.all_reduce(torch.cat([num, den], dim=-1), "model")
-    return (both[..., :hd] / both[..., hd:]).to(q.dtype)
+    den = C.all_reduce(p.sum(dim=-1, keepdim=True), axes)
+    probs = (p / den).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return C.all_reduce(out, axes).to(q.dtype)

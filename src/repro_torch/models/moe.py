@@ -155,11 +155,13 @@ def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
     dt = layers.dtype_of(cfg.dtype)
     e0, el = expert_block(cfg, params)
     split = el < cfg.n_experts
-    if R.current_mesh() is not None and not R.current_rules().get("batch"):
+    mesh = R.current_mesh()
+    if mesh is not None and any(mesh.shape.get(a, 1) > 1 for a in
+                                R.current_rules().get("seq") or ()):
         raise NotImplementedError(
             "MoE dispatch groups are whole sequences (or MAX_GROUP tokens of "
-            "one): a rank's rows of a sequence split over the mesh do not "
-            "form them (sequence parallelism, ROADMAP item 11.5)")
+            "one): a rank's block of a sequence split over the mesh does "
+            "not form them (the reference's rules never split one)")
     if split:
         x = C.copy_to(x)
     b0, s0, d = x.shape

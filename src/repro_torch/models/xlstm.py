@@ -312,17 +312,23 @@ def mlstm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
     Returns (y, C, n, m), the state as new tensors.
 
     Under a mesh ``C_`` is this rank's block of the value dim (B, H, P,
-    P / ranks): q, k and v are summed over ``model`` from the row blocks'
-    partial products, the rank updates its value columns of C (``n`` and
-    ``m`` whole, the same on every rank), forms its columns of y and
-    all-gathers them."""
+    P / ranks) over ``model``: q, k and v are summed over ``model`` from
+    the row blocks' partial products, the rank updates its value columns
+    of C, forms its columns of y and all-gathers them.  Where the rules
+    put the key dim over ``data`` too (``sp_seq``: a batch that does not
+    split), ``C_`` holds key rows ``[k0, k0 + pk)`` and ``n`` the same
+    block of its entries: the rank updates them with its slice of k, and
+    its partial ``q . C`` and ``q . n`` are summed over ``data`` (one
+    all-reduce) before the normaliser's ``abs`` and ``max``.  ``m`` is
+    whole, the same on every rank."""
     dt = layers.dtype_of(cfg.dtype)
     b = x.shape[0]
     di, h, p = _widths(cfg)
     h0, hl = rank_heads(cfg)
     if hl < h:
         _check_split(cfg, params)
-    pl = C_.shape[-1]                       # this rank's value columns
+    pk, pl = C_.shape[-2:]                  # this rank's key rows, columns
+    k0 = C.block_start_of(pk, p, "data")
     r0 = C.block_start_of(pl, p, "model")
     xl = layers.dense(C.fetch(params["up_l"]), x, dt)[:, 0]
     xr = layers.dense(C.fetch(params["up_r"]), x, dt)[:, 0]
@@ -341,16 +347,20 @@ def mlstm_decode_step(cfg: ModelConfig, params, x: torch.Tensor,
     m_new = torch.maximum(lf + m, li)
     alpha = torch.exp(lf + m - m_new)
     beta = torch.exp(li - m_new)
-    kf, vf = k.float(), v.float()
+    kf, vf, qf = k.float(), v.float(), q.float()
     if pl < p:
         vf = vf[..., r0:r0 + pl]
+    if pk < p:
+        kf, qf = kf[..., k0:k0 + pk], qf[..., k0:k0 + pk]
     C_new = C_ * alpha[..., None, None] + beta[..., None, None] \
         * torch.einsum("bhp,bhr->bhpr", kf, vf)
     n_new = n * alpha[..., None] + beta[..., None] * kf
-    qf = q.float()
     num = torch.einsum("bhp,bhpr->bhr", qf, C_new)
-    den = torch.maximum(torch.einsum("bhp,bhp->bh", qf, n_new).abs(),
-                        torch.exp(-m_new))
+    qn = torch.einsum("bhp,bhp->bh", qf, n_new)
+    if pk < p:
+        both = C.all_reduce(torch.cat([num, qn[..., None]], dim=-1), "data")
+        num, qn = both[..., :pl], both[..., pl]
+    den = torch.maximum(qn.abs(), torch.exp(-m_new))
     y = num / den[..., None]
     if pl < p:
         y = C.all_gather(y, "model", 2)

@@ -108,13 +108,23 @@ def _sum_dtype(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
 
 
-def all_reduce(t: torch.Tensor, axis: str, *, op: str = "sum",
+def all_reduce(t: torch.Tensor, axis, *, op: str = "sum",
                mesh=None) -> torch.Tensor:
     """The sum (or ``op="max"``) of ``t`` over ``axis``, a new tensor in
-    t's dtype."""
+    t's dtype.  ``axis`` may be a tuple of axes: one collective over all
+    of them where they span the mesh (every axis of more than one rank),
+    else one over each."""
     import torch.distributed as dist
     mesh = _mesh(mesh)
-    if mesh.shape[axis] == 1:
+    if isinstance(axis, tuple):
+        axes = tuple(a for a in axis if mesh.shape[a] > 1)
+        if len(axes) > 1 and not {a for a, n in mesh.shape.items()
+                                  if n > 1} <= set(axes):
+            for a in axes:
+                t = all_reduce(t, a, op=op, mesh=mesh)
+            return t
+        axis = axes if len(axes) > 1 else (axes[0] if axes else None)
+    if axis is None or (isinstance(axis, str) and mesh.shape[axis] == 1):
         return t
     group = mesh.group(axis)
     src = _sum_dtype(t)
@@ -362,17 +372,23 @@ def fetch(p: torch.Tensor, dim: Optional[int] = None, start: int = 0,
     does not shard) and, for every dim the storage shards over a batch
     axis (FSDP), the whole of it, gathered.  Dims sharded over ``model``
     stay local: that is the tensor-parallel layout the compute reads.
-    Without a mesh, or for a parameter the mesh does not shard, the
-    parameter (or its block) itself."""
+    The gather's backward reduce-scatters the gradient over an axis the
+    active rules split the batch over; over one they do not (a batch
+    that does not split: every rank along it runs the same compute and
+    holds the whole gradient) it keeps the rank's block of it
+    (:func:`gather_whole`), so the batch is counted once.  Without a
+    mesh, or for a parameter the mesh does not shard, the parameter (or
+    its block) itself."""
     whole = dim is None or (start == 0 and length in (None, p.shape[dim]))
     t = p if whole else p.narrow(dim, start, length)
     sh = getattr(p, "_sharding", None)
     if R.current_mesh() is None or sh is None:
         return t
+    batch = R.current_rules().get("batch") or ()
     for d in range(t.dim()):
         for axis in reversed(sh.dim_axes(d)):
             if axis != "model":
-                t = gather(t, axis, d)
+                t = (gather if axis in batch else gather_whole)(t, axis, d)
     return t
 
 

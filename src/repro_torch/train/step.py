@@ -12,7 +12,12 @@ model)``, every placement from the reference's rule tables
   (``param_shardings``: vocabulary and mlp columns over ``model``; under
   FSDP the ``embed`` dim over ``data``), each AdamW moment as its block
   under :func:`opt_state_spec_tree` (``embed`` over ``data`` always:
-  ZeRO-1), and the batch over (pod, data);
+  ZeRO-1; int8 moments as blocks of the flat parameter over (data,
+  model), :func:`_int8_leaf_`), and the batch over (pod, data), or
+  whole on every rank where it does not split (the reference's rules
+  then replicate the activations over ``data``, and an FSDP gather's
+  backward keeps the rank's block of the gradient every rank holds
+  whole: ``collectives.fetch``);
 * the forward computes heads, mamba heads, mLSTM heads, experts, mlp
   columns and the vocabulary over ``model`` and gathers FSDP shards at
   use (``models/attention.py``, ``ssm.py``, ``xlstm.py``, ``moe.py``,
@@ -114,7 +119,8 @@ def opt_state_spec_tree(opt_state, param_spec_tree):
 
 
 def _batch_local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """This rank's rows of every input (the active rules' ``batch``)."""
+    """This rank's rows of every input (the active rules' ``batch``; every
+    row where the rules give it None)."""
     return {k: R.constrain(v, "batch", *([None] * (v.dim() - 1)))
             if v.dim() else v for k, v in batch.items()}
 
@@ -144,7 +150,9 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
 
     On a ``mesh``, ``params`` holds this rank's blocks
     (``bundle.shard_params``), ``batch`` the global batch (every rank the
-    same; each takes its rows), and the metrics are the global ones.
+    same; each takes its rows, or all of them where the batch does not
+    split over (pod, data): the reference's rules then replicate the
+    activations over ``data``), and the metrics are the global ones.
     Without one every block is the whole tensor and no collective is
     made: the step is the one-device step.
     """
@@ -152,14 +160,21 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         * shape.seq_len
     bundle = StepBundle(fn=None, memory_plan=transformer.memory_plan(
         model.cfg, micro_tokens))
-    act, p_shard, batch_axes, axes = None, None, (), ()
+    act, p_shard, q_shard, batch_axes, axes = None, None, None, (), ()
     zero = collections.defaultdict(list)       # (dim, axis) ZeRO-1 cuts
     rep = collections.defaultdict(lambda: 1)   # ranks holding each block
     partial = frozenset()                      # summed over model
+    flat = False
     if mesh is not None:
         act, p_shard, zero, rep, partial = _mesh_layout(
             model, optimizer, shape, mesh, microbatches, bundle)
-        batch_axes, axes = act["batch"], mesh.axis_names
+        batch_axes, axes = tuple(act["batch"] or ()), mesh.axis_names
+        # moments that are blocks of the flat parameter (int8) line up
+        # with no block of it: each leaf is updated by _int8_leaf_
+        flat = optimizer.adamw.flat
+        if flat:
+            q_shard = {n: mv["m"]
+                       for n, mv in bundle.in_shardings[1]["mu"].items()}
 
     def blocks(named):
         """The block of each parameter its moments cover (a view)."""
@@ -183,6 +198,13 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
             dims = [d for d, a in zero[n] if a == axis]
             g = C.reduce_scatter(g, axis, dims[0]) if dims \
                 else C.all_reduce(g, axis)
+        for d, axis in zero[n]:
+            if axis not in batch_axes:
+                # a batch the axis does not split: every rank along it
+                # holds the whole gradient, and keeps its block
+                size = g.shape[d] // mesh.shape[axis]
+                g = g.narrow(d, mesh.coords()[axis] * size,
+                             size).contiguous()
         return g
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
@@ -220,7 +242,15 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
             for axis in axes:
                 sq = C.all_reduce(sq, axis)
             gnorm = torch.sqrt(sq)
-            optimizer.update_(grads, opt_state, blocks(named))
+            if flat:
+                corrections = optimizer.adamw.begin(opt_state)
+                for n, p in named.items():
+                    p.grad = None
+                    g = C.gather_global(grads.pop(n), p_shard[n])
+                    _int8_leaf_(optimizer.adamw, g, opt_state["mu"][n], p,
+                                p_shard[n], q_shard[n], corrections)
+            else:
+                optimizer.update_(grads, opt_state, blocks(named))
             with torch.no_grad():
                 for n, p in named.items():
                     for d, axis in zero[n]:
@@ -228,52 +258,112 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     bundle.fn = train_step
-    bundle.init_state = lambda params: optimizer.init(
-        blocks(dict(params.named_parameters())))
+    if flat:
+        # this rank's blocks only, allocated at their shapes
+        bundle.init_state = lambda params: optimizer.adamw.init_at(
+            _shard_shapes(bundle.in_shardings[1]["mu"],
+                          _moment_shapes(optimizer, model.param_shapes())
+                          ["mu"]),
+            next(params.parameters()).device)
+    else:
+        bundle.init_state = lambda params: optimizer.init(
+            blocks(dict(params.named_parameters())))
     return bundle
+
+
+def _int8_leaf_(adamw, g_whole: torch.Tensor, mv, p: torch.Tensor,
+                p_shard: NamedSharding, q_shard: Dict[str, NamedSharding],
+                corrections) -> None:
+    """One parameter's int8 AdamW step on a mesh, as the reference places
+    it: this rank's moments ``mv`` are the blocks ``q_shard`` (the ``q``
+    and ``scale`` placements) gives it of the quantised flat global
+    tensor, dim 0 the blocks: a contiguous range of the row-major
+    elements that does not line up with the rank's block of the
+    parameter.  ``g_whole`` is the summed gradient, whole (the rank's
+    block gathered over the axes that split it).  The rank gathers the
+    moments' blocks whole, as they are before the step, updates them
+    whole (the optimizer's parts, element by element), updates its block
+    of the parameter from them and stores its own run of blocks.  Where
+    the block count does not split over the mesh the moments are whole on
+    every rank and so is the run.  A leaf of N fp32 elements brings into
+    each rank 4 N (1 - 1 / parts) bytes of gradient and about 2 N (1 - 1
+    / blocks' parts) bytes of the moments' blocks; every rank dequantises
+    and updates the whole leaf's moments."""
+    old = {k: {part: C.gather_global(t, q_shard[part])
+               for part, t in mv[k].items()} for k in ("m", "v")}
+    m, v = adamw.moments(g_whole, old, g_whole.shape)
+    del old
+    adamw.param(p.data, p_shard.shard(m), p_shard.shard(v), corrections)
+    rows = next(iter(mv["m"].values())).shape[0]
+    r0 = next(iter(q_shard.values())).block(0) * rows
+    adamw.store(mv, m, v, rows=(r0, r0 + rows))
+
+
+def _shard_shapes(shardings, shapes):
+    """The tree of this rank's block shapes of ``shapes``' leaves (tuples)
+    under ``shardings``' placements (the same tree)."""
+    if isinstance(shapes, dict):
+        return {k: _shard_shapes(shardings[k], v) for k, v in shapes.items()}
+    return shardings.shard_shape(shapes)
+
+
+def _moment_shapes(optimizer: Optimizer, shapes):
+    """The AdamW state's tree of leaf shapes: each moment's by the
+    optimizer's layout (``AdamWParts.moment_shape``)."""
+    one = optimizer.adamw.moment_shape
+    return {"mu": {n: {"m": one(s), "v": one(s)} for n, s in shapes.items()},
+            "count": ()}
 
 
 def _mesh_layout(model: Model, optimizer: Optimizer, shape: ShapeConfig,
                  mesh, microbatches: int, bundle: StepBundle):
     """The train step's placements on ``mesh``, recorded on ``bundle``:
     returns the activation rules, the parameters' placements, each
-    parameter's ZeRO-1 cuts, how many ranks hold each moment block and
-    the parameters whose gradients are partial over ``model``."""
+    parameter's ZeRO-1 cuts, how many ranks hold each gradient block the
+    optimizer is given and the parameters whose gradients are partial
+    over ``model``."""
     cfg = model.cfg
     _check_mesh_model(cfg, mesh)
-    if not optimizer.name.startswith("adamw") or \
-            optimizer.name == "adamw_int8":
+    if optimizer.adamw is None:
         raise NotImplementedError(
-            f"{optimizer.name} on a mesh: the sharded step updates fp32 or "
-            "bf16 AdamW moments (int8 blocks over (data, model) are not "
-            "ported: ROADMAP item 11.6)")
+            f"{optimizer.name} on a mesh: the sharded step updates AdamW "
+            "moments (fp32, bf16 or int8)")
     act = api.activation_rules(cfg, shape, mesh)
     act["qblocks"] = ("data", "model")
     batch_axes = act["batch"]
-    if batch_axes is None or shape.global_batch % microbatches or \
-            (shape.global_batch // microbatches) % math.prod(
-                mesh.shape[a] for a in batch_axes):
+    if shape.global_batch % microbatches or (
+            batch_axes is not None and (shape.global_batch // microbatches)
+            % math.prod(mesh.shape[a] for a in batch_axes)):
         raise NotImplementedError(
             f"a batch of {shape.global_batch} in {microbatches} "
-            f"micro-batches does not split over {batch_axes}: sequence "
-            "parallelism is not ported (ROADMAP item 11.5)")
+            f"micro-batches does not split over {batch_axes}: each "
+            "micro-batch takes the global batch's placement, so it must "
+            "split as the global batch does")
     specs, shapes = model.param_specs(), model.param_shapes()
     p_shard = api.param_shardings(mesh, cfg, specs, shapes)
-    abstract = {"mu": {n: {"m": tuple(s), "v": tuple(s)}
-                       for n, s in shapes.items()}, "count": ()}
+    abstract = _moment_shapes(optimizer, shapes)
     o_shard = api.tree_shardings(
         mesh, opt_state_spec_tree(abstract, specs),
         {**act, "embed": ("data",), "qblocks": ("data", "model")}, abstract)
-    m_shard = {n: o_shard["mu"][n]["m"] for n in shapes}
     replicated = NamedSharding(mesh, ())
-    b_shard = NamedSharding(mesh, (tuple(batch_axes) if len(batch_axes) > 1
-                                   else batch_axes[0],))
+    if batch_axes is None:
+        b_shard = replicated
+    else:
+        b_shard = NamedSharding(mesh, (tuple(batch_axes)
+                                       if len(batch_axes) > 1
+                                       else batch_axes[0],))
     bundle.in_shardings = (p_shard, o_shard, b_shard)
     bundle.out_shardings = (p_shard, o_shard, {"loss": replicated,
                                                "grad_norm": replicated})
     bundle.act_rules, bundle.mesh = act, mesh
     with R.use_mesh(mesh, act):
         partial = api.partial_over_model(cfg, model.specs(), p_shard)
+    if optimizer.adamw.flat:
+        # the flat moment blocks cut no parameter: the optimizer is given
+        # each parameter's gradient at its own block
+        return (act, p_shard, {n: [] for n in shapes},
+                {n: p_shard[n].replication() for n in shapes}, partial)
+    m_shard = {n: o_shard["mu"][n]["m"] for n in shapes}
     return (act, p_shard,
             {n: _zero_dims(n, p_shard[n], m_shard[n]) for n in shapes},
             {n: m_shard[n].replication() for n in shapes}, partial)
@@ -297,7 +387,8 @@ def _zero_dims(name: str, param: NamedSharding, moment: NamedSharding):
     return out
 
 
-def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
+def make_prefill_step(model: Model, *, mesh=None,
+                      shape: Optional[ShapeConfig] = None) -> StepBundle:
     """(params, batch) -> logits (B, S, padded_vocab): ``model.forward``
     without autograd.  ``batch`` holds ``tokens`` (B, S) and, for the
     multimodal families, ``enc_frames`` (audio) or ``image_embeds`` (vlm),
@@ -305,9 +396,11 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
 
     On a ``mesh``: ``params`` holds this rank's blocks
     (``bundle.shard_params``) and ``batch`` the global batch; the result
-    is this rank's block of the logits, its rows of the batch and, where
-    the vocabulary is split over ``model``, its block of the columns (the
-    reference's out placement)."""
+    is this rank's block of the logits, its rows of the batch (every row
+    where the batch does not split over (pod, data)) and, where the
+    vocabulary is split over ``model``, its block of the columns (the
+    reference's out placement: ``out_shardings``, for ``shape``'s batch,
+    or a batch that splits if none is given)."""
     cfg = model.cfg
 
     @torch.no_grad()
@@ -317,11 +410,6 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
             b, s = batch["tokens"].shape
             act = api.activation_rules(
                 cfg, ShapeConfig("prefill", s, b, "prefill"), mesh)
-            if act["batch"] is None:
-                raise NotImplementedError(
-                    f"a batch of {b} does not split over the mesh: "
-                    "sequence parallelism is not ported (ROADMAP item "
-                    "11.5)")
         with R.use_mesh(mesh, act):
             return model.forward(params, _batch_local(batch))
 
@@ -330,11 +418,22 @@ def make_prefill_step(model: Model, *, mesh=None) -> StepBundle:
     _check_mesh_model(cfg, mesh)
     p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
                                   model.param_shapes())
-    rows = ("pod", "data") if "pod" in mesh.shape else "data"
+    rows = _rows(mesh, () if shape is None
+                 else api.activation_rules(cfg, shape, mesh)["batch"])
     return StepBundle(fn=prefill, in_shardings=(p_shard, None),
                       out_shardings=NamedSharding(mesh,
                                                   (rows, None, "model")),
                       mesh=mesh)
+
+
+def _rows(mesh, batch_axes):
+    """The spec entry of a batch dim: the batch axes (every one of the
+    mesh's by default), None where the batch does not split."""
+    if batch_axes is None:
+        return None
+    if batch_axes == ():
+        batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
 
 
 def make_decode_step(model: Model, *, mesh=None,
@@ -347,11 +446,16 @@ def make_decode_step(model: Model, *, mesh=None,
     ``seq_len``, the cache's length): ``in_shardings`` = (the parameters',
     the state's by ``model.decode_specs()`` under the activation rules,
     the tokens'), ``out_shardings`` = (the logits' over (batch,
-    ``model``), the state's).  The bundle's function takes this rank's
-    blocks of the parameters (``bundle.shard_params``) and of the state
-    (``bundle.shard_state`` or ``bundle.init_state``) and the global
-    tokens and lengths (each rank takes its rows), and returns this
-    rank's block of the logits and the state, updated in place."""
+    ``model``), the state's).  A batch that does not split over (pod,
+    data) (batch 1 at ``long_500k``) is whole on every rank, and the
+    rules put the state's sequence over ``data`` instead: the KV caches'
+    positions (``kv_seq``, and over ``model`` too where the kv heads do
+    not divide it) and the mLSTM state's key dim (``sp_seq``).  The
+    bundle's function takes this rank's blocks of the parameters
+    (``bundle.shard_params``) and of the state (``bundle.shard_state`` or
+    ``bundle.init_state``) and the global tokens and lengths (each rank
+    takes its rows), and returns this rank's block of the logits and the
+    state, updated in place."""
 
     @torch.no_grad()
     def decode(params, state, batch):
@@ -366,11 +470,6 @@ def make_decode_step(model: Model, *, mesh=None,
                          "global batch and the cache's length)")
     _check_mesh_model(cfg, mesh)
     act = api.activation_rules(cfg, shape, mesh)
-    if act["batch"] is None:
-        raise NotImplementedError(
-            f"a decode batch of {shape.global_batch} does not split over "
-            "the mesh: sequence parallelism is not ported (ROADMAP item "
-            "11.5)")
     p_shard = api.param_shardings(mesh, cfg, model.param_specs(),
                                   model.param_shapes())
     specs = model.decode_specs()
@@ -388,8 +487,7 @@ def make_decode_step(model: Model, *, mesh=None,
                 f"{cfg.name}: decode state {name} {flat_shapes[name]} does "
                 f"not split as the rules place it ({flat_unfit[name].spec}):"
                 " only whole blocks are run (ROADMAP item 11)")
-    axes = act["batch"]
-    rows = tuple(axes) if len(axes) > 1 else axes[0]
+    rows = _rows(mesh, act["batch"])
 
     @torch.no_grad()
     def sharded(params, state, batch):
@@ -400,7 +498,8 @@ def make_decode_step(model: Model, *, mesh=None,
 
     bundle = StepBundle(fn=sharded,
                         in_shardings=(p_shard, s_shard,
-                                      NamedSharding(mesh, (rows,))),
+                                      NamedSharding(mesh, (rows,) if rows
+                                                    else ())),
                         out_shardings=(NamedSharding(mesh, (rows, "model")),
                                        s_shard),
                         act_rules=act, mesh=mesh)
@@ -465,5 +564,5 @@ def build_step(model: Model, optimizer: Optional[Optimizer], mesh,
         return make_train_step(model, optimizer, shape, mesh=mesh,
                                microbatches=microbatches)
     if shape.kind == "prefill":
-        return make_prefill_step(model, mesh=mesh)
+        return make_prefill_step(model, mesh=mesh, shape=shape)
     return make_decode_step(model, mesh=mesh, shape=shape)

@@ -409,7 +409,8 @@ def test_launch_train_distributed_on_four_cpu_ranks(tmp_path):
     (each joins the world itself, as under torchrun): two steps on the
     (2, 2) test mesh, the loss falls, and the sharded checkpoint of the
     last step is published; with ``--dry-run`` the mesh cell's record
-    holds one step's collectives by kind."""
+    holds one step's collectives by kind; with ``--optimizer adamw_int8
+    --batch 1`` two steps run."""
     run_ranks("launch_train", tmp_path, join=False, timeout=240)
     out = torch.load(tmp_path / "launch_out.pt", weights_only=False)
     losses = [h["loss"] for h in out["history"]]
@@ -426,6 +427,10 @@ def test_launch_train_distributed_on_four_cpu_ranks(tmp_path):
     assert per_op["all-reduce"]["count"] > 0 and \
         per_op["all-gather"]["count"] > 0
     assert rec["collectives"]["collective_bytes"] > 0
+    # ``--optimizer adamw_int8 --batch 1``: int8 moments on the mesh, a
+    # batch every rank takes whole (a new sequence each step)
+    losses = [h["loss"] for h in out["int8_history"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_launch_train_refuses_without_a_card():

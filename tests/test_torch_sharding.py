@@ -25,6 +25,7 @@ from jax.sharding import AbstractMesh  # noqa: E402
 from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs.base import ShapeConfig as JaxShape  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.models.model import reduce_config as _jax_reduce  # noqa: E402
 from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro.sharding import api as jax_api  # noqa: E402
 from repro.train.step import opt_state_spec_tree as jax_opt_specs  # noqa: E402
@@ -223,30 +224,77 @@ def test_meshes_the_port_cannot_build_raise():
 @pytest.mark.parametrize("case", ["xlstm", "int8", "batch",
                                   "decode_batch"])
 def test_sharded_step_refuses_what_it_does_not_run(case):
-    """xLSTM heads that do not divide the model axis, int8 AdamW moments,
-    a batch that does not split over the mesh and a decode batch that
-    does not split raise when the step is built, each naming its ROADMAP
-    item (no process group needed: the placements are computed first)."""
+    """xLSTM heads that do not divide the model axis raise when the step
+    is built, naming its ROADMAP item (no process group needed: the
+    placements are computed first).  int8 AdamW moments, a train batch
+    that does not split over the mesh and a decode batch that does not
+    split, refused until the port ran them, now build with the
+    reference's placements: the int8 ``q`` and ``scale`` blocks over
+    (data, model), or replicated where their count does not divide 4; the
+    activation rules (``batch`` None for a batch of 3 on (2, 2), the
+    caches' positions over ``data``) and the batch, logits and decode
+    state placed by them."""
+    import jax.numpy as jnp
+
     from repro_torch.models.model import reduce_config
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.train.step import make_decode_step, make_train_step
     mesh = Mesh((2, 2), ("data", "model"))
+    jmesh = AbstractMesh((2, 2), ("data", "model"))
     if case == "xlstm":
         model = build_model(reduce_config(ARCHS["xlstm-1.3b"], n_heads=1))
-    else:
-        model = build_model(reduce_config(ARCHS["llama3.2-3b"]))
-    item = {"xlstm": "11:", "int8": "11.6", "batch": "11.5",
-            "decode_batch": "11.5"}[case]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if case == "decode_batch":
-            make_decode_step(model, mesh=mesh,
-                             shape=ShapeConfig("d", 16, 3, "decode"))
-            return
-        opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
-                             else "float32")
-        batch = 3 if case == "batch" else 4
-        make_train_step(model, opt, ShapeConfig("t", 16, batch, "train"),
-                        mesh=mesh)
+        with pytest.raises(NotImplementedError, match="item 11:"):
+            make_train_step(model, make_optimizer("adamw"),
+                            ShapeConfig("t", 16, 4, "train"), mesh=mesh)
+        return
+    cfg = reduce_config(ARCHS["llama3.2-3b"])
+    jcfg = _jax_reduce(JAX_ARCHS["llama3.2-3b"])
+    model = build_model(cfg)
+    if case == "decode_batch":
+        bundle = make_decode_step(model, mesh=mesh,
+                                  shape=ShapeConfig("d", 16, 3, "decode"))
+        jshape = JaxShape("d", 16, 3, "decode")
+        jmodel = jax_build(jcfg)
+        act = jax_api.activation_rules(jcfg, jshape, jmesh)
+        ref = jax_api.tree_shardings(
+            jmesh, jmodel.decode_specs(), act,
+            jax.eval_shape(lambda: jmodel.decode_init(3, 16)))
+        assert bundle.act_rules == act
+        for k in ("k", "v"):
+            assert bundle.in_shardings[1][k].spec == _trim(
+                tuple(ref[k].spec)) == (None, None, "data", "model")
+        assert bundle.in_shardings[2].spec == ()
+        assert bundle.out_shardings[0].spec == (None, "model")
+        return
+    opt = make_optimizer("adamw", state_dtype="int8" if case == "int8"
+                         else "float32")
+    batch = 3 if case == "batch" else 4
+    bundle = make_train_step(model, opt, ShapeConfig("t", 16, batch,
+                                                     "train"), mesh=mesh)
+    act = jax_api.activation_rules(jcfg, JaxShape("t", 16, batch, "train"),
+                                   jmesh)
+    assert bundle.act_rules == {**act, "qblocks": ("data", "model")}
+    assert bundle.in_shardings[2].spec == (() if case == "batch"
+                                           else ("data",))
+    if case == "int8":
+        shapes = model.param_shapes()
+
+        def q(s):
+            nb = -(-int(np.prod(s)) // 256)
+            return {"q": jax.ShapeDtypeStruct((nb, 256), jnp.int8),
+                    "scale": jax.ShapeDtypeStruct((nb, 1), jnp.float32)}
+
+        opt_state = {"mu": {n: {"m": q(s), "v": q(s)}
+                            for n, s in shapes.items()},
+                     "count": jax.ShapeDtypeStruct((), jnp.int32)}
+        ref = jax_api.tree_shardings(
+            jmesh, jax_opt_specs(opt_state, model.param_specs()),
+            {**act, "embed": ("data",), "qblocks": ("data", "model")},
+            opt_state)
+        for n in shapes:
+            for part in ("q", "scale"):
+                assert bundle.in_shardings[1]["mu"][n]["m"][part].spec == \
+                    _trim(tuple(ref["mu"][n]["m"][part].spec)), (n, part)
 
 
 @pytest.mark.parametrize("mesh_key", ["1x1", "2x2", "4x1", "1x4"])

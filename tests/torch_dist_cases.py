@@ -7,6 +7,7 @@ results to the JAX reference in their own process."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +34,7 @@ def _capturing(opt: Optimizer, into: dict) -> Optimizer:
     def update_(grads, state, params, *rest):
         into.update({n: g.detach().clone() for n, g in grads.items()})
         opt.update_(grads, state, params, *rest)
-    return Optimizer(init=opt.init, update_=update_, name=opt.name)
+    return dataclasses.replace(opt, update_=update_)
 
 
 @contextlib.contextmanager
@@ -351,9 +352,15 @@ def launch_train(rank: int, world: int, outdir: Path, *,
                        "cpu", "--distributed", "--dry-run",
                        "--dist-init", f"file://{rendezvous}_dry",
                        "--dryrun-dir", str(outdir / "dryrun")])
+    # int8 moments at a batch of 1, which the (2, 2) mesh does not split
+    int8 = launch.main(["--arch", "llama3.2-3b", "--test-mesh", "--device",
+                        "cpu", "--steps", "2", "--distributed",
+                        "--optimizer", "adamw_int8", "--batch", "1",
+                        "--dist-init", f"file://{rendezvous}_int8"])
     if rank == 0:
         torch.save({"history": out["history"],
-                    "final_loss": out["final_loss"], "dry_run": rec},
+                    "final_loss": out["final_loss"], "dry_run": rec,
+                    "int8_history": int8["history"]},
                    outdir / "launch_out.pt")
 
 
@@ -425,3 +432,212 @@ def _gather_state(state, shardings):
     if isinstance(state, dict):
         return {k: _gather_state(v, shardings[k]) for k, v in state.items()}
     return _np(C.gather_global(state, shardings))
+
+
+def _state_from_numpy(model, arrays: dict, batch: int, length: int):
+    """The port's decode state holding ``arrays``' values (the
+    reference's tree of the same keys and shapes)."""
+    state = model.decode_init(batch, length, device="cpu")
+
+    def fill(s, a):
+        for k, v in a.items():
+            if isinstance(v, dict):
+                fill(s[k], v)
+            else:
+                assert tuple(s[k].shape) == v.shape, (k, v.shape)
+                s[k].copy_(torch.from_numpy(v))
+    fill(state, arrays)
+    return state
+
+
+def seqpar_runs(inp: dict, mesh=None) -> dict:
+    """``tests/test_torch_dist_seqpar.py``'s runs on ``mesh`` (one rank
+    without), from the reference's parameters (``inp["trees"]``): every
+    decode config's steps at batch 1 from ``inp``'s state, then every
+    train case's AdamW step and prefill.  With a mesh the results are
+    gathered to their global values."""
+    from repro_torch.train.step import make_decode_step
+    out = {}
+    for name, (arch, over) in inp["decode_configs"].items():
+        model = build_model(reduce_config(ARCHS[arch], **over))
+        cfg = model.cfg
+        shape = ShapeConfig("decode", inp["max_seq"], 1, "decode")
+        state = _state_from_numpy(model, inp["states"][name], 1,
+                                  inp["max_seq"])
+        if mesh is None:
+            params = params_from_numpy(inp["trees"][name], cfg, "cpu")
+            step, out_sh, s_sh = make_decode_step(model), None, None
+        else:
+            bundle = make_decode_step(model, mesh=mesh, shape=shape)
+            params = params_from_numpy(inp["trees"][name], cfg, "cpu",
+                                       shardings=bundle.in_shardings[0])
+            state = bundle.shard_state(state)
+            step, out_sh, s_sh = bundle, bundle.out_shardings[0], \
+                bundle.in_shardings[1]
+        logits = []
+        for tok, lens in zip(inp["tokens"], inp["lens"]):
+            lg, state = step(params, state,
+                             {"tokens": torch.from_numpy(tok),
+                              "cache_len": torch.from_numpy(lens)})
+            logits.append(_np(lg if mesh is None
+                              else C.gather_global(lg, out_sh)))
+        out[("decode", name)] = {
+            "logits": np.stack(logits),
+            "state": torch.utils._pytree.tree_map(_np, state)
+            if mesh is None else _gather_state(state, s_sh)}
+    for name, b, fsdp in inp["train_cases"]:
+        arch, over = inp["train_configs"][name]
+        cfg = reduce_config(ARCHS[arch], **over)
+        model = build_model(cfg)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in inp["batches"][(name, b)].items()}
+        shape = ShapeConfig("t", batch["tokens"].shape[1], b, "train")
+        api.set_overrides(fsdp=fsdp)
+        try:
+            grads = {}
+            opt = _capturing(make_optimizer("adamw", lr=1e-2), grads)
+            bundle = make_train_step(model, opt, shape, mesh=mesh)
+            params = bundle.shard_params(params_from_numpy(
+                inp["trees"][name], cfg, "cpu", trainable=True))
+            state = bundle.init_state(params)
+            # the prefill first, on the parameters both sides share
+            prefill = make_prefill_step(model, mesh=mesh, shape=dataclasses
+                                        .replace(shape, kind="prefill"))
+            logits = prefill(params, {"tokens": batch["tokens"]})
+            _, _, metrics = bundle(params, state, batch)
+            named = {n: p.data for n, p in params.named_parameters()}
+            if mesh is not None:
+                p_shard, o_shard, _ = bundle.in_shardings
+                grads = {n: C.gather_global(g, o_shard["mu"][n]["m"])
+                         for n, g in grads.items()}
+                named = {n: C.gather_global(t, p_shard[n])
+                         for n, t in named.items()}
+                logits = C.gather_global(logits, prefill.out_shardings)
+            out[("train", name, b, fsdp)] = {
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "grads": {n: _np(g) for n, g in grads.items()},
+                "params": {n: _np(t) for n, t in named.items()},
+                "logits": _np(logits)}
+        finally:
+            api.clear_overrides()
+    return out
+
+
+def seqpar(rank: int, world: int, outdir: Path) -> None:
+    """``tests/test_torch_dist_seqpar.py``: :func:`seqpar_runs` on every
+    mesh of ``seqpar_in.pt``."""
+    inp = torch.load(outdir / "seqpar_in.pt", weights_only=False)
+    out = {}
+    for mesh_shape in inp["meshes"]:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mkey = "x".join(map(str, mesh_shape))
+        out.update({(mkey,) + k: v
+                    for k, v in seqpar_runs(inp, mesh).items()})
+    if rank == 0:
+        torch.save(out, outdir / "seqpar_out.pt")
+
+
+def int8_runs(inp: dict, mesh=None, fsdp=None, grads=None) -> dict:
+    """``tests/test_torch_dist_int8.py``'s run on ``mesh`` (one rank
+    without): ``inp``'s steps of int8 AdamW from the seed's parameters;
+    each step's loss and whole gradients (on a mesh, each parameter's
+    reduced gradient as the int8 update receives it, gathered whole),
+    and the parameters and each moment's ``q`` and ``scale`` after them,
+    gathered to their global values.  One rank given ``grads`` (a list of
+    a step's whole gradients) applies the optimizer to them instead of
+    its own."""
+    from repro_torch.train import step as step_mod
+    arch, over = inp["config"]
+    cfg = reduce_config(ARCHS[arch], **over)
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+    shape = ShapeConfig("t", batch["tokens"].shape[1],
+                        batch["tokens"].shape[0], "train")
+    opt = make_optimizer("adamw", state_dtype="int8", lr=inp["lr"])
+    seen = []
+    if mesh is None:
+        real = opt
+
+        def update_(g, state, params):
+            seen.append({n: _np(t) for n, t in g.items()})
+            if grads is not None:
+                g = {n: torch.from_numpy(grads[len(seen) - 1][n])
+                     for n in g}
+            real.update_(g, state, params)
+        opt = dataclasses.replace(real, update_=update_)
+    real_leaf = step_mod._int8_leaf_
+
+    def spy(adamw, g, mv, p, p_shard, q_shard, corrections):
+        seen[-1][p._name] = _np(g)
+        real_leaf(adamw, g, mv, p, p_shard, q_shard, corrections)
+
+    api.set_overrides(fsdp=fsdp)
+    step_mod._int8_leaf_ = spy
+    try:
+        bundle = make_train_step(model, opt, shape, mesh=mesh)
+        params = bundle.shard_params(model.init(0, device="cpu",
+                                                trainable=True))
+        for n, p in params.named_parameters():
+            p._name = n
+        state = bundle.init_state(params)
+        losses = []
+        for _ in range(inp["steps"]):
+            if mesh is not None:
+                seen.append({})
+            _, _, metrics = bundle(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        named = {n: p.data for n, p in params.named_parameters()}
+        mu = state["mu"]
+        blocks = {n: tuple(mv["m"]["q"].shape) for n, mv in mu.items()}
+        if mesh is not None:
+            p_shard, o_shard, _ = bundle.in_shardings
+            named = {n: C.gather_global(t, p_shard[n])
+                     for n, t in named.items()}
+            mu = {n: {k: {part: C.gather_global(
+                mv[k][part], o_shard["mu"][n][k][part])
+                for part in ("q", "scale")} for k in ("m", "v")}
+                for n, mv in mu.items()}
+        return {"losses": losses, "grads": seen,
+                "params": {n: _np(t) for n, t in named.items()},
+                "moments": {n: {k: {part: mv[k][part].cpu().numpy()
+                                    for part in ("q", "scale")}
+                                for k in ("m", "v")} for n, mv in mu.items()},
+                "local_blocks": blocks, "count": int(state["count"])}
+    finally:
+        step_mod._int8_leaf_ = real_leaf
+        api.clear_overrides()
+
+
+def int8(rank: int, world: int, outdir: Path) -> None:
+    """``tests/test_torch_dist_int8.py``: :func:`int8_runs` on every
+    (mesh, FSDP) case of ``int8_in.pt``."""
+    inp = torch.load(outdir / "int8_in.pt", weights_only=False)
+    out = {}
+    for mesh_shape, fsdp in inp["cases"]:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        out[("x".join(map(str, mesh_shape)), fsdp)] = int8_runs(inp, mesh,
+                                                                fsdp)
+    if rank == 0:
+        torch.save(out, outdir / "int8_out.pt")
+
+
+def mesh_cells(rank: int, world: int, outdir: Path) -> None:
+    """``tests/test_torch_roofline_mesh.py``: ``dryrun.run_mesh_cell`` on
+    (2, 2) for a reduced zamba2-7b ``long_500k`` decode (batch 1, the
+    cache cut to 64 positions) and a reduced granite-34b ``train_4k``
+    cell, which trains with the reference's int8 moments."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    recs = {}
+    for arch, shape_name, over in (("zamba2-7b", "long_500k", {}),
+                                   ("granite-34b", "train_4k",
+                                    dict(global_batch=4))):
+        shape = dataclasses.replace(SHAPES[shape_name], seq_len=64, **over)
+        recs[arch] = dryrun.run_mesh_cell(
+            arch, shape_name, mesh, outdir / "dryrun",
+            cfg=reduce_config(ARCHS[arch], dtype="float32"), shape=shape,
+            device="cpu")
+    if rank == 0:
+        torch.save(recs, outdir / "mesh_cells_out.pt")

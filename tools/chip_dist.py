@@ -5,9 +5,15 @@ llama3.2-3b's sharded decode over a long cache.
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
         [--arch llama-3.2-vision-11b | zamba2-7b | granite-moe-1b-a400m |
          whisper-tiny | xlstm-1.3b]
-    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --decode
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
-        --device cpu --test-mesh [--arch ... | --decode]   # reduced, gloo
+        --arch llama-3.2-vision-11b --optimizer adamw_int8
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --decode
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --decode \
+        --arch zamba2-7b --shape long_500k
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --allreduce
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --suite
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
+        --device cpu --test-mesh [--arch ... | --decode ... | --suite]
 
 The port's sharded train step (``repro_torch.train.step`` with a mesh) on
 the reference's (data, model) = (2, 2) mesh over NCCL, one card per
@@ -29,14 +35,38 @@ xlstm-1.3b: all 48 blocks (each its own region, replayed with nothing
 saved; the mLSTM kernel on each rank's 2 heads, every sLSTM recurrence
 whole on every rank) at train (f)'s 1024 tokens a sequence.
 
+``--optimizer adamw_int8`` trains with the reference's int8 AdamW
+moments (blocks of 256 of each flat parameter over (data, model),
+``train/step.py``) instead of fp32 ones.
+
 ``--decode``: llama3.2-3b's decode step on (2, 2) (``make_decode_step(...,
 mesh=)``, bf16, FSDP by the size rule), 32 sequences over 32,768 cached
 positions: 28 x 32 x 32768 x 8 x 128 x 2 x 2 bytes = 120 GB of KV cache,
 30 GB a card (each rank its 16 sequences' 4 kv heads), allocated at the
 block shapes and filled with seeded normals (the step reads every cached
 position whatever its values), then ``DECODE_STEPS`` tokens at lengths
-32,760 on.  Rank 0 prints one line per step (step ms, tokens/s, the
-collectives of each rank by kind) and a last line with every card's peak.
+32,760 on.  ``--decode --arch zamba2-7b --shape long_500k``: all 81
+layers, one sequence over 524,288 cached positions: 13 x 524288 x 32 x
+112 x 2 x 2 bytes = 97.7 GB of KV cache, 24.4 GB a card (the batch does
+not split, so the reference's rules put the positions over ``data``, the
+kv heads over ``model``), filled so, then ``DECODE_STEPS`` tokens at
+lengths 524,280 on.  Rank 0 prints one line per step (step ms, tokens/s,
+the collectives of each rank by kind), the fused SwiGLU kernel's row at
+the steps' per-rank shape (its launches in the uncounted steps, its
+time against its plain twin's and ``matmul(x, [Wg | Wu])``'s and its
+bound) and a last line with every card's peak.
+
+``--allreduce``: an NCCL all-reduce of ``ALLREDUCE_BYTES`` (1 GiB of
+fp32) over the four cards, the median of ``ALLREDUCE_REPS`` timed calls,
+its bus bandwidth (bytes x 2 (n - 1) / n over the time) beside the data
+sheet's NVLink rate of one direction (``launch/hw.py``, 450 GB/s).
+``--suite`` runs the all-reduce, the zamba2-7b ``long_500k`` decode and
+the vision LM's int8 train step in turn, in one process group.
+
+Every run's last step is counted by the cost probe's counters
+(``probe.counting``, the kernels' terms added: ``dryrun.mesh_probe``),
+and rank 0 prints its roofline row with the collective term
+(``launch/roofline.py``).
 
 Rank 0 prints one JSON line per step (loss, step s, tokens/s, the
 collectives of each rank by kind from ``launch/comm_analysis.py``) and a
@@ -48,7 +78,9 @@ counted busy; their time apart) and the card's name and power limit.  Any non-fi
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -66,7 +98,7 @@ import torch.distributed as dist  # noqa: E402
 
 ARCH = "llama-3.2-vision-11b"
 ARCHS_RUN = ("llama-3.2-vision-11b", "zamba2-7b", "granite-moe-1b-a400m",
-             "whisper-tiny", "xlstm-1.3b")
+             "whisper-tiny", "xlstm-1.3b", "llama3.2-3b")
 # --test-mesh: each family reduced (the reference's reduce_config with
 # these overrides), every attention through the flash path
 TEST_MESH = {
@@ -76,6 +108,7 @@ TEST_MESH = {
     "granite-moe-1b-a400m": dict(n_layers=2),
     "whisper-tiny": dict(n_heads=6, n_kv_heads=6, encoder_seq=40),
     "xlstm-1.3b": dict(),
+    "llama3.2-3b": dict(),
 }
 MESH = (2, 2)
 SEQ, BATCH, MICRO, STEPS = 4096, 4, 2, 3
@@ -84,6 +117,11 @@ ARCH_SEQ = {"xlstm-1.3b": 1024}
 XGATE = 0.5
 DECODE_ARCH = "llama3.2-3b"
 DECODE_BATCH, DECODE_LEN, DECODE_STEPS = 32, 32768, 8
+ALLREDUCE_BYTES, ALLREDUCE_REPS = 1 << 30, 10
+# --suite: (mode, arch, shape or optimizer) in turn
+SUITE = (("allreduce", None, None),
+         ("decode", "zamba2-7b", "long_500k"),
+         ("train", "llama-3.2-vision-11b", "adamw_int8"))
 
 
 def init_sharded(cfg, shardings, device, seed: int = 0):
@@ -193,39 +231,197 @@ def idle_share(step):
     return wall, busy / 1e6, covered, nccl / 1e6, 1 - covered / wall
 
 
+def roofline_row(cfg, shape, mesh, counters, collective_bytes, on_card,
+                 step_s):
+    """The roofline row of a counted step: a rank's FLOPs and bytes
+    (``dryrun.mesh_probe``), its collective bytes, ``step_s``."""
+    from repro_torch.launch.dryrun import mesh_probe
+    from repro_torch.launch.roofline import analyze, matmul_params
+
+    probe = mesh_probe(cfg, shape, mesh, *counters, on_card)
+    row = analyze(cfg.name, shape, probe["flops"], probe["bytes"],
+                  n_params=matmul_params(cfg),
+                  collective_bytes=collective_bytes,
+                  chips=math.prod(mesh.shape.values()), step_s=step_s)
+    return {"phase": "roofline", **row, "kernel_share":
+            probe["kernel_share"]}
+
+
+def run_allreduce(rank, world, device, on_card, gpu, test_mesh) -> int:
+    """``--allreduce``: the bus bandwidth of an all-reduce of
+    ``ALLREDUCE_BYTES`` over the world."""
+    from repro_torch.launch import hw
+
+    n = (ALLREDUCE_BYTES if not test_mesh else 1 << 20) // 4
+    buf = torch.ones(n, device=device)
+    dist.all_reduce(buf)                      # warm up (NCCL's rings)
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ok = bool(torch.isfinite(buf).all())
+    t = sorted(times)[len(times) // 2]
+    nbytes = n * 4
+    if rank == 0:
+        print(json.dumps({
+            "phase": "allreduce", "ok": ok, "bytes": nbytes, "ranks": world,
+            "median_s": t, "times_s": times, "algbw_bytes_per_s": nbytes / t,
+            "busbw_bytes_per_s": nbytes / t * 2 * (world - 1) / world,
+            "nvlink_one_direction_bytes_per_s": hw.LINK_BYTES_PER_S,
+            "gpu": gpu}), flush=True)
+    del buf
+    return 0 if ok else 1
+
+
+def _fill_normal(tree, g):
+    for leaf in (tree.values() if isinstance(tree, dict) else [tree]):
+        if isinstance(leaf, dict):
+            _fill_normal(leaf, g)
+        else:
+            leaf.normal_(generator=g)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def _swiglu_launches(into: list):
+    """Append (m, k, f) of every fused SwiGLU kernel launch in the body
+    (its wrapper calls the module's ``_launch``) to ``into``; the expert
+    form as (e, m, k, f)."""
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    launch = sw._launch
+
+    def recorded(x, wg, wu, variant):
+        into.append(tuple(x.shape) + (wg.shape[-1],))
+        return launch(x, wg, wu, variant)
+
+    sw._launch = recorded
+    try:
+        yield into
+    finally:
+        sw._launch = launch
+
+
+def _median_ms_in_turns(fns, reps: int = 50):
+    """The median CUDA-event time (ms) of each of ``fns``, called in turns
+    after 3 warm-up rounds."""
+    for _ in range(3):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+    return [sorted(ts)[len(ts) // 2] for ts in times]
+
+
+def swiglu_row(call, launches: int, steps: int, gpu) -> dict:
+    """The fused SwiGLU kernel at a decode step's per-rank shape ``call``
+    ((m, k, f), dense), bf16 on seeded inputs: the kernel the wrapper
+    chooses against its plain twin (largest error), and the times of the
+    kernel, the twin and ``matmul(x, [Wg | Wu])`` in turns; the bound is
+    the larger of the bytes over HBM and the flops over the bf16 peak
+    (``launch/costs.py``, ``launch/hw.py``); ``launches``, the four
+    ranks' over ``steps`` uncounted steps."""
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch import costs, hw
+    if len(call) != 3:
+        return {"phase": "swiglu", "skipped": f"expert form {call}"}
+    m, k, f = call
+    g = torch.Generator("cuda").manual_seed(321)
+    x = (torch.randn(m, k, generator=g, device="cuda") * 0.5).bfloat16()
+    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * 0.05)
+              .bfloat16() for _ in range(2))
+    out = sw.fused_swiglu(x, wg, wu)
+    err = (out.float() - sw.fused_swiglu_plain(x, wg, wu).float()
+           ).abs().max().item()
+    w_cat = torch.cat([wg, wu], dim=-1)
+    ms, plain_ms, library_ms = _median_ms_in_turns([
+        lambda: sw.fused_swiglu(x, wg, wu),
+        lambda: sw.fused_swiglu_plain(x, wg, wu),
+        lambda: torch.matmul(x, w_cat)])
+    flops, nbytes = costs.swiglu_launch((1, m, k, f), "bfloat16")
+    bound_ms, bound_by = hw.bound_ms(flops, nbytes, "bfloat16")
+    return {"phase": "swiglu", "shape": {"m": m, "k": k, "f": f},
+            "variant": sw.variant_for(x, wg, wu), "launches": launches,
+            "steps": steps, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_note": "torch.matmul(x, [Wg | Wu]): the two products "
+                            "only, no epilogue",
+            "bound_ms": bound_ms, "bound_by": bound_by, "gpu": gpu}
+
+
 def run_decode(args, rank, world, device, on_card, gpu) -> int:
-    """``--decode``: the sharded decode step over a long cache."""
-    from repro_torch.configs import ARCHS
+    """``--decode``: the sharded decode step over a long cache
+    (llama3.2-3b's 32 sequences, or ``--shape long_500k``'s one)."""
+    from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.comm_analysis import analyze_collectives
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.probe import counting
     from repro_torch.models.model import build_model, reduce_config
     from repro_torch.sharding import collectives as C
     from repro_torch.train.step import make_decode_step
 
-    cfg, b, length = ARCHS[DECODE_ARCH], DECODE_BATCH, DECODE_LEN
+    arch = args.arch or DECODE_ARCH
+    cfg = ARCHS[arch]
+    if args.shape:
+        shape = SHAPES[args.shape]
+    else:
+        shape = ShapeConfig("decode_32k", DECODE_LEN, DECODE_BATCH, "decode")
     if args.test_mesh:
-        cfg, b, length = reduce_config(cfg), 8, 64
+        cfg = reduce_config(cfg)
+        shape = dataclasses.replace(
+            shape, seq_len=64, global_batch=min(shape.global_batch, 8))
+    b, length = shape.global_batch, shape.seq_len
     mesh = make_mesh(MESH, ("data", "model"),
                      device="cuda" if on_card else "cpu")
     model = build_model(cfg)
-    bundle = make_decode_step(model, mesh=mesh, shape=ShapeConfig(
-        "decode_32k", length, b, "decode"))
+    bundle = make_decode_step(model, mesh=mesh, shape=shape)
     t0 = time.perf_counter()
     params = bundle.shard_params(model.init(0, device=device))
+    if on_card:
+        torch.cuda.empty_cache()
     state = bundle.init_state(device)
     g = torch.Generator(device).manual_seed(100 + rank)
-    for leaf in state.values():
-        leaf.normal_(generator=g)
+    _fill_normal(state, g)
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-    cache_gb = sum(t.numel() * t.element_size() for t in state.values()) / 1e9
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(state)) / 1e9
+    cache = state["attn"] if "attn" in state else state
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in (cache["k"], cache["v"])) / 1e9
     if rank == 0:
         print(json.dumps({"phase": "init", "arch": cfg.name,
-                          "layers": cfg.n_layers, "mesh": list(MESH),
-                          "batch": b, "cached_positions": length,
+                          "shape": shape.name, "layers": cfg.n_layers,
+                          "mesh": list(MESH), "batch": b,
+                          "cached_positions": length,
+                          "batch_splits": bundle.act_rules["batch"]
+                          is not None,
+                          "kv_cache_spec": list(map(str, bundle.in_shardings[
+                              1]["attn"]["k"].spec if "attn" in state
+                              else bundle.in_shardings[1]["k"].spec)),
                           "kv_cache_gb_per_card": cache_gb,
+                          "state_gb_per_card": state_gb,
                           "fsdp": any("data" in sh.used_axes() for sh in
                                       bundle.in_shardings[0].values()),
                           "init_s": time.perf_counter() - t0, "gpu": gpu}),
@@ -233,6 +429,7 @@ def run_decode(args, rank, world, device, on_card, gpu) -> int:
     tok = torch.Generator(device).manual_seed(7)
     start = length - DECODE_STEPS
     times = []
+    swiglu_calls = []
     for step in range(DECODE_STEPS):
         batch = {"tokens": torch.randint(0, cfg.vocab, (b,), generator=tok,
                                          device=device),
@@ -241,11 +438,15 @@ def run_decode(args, rank, world, device, on_card, gpu) -> int:
         if on_card:
             torch.cuda.synchronize()
         dist.barrier()
+        last = step == DECODE_STEPS - 1
         t0 = time.perf_counter()
-        logits, state = bundle(params, state, batch)
-        ok = bool(torch.isfinite(logits).all())
-        if on_card:
-            torch.cuda.synchronize()
+        with counting() if last else contextlib.nullcontext((None, None)) \
+                as counters, _swiglu_launches(
+                    swiglu_calls if not last else []):
+            logits, state = bundle(params, state, batch)
+            ok = bool(torch.isfinite(logits).all())
+            if on_card:
+                torch.cuda.synchronize()
         dist.barrier()
         step_s = time.perf_counter() - t0
         times.append(step_s)
@@ -254,16 +455,30 @@ def run_decode(args, rank, world, device, on_card, gpu) -> int:
         dist.all_gather_object(per_rank, coll["per_op"])
         if rank == 0:
             print(json.dumps({"phase": "step", "step": step, "finite": ok,
-                              "step_ms": step_s * 1e3,
+                              "counted": last, "step_ms": step_s * 1e3,
                               "tokens_per_s": b / step_s,
                               "collective_bytes_rank0":
                                   coll["collective_bytes"],
                               "collectives_by_rank": per_rank}), flush=True)
+            if last:
+                warm = times[1:-1] or times
+                print(json.dumps(roofline_row(
+                    cfg, shape, mesh, counters, coll["collective_bytes"],
+                    on_card, sorted(warm)[len(warm) // 2])), flush=True)
         if not ok:
             return 1
-    out = {"phase": "done", "ok": True,
+    launches = [None] * world
+    dist.all_gather_object(launches, len(swiglu_calls))
+    out = {"phase": "done", "ok": True, "arch": cfg.name,
+           "shape": shape.name,
            "median_step_ms": sorted(times)[len(times) // 2] * 1e3,
-           "tokens_per_s_median": b / sorted(times)[len(times) // 2]}
+           "tokens_per_s_median": b / sorted(times)[len(times) // 2],
+           "swiglu_launches_by_rank": launches}
+    if on_card and swiglu_calls:
+        row = swiglu_row(max(set(swiglu_calls), key=swiglu_calls.count),
+                         sum(launches), DECODE_STEPS - 1, gpu)
+        if rank == 0:
+            print(json.dumps(row), flush=True)
     if on_card:
         peaks = [None] * world
         dist.all_gather_object(
@@ -274,6 +489,104 @@ def run_decode(args, rank, world, device, on_card, gpu) -> int:
     return 0
 
 
+def run_train(args, rank, world, device, on_card, gpu) -> int:
+    """The sharded train step of ``args.arch`` (``--optimizer``'s
+    moments)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.probe import counting
+    from repro_torch.models.model import build_model, reduce_config
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_train_step
+
+    arch = args.arch or ARCH
+    cfg = dataclasses.replace(ARCHS[arch], attention_impl="pallas")
+    seq = ARCH_SEQ.get(arch, SEQ)
+    if args.test_mesh:
+        cfg = reduce_config(cfg, block_q=32, block_kv=32,
+                            attention_impl="pallas", remat=True,
+                            **TEST_MESH[arch])
+        seq = 48
+    mesh = make_mesh(MESH, ("data", "model"),
+                     device="cuda" if on_card else "cpu")
+    model = build_model(cfg)
+    shape = ShapeConfig("train_4k", seq, BATCH, "train")
+    state_dtype = {"adamw": "float32", "adamw_int8": "int8"}[args.optimizer]
+    bundle = make_train_step(model, make_optimizer(
+        "adamw", state_dtype=state_dtype), shape, mesh=mesh,
+        microbatches=MICRO)
+    t0 = time.perf_counter()
+    if cfg.family == "vlm":
+        params = init_sharded(cfg, bundle.in_shardings[0], device)
+    else:
+        params = init_whole(model, bundle.in_shardings[0], device)
+    state = bundle.init_state(params)
+    init_s = time.perf_counter() - t0
+    moments_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(state["mu"])) / 1e9
+    if rank == 0:
+        print(json.dumps({"phase": "init", "arch": cfg.name,
+                          "layers": cfg.n_layers, "mesh": list(MESH),
+                          "optimizer": args.optimizer,
+                          "moments_gb_rank0": moments_gb,
+                          "fsdp": any("data" in sh.used_axes() for sh in
+                                      bundle.in_shardings[0].values()),
+                          "init_s": init_s, "gpu": gpu}), flush=True)
+    losses, times = [], []
+    for step in range(args.steps):
+        batch = batch_for(cfg, seq, step, device)
+        C.reset_tally()
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        last = step == args.steps - 1
+        t0 = time.perf_counter()
+        with counting() if last else contextlib.nullcontext((None, None)) \
+                as counters:
+            _, _, metrics = bundle(params, state, batch)
+            loss = float(metrics["loss"])
+        dist.barrier()
+        step_s = time.perf_counter() - t0
+        coll = analyze_collectives()
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, coll["per_op"])
+        losses.append(loss)
+        if not last:
+            times.append(step_s)
+        if rank == 0:
+            print(json.dumps({
+                "phase": "step", "step": step, "loss": loss,
+                "grad_norm": float(metrics["grad_norm"]),
+                "counted": last,
+                "step_s": step_s, "tokens_per_s": BATCH * seq / step_s,
+                "collective_bytes_rank0": coll["collective_bytes"],
+                "collectives_by_rank": per_rank}), flush=True)
+            if last:
+                # the step time of the uncounted steps after the first
+                warm = times[1:] or times or [step_s]
+                print(json.dumps(roofline_row(
+                    cfg, shape, mesh, counters, coll["collective_bytes"],
+                    on_card, sorted(warm)[len(warm) // 2])), flush=True)
+    out = {"phase": "done", "ok": all(map(math.isfinite, losses)),
+           "arch": cfg.name, "optimizer": args.optimizer, "losses": losses}
+    if on_card:
+        batch = batch_for(cfg, seq, args.steps, device)
+        wall, busy, covered, nccl, idle = idle_share(
+            lambda: bundle(params, state, batch))
+        peaks = [None] * world
+        dist.all_gather_object(
+            peaks, torch.cuda.max_memory_allocated(device) / 1e9)
+        out.update(profiled_step_s=wall, device_kernel_s=busy,
+                   device_covered_s=covered, nccl_s=nccl,
+                   device_idle_share=idle, peak_gb=peaks, gpu=gpu)
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+    return 0 if out["ok"] else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
@@ -281,20 +594,24 @@ def main(argv=None) -> int:
     ap.add_argument("--test-mesh", action="store_true",
                     help="the reduced config (with --device cpu)")
     ap.add_argument("--steps", type=int, default=STEPS)
-    ap.add_argument("--arch", default=ARCH, choices=ARCHS_RUN)
+    ap.add_argument("--arch", default=None, choices=ARCHS_RUN,
+                    help=f"default {ARCH} (train), {DECODE_ARCH} (decode)")
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "adamw_int8"),
+                    help="AdamW's moments: fp32, or the reference's int8 "
+                         "blocks")
     ap.add_argument("--decode", action="store_true",
-                    help="llama3.2-3b's sharded decode over 32,768 cached "
-                         "positions instead of a train step")
+                    help="a sharded decode over a long cache instead of a "
+                         "train step")
+    ap.add_argument("--shape", default=None, choices=("long_500k",),
+                    help="the decode's shape (default: 32 sequences over "
+                         "32,768 positions)")
+    ap.add_argument("--allreduce", action="store_true",
+                    help="the bus bandwidth of a 1 GiB all-reduce")
+    ap.add_argument("--suite", action="store_true",
+                    help="the all-reduce, zamba2-7b's long_500k decode and "
+                         "the vision LM's int8 train step, in turn")
     args = ap.parse_args(argv)
-
-    from repro_torch.configs import ARCHS
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.comm_analysis import analyze_collectives
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.model import build_model, reduce_config
-    from repro_torch.optim.optimizers import make_optimizer
-    from repro_torch.sharding import collectives as C
-    from repro_torch.train.step import make_train_step
 
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
@@ -315,72 +632,32 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip().splitlines()[:1] if on_card else []
-        if args.decode:
-            return run_decode(args, rank, world, device, on_card, gpu)
-        cfg = dataclasses.replace(ARCHS[args.arch], attention_impl="pallas")
-        seq = ARCH_SEQ.get(args.arch, SEQ)
-        if args.test_mesh:
-            cfg = reduce_config(cfg, block_q=32, block_kv=32,
-                                attention_impl="pallas", remat=True,
-                                **TEST_MESH[args.arch])
-            seq = 48
-        mesh = make_mesh(MESH, ("data", "model"),
-                         device="cuda" if on_card else "cpu")
-        model = build_model(cfg)
-        shape = ShapeConfig("train_4k", seq, BATCH, "train")
-        bundle = make_train_step(model, make_optimizer("adamw"), shape,
-                                 mesh=mesh, microbatches=MICRO)
-        t0 = time.perf_counter()
-        if cfg.family == "vlm":
-            params = init_sharded(cfg, bundle.in_shardings[0], device)
+        if args.suite:
+            plan = SUITE
+        elif args.allreduce:
+            plan = (("allreduce", None, None),)
+        elif args.decode:
+            plan = (("decode", args.arch, args.shape),)
         else:
-            params = init_whole(model, bundle.in_shardings[0], device)
-        state = bundle.init_state(params)
-        init_s = time.perf_counter() - t0
-        if rank == 0:
-            print(json.dumps({"phase": "init", "arch": cfg.name,
-                              "layers": cfg.n_layers, "mesh": list(MESH),
-                              "fsdp": any("data" in sh.used_axes() for sh in
-                                          bundle.in_shardings[0].values()),
-                              "init_s": init_s, "gpu": gpu}), flush=True)
-        losses = []
-        for step in range(args.steps):
-            batch = batch_for(cfg, seq, step, device)
-            C.reset_tally()
+            plan = (("train", args.arch, args.optimizer),)
+        rc = 0
+        for mode, arch, extra in plan:
+            if mode == "allreduce":
+                rc |= run_allreduce(rank, world, device, on_card, gpu,
+                                    args.test_mesh)
+            elif mode == "decode":
+                rc |= run_decode(argparse.Namespace(
+                    **{**vars(args), "arch": arch, "shape": extra}), rank,
+                    world, device, on_card, gpu)
+            else:
+                rc |= run_train(argparse.Namespace(
+                    **{**vars(args), "arch": arch, "optimizer": extra}),
+                    rank, world, device, on_card, gpu)
+            gc.collect()
             if on_card:
-                torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            _, _, metrics = bundle(params, state, batch)
-            loss = float(metrics["loss"])
-            dist.barrier()
-            step_s = time.perf_counter() - t0
-            coll = analyze_collectives()
-            per_rank = [None] * world
-            dist.all_gather_object(per_rank, coll["per_op"])
-            losses.append(loss)
-            if rank == 0:
-                print(json.dumps({
-                    "phase": "step", "step": step, "loss": loss,
-                    "grad_norm": float(metrics["grad_norm"]),
-                    "step_s": step_s, "tokens_per_s": BATCH * seq / step_s,
-                    "collective_bytes_rank0": coll["collective_bytes"],
-                    "collectives_by_rank": per_rank}), flush=True)
-        out = {"phase": "done", "ok": all(map(math.isfinite, losses)),
-               "losses": losses}
-        if on_card:
-            batch = batch_for(cfg, seq, args.steps, device)
-            wall, busy, covered, nccl, idle = idle_share(
-                lambda: bundle(params, state, batch))
-            peaks = [None] * world
-            dist.all_gather_object(
-                peaks, torch.cuda.max_memory_allocated(device) / 1e9)
-            out.update(profiled_step_s=wall, device_kernel_s=busy,
-                       device_covered_s=covered, nccl_s=nccl,
-                       device_idle_share=idle, peak_gb=peaks, gpu=gpu)
-        if rank == 0:
-            print(json.dumps(out), flush=True)
-        return 0 if out["ok"] else 1
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+        return rc
     finally:
         dist.destroy_process_group()
 
