@@ -29,14 +29,14 @@ them:
    all seven outputs.  Fused SwiGLU: the four ``SWIGLU_CASES`` of
    tests/test_kernels.py, llama3.2-3b's and zamba2-7b's MLPs and
    granite-moe-1b-a400m's experts at their prefill steps' shapes, a ragged
-   batch and a decode step's, in f32 and bf16.  Then the times of each
-   kernel, its twin and a library yardstick where there is one
-   (``scaled_dot_product_attention`` for flash, one cuBLAS product with
-   [Wg | Wu] for SwiGLU; the port never calls either; no single PyTorch call
-   computes the SSD or the mLSTM chunk), beside the bound (for SSD and
-   mLSTM at the tf32 tensor-core peak); the earlier design (flash simt,
-   SwiGLU mma_sync, SSD and mLSTM simt) forced and timed in turns with the
-   new one; SwiGLU also at two decode shapes;
+   batch, a decode step's and the pretrain example's MLP, in f32 and bf16.
+   Then the times of each kernel, its twin and a library yardstick where
+   there is one (``scaled_dot_product_attention`` for flash, one cuBLAS
+   product with [Wg | Wu] for SwiGLU; the port never calls either; no
+   single PyTorch call computes the SSD or the mLSTM chunk), beside the
+   bound (for SSD and mLSTM at the tf32 tensor-core peak); the earlier
+   design (flash simt, SwiGLU mma_sync, SSD and mLSTM simt) forced and
+   timed in turns with the new one; SwiGLU also at two decode shapes;
 3. llama3.2-3b prefill step: full width (28 layers, random weights from a
    seeded generator), B = 2, S = 4096, bf16, ``attention_impl="pallas"``,
    with 28 flash and 28 SwiGLU launches counted, all wgmma; then the
@@ -259,7 +259,7 @@ them:
    place, the loss and every grad of the whole model normwise within
    1e-4.  The two kernels are timed at the train steps' eight shapes for
    their rows, and one cross-attention call's backward alone.
-23. examples (run after 18, the paper's phases): the three examples of
+23. examples (run after 18, the paper's phases): the four examples of
    ``examples/torch_*.py`` on the card at their default sizes, each with
    its own assertions (``torch_quickstart``: the reduced LM trained 30
    steps, checkpointed and resumed to 40, its loss falling, the graph
@@ -269,11 +269,17 @@ them:
    peaks and 60 epochs of resnet18_transfer's head on 4 x 5 sketches,
    the loss falling; ``torch_tts_unroll``: 300 clipped SGD iterations of
    the E-shared unrolled tacotron2 decoder, the loss below 0.9 of its
-   start).  Gates: the paper's graph path launches no kernel of the
+   start; ``torch_distributed_pretrain``: the ~100M LM (12 layers, d 640,
+   fp32, naive attention) trained 300 steps of 8 x 128 tokens by the
+   ``Trainer`` on a (1, 1) mesh over a world of one NCCL rank, async
+   checkpoints every 100 steps, heartbeats, its last loss below its
+   first).  Gates: the paper's graph path launches no kernel of the
    transformer path; the quickstart's reduced LM (S = 64, the naive
    attention path) launches the SwiGLU kernel exactly once a layer per
-   train step's forward and nothing else.  Each example's output goes to
-   ``build/example_logs/<example>.log``.
+   train step's forward and nothing else, and so does the pretrain
+   example's (12 a step, the fp32 simt kernel; its row in the kernel
+   line is timed at its shape, x (1024, 640), W (640, 2560)).  Each
+   example's output goes to ``build/example_logs/<example>.log``.
 24. roofline (last): ``launch/hw.py``'s ``measure()`` (an 8192-cubed bf16
    GEMM and a 4 GiB device copy) beside the data-sheet peaks, then the
    cost probe (``launch/probe.py``: one micro-batch at 1 and 2 periods in
@@ -293,7 +299,9 @@ them:
    sequences of 4096 in 2 micro-batches, against the step without a mesh
    from the same parameters, fp32 at depth 2 (loss and every grad within
    1e-6) and bf16 at depth 4 (normwise 2e-2), the flash and SwiGLU
-   launches by shape equal (bf16: train (a)'s shapes, all wgmma); (l)
+   launches by shape equal (bf16: train (a)'s shapes, all wgmma), and
+   the same step on the multi-pod mesh (pod, data, model) = (1, 1, 1)
+   bit for bit the (1, 1) step (loss, every gradient, launches); (l)
    four ranks sharing the card over gloo (every collective staged through
    host copies), mesh (2, 2), FSDP by the reference's size rule, at full
    width, 2 sequences of 4096: llama3.2-3b (1 layer, bf16),
@@ -322,7 +330,12 @@ them:
    2e-2; granite's routing replayed); every flash, SwiGLU, SSD and mLSTM
    launch at the per-rank shapes, the train steps' all wgmma, each held
    against its twin there and timed for its kernel-table row; the
-   tally's collectives by kind per rank.
+   tally's collectives by kind per rank; and llama3.2-3b at one layer in
+   fp32 on the multi-pod mesh (pod, data, model) = (2, 1, 2), 2
+   sequences (one a (pod, data) rank): the loss and each rank's blocks of
+   every gradient leaf within 1e-4 of the one-rank step's, the flash and
+   SwiGLU kernels launched and bytes all-reduced over ``pod`` on every
+   rank.
 
 The bf16 prefill steps (3, 5, 8, 11, 21), the bf16 train steps (19 (a),
 20 (e), (f), 22 (h), (i)) and generate's SwiGLU launches must
@@ -413,7 +426,9 @@ SWIGLU_CASES = [
 SWIGLU_PATHS = {"llama3.2-3b MLP": (1, 8192, 3072, 8192),
                 "zamba2-7b shared MLP": (1, 8192, 3584, 14336),
                 "granite-moe-1b-a400m experts": (32, 2560, 1024, 512)}
-SWIGLU_EXTRA = [(3, 1000, 1003, 700), (32, 4, 1024, 512)]
+# the pretrain example's MLP at its default size: 8 x 128 tokens, fp32
+PRETRAIN_SWIGLU = (1, 1024, 640, 2560)
+SWIGLU_EXTRA = [(3, 1000, 1003, 700), (32, 4, 1024, 512), PRETRAIN_SWIGLU]
 # decode steps' shapes (4 requests), timed beside the path shapes
 SWIGLU_DECODE = {"llama3.2-3b MLP, decode": (1, 4, 3072, 8192),
                  "granite-moe-1b-a400m experts, decode": (32, 4, 1024, 512)}
@@ -540,7 +555,7 @@ def main() -> int:
     paper_rows += phase_paper_optim(torch, gpu) + phase_personalize(torch, gpu)
     check(all(m.LAUNCHES == 0 for m in (fa, ssd, ml, sw)), "paper_path",
           "the paper's path launched a kernel of the transformer path")
-    phase_examples(torch, (fa, ssd, ml, sw), gpu)
+    example_row = phase_examples(torch, (fa, ssd, ml, sw), gpu)
     train_rows = _train_rows(torch, fa, sw, gpu)
     train_rows += _train_recurrent_rows(torch, fa, ssd, ml, sw, gpu)
     mm_train_rows = _train_multimodal_rows(torch, fa, sw, gpu)
@@ -553,7 +568,7 @@ def main() -> int:
                                   mlstm_row, *sw_rows,
                                   granite_flash_row, *train_rows,
                                   *mm_rows, *mm_train_rows,
-                                  *dist_rows]}),
+                                  *dist_rows, example_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4878,7 +4893,7 @@ def _train_mm_fp32(torch, fa, sw, arch):
 # ---------------------------------------------------------------------------
 
 EXAMPLES = ("torch_quickstart", "torch_personalize_transfer",
-            "torch_tts_unroll")
+            "torch_tts_unroll", "torch_distributed_pretrain")
 
 
 def _example(name):
@@ -4903,15 +4918,62 @@ def _quickstart_swiglu_launches(quickstart):
     return 2 * steps.default
 
 
+def _pretrain_swiglu_launches(pretrain):
+    """The SwiGLU launches the pretrain example makes at its defaults: one
+    a layer in each train step's forward (remat off: no replay; the
+    backward is the twin's)."""
+    steps = pretrain.parser().get_default("steps")
+    return pretrain.make_100m_config().n_layers * steps
+
+
+def _swiglu_fp32_row(torch, sw, gpu, case, path):
+    """The SwiGLU kernel at ``case`` in fp32 (the variant its wrapper
+    chooses) against its plain twin, and the times of both and of one
+    cuBLAS product with [Wg | Wu], in turns, in this call."""
+    x, wg, wu = _swiglu_inputs(torch, case, torch.float32, seed=321)
+    variant = sw.variant_for(x, wg, wu)
+    out = sw.fused_swiglu(x, wg, wu)
+    ok, err = _compare(out, sw.fused_swiglu_plain(x, wg, wu),
+                       **TOL["float32"])
+    check(ok and bool(out.isfinite().all()), "examples",
+          f"fused_swiglu {case} float32 {variant}: max_abs_err {err}")
+    w_cat = torch.cat([wg, wu], dim=-1)
+    ms, plain_ms, library_ms = _in_turns(torch, [
+        (lambda: sw.fused_swiglu(x, wg, wu), 20),
+        (lambda: sw.fused_swiglu_plain(x, wg, wu), 20),
+        (lambda: torch.matmul(x, w_cat), 20)])
+    bound_ms, bound_by, flops, nbytes = swiglu_bound(case, "float32")
+    emit({"phase": "kernel_times", "ok": True, "gpu": gpu,
+          "kernel": "fused_swiglu", "path": path,
+          "shape": dict(zip("e m k f".split(), case)), "dtype": "float32",
+          "variant": variant, "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "roofline_share": bound_ms / ms})
+    del x, wg, wu, out, w_cat
+    return {"name": "fused_swiglu", "route": "cuda", "variant": variant,
+            "source": "src/repro_torch/kernels/fused_swiglu/csrc/"
+                      + sw.SOURCES[variant].name,
+            "replaces": "src/repro/kernels/fused_swiglu/kernel.py:56",
+            "path": path, "shape": list(case), "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_examples(torch, kernels, gpu):
-    """The three examples' ``main`` on the card at their default sizes,
+    """The four examples' ``main`` on the card at their default sizes,
     each with its own assertions (a falling loss among them); their
     output is kept in build/example_logs/ and their wall times printed.  The
     paper's graph path launches no kernel of the transformer path; the
-    quickstart's reduced LM launches only the SwiGLU kernel, as many times
-    as its train steps' forwards."""
+    quickstart's reduced LM and the pretrain example's LM launch only the
+    SwiGLU kernel, as many times as their train steps' forwards.  Returns
+    the pretrain example's SwiGLU row."""
+    import shutil
+
     out_dir = ROOT / "build" / "example_logs"
     out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = out_dir / "torch_distributed_pretrain_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     walls, summary, launches = {}, {}, {}
     for name in EXAMPLES:
         log = out_dir / f"{name}.log"
@@ -4919,7 +4981,10 @@ def phase_examples(torch, kernels, gpu):
         t0 = time.perf_counter()
         example = _example(name)
         with open(log, "w") as f, contextlib.redirect_stdout(f):
-            out = example.main()
+            if name == "torch_distributed_pretrain":
+                out = example.main(["--ckpt-dir", str(ckpt_dir)])
+            else:
+                out = example.main()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         launches[name] = {m.__name__.split(".")[-2]: m.LAUNCHES
@@ -4927,6 +4992,8 @@ def phase_examples(torch, kernels, gpu):
         want = dict.fromkeys(launches[name], 0)
         if name == "torch_quickstart":
             want["fused_swiglu"] = _quickstart_swiglu_launches(example)
+        if name == "torch_distributed_pretrain":
+            want["fused_swiglu"] = _pretrain_swiglu_launches(example)
         check(launches[name] == want, "examples",
               f"{name} launched {launches[name]}, expected {want}")
         if name == "torch_quickstart":
@@ -4935,13 +5002,31 @@ def phase_examples(torch, kernels, gpu):
                              "async_overlap": out["async"]
                              ["achieved_overlap"],
                              "served": out["serve"]["serve"]["completed"]}
+        elif name == "torch_distributed_pretrain":
+            check(out["final_loss"] < out["first"], "examples",
+                  f"{name}: loss {out['first']} -> {out['final_loss']}")
+            times = sorted(h["time_s"] for h in out["history"][1:])
+            summary[name] = {"loss_first": out["first"],
+                             "loss_final": out["final_loss"],
+                             "params": out["n_params"],
+                             "logged_step_s_median": times[len(times) // 2],
+                             "checkpoints": sorted(
+                                 p.name for p in ckpt_dir.glob("step_*"))}
         else:
             summary[name] = {"loss_first": out["losses"][0],
                              "loss_last": out["losses"][-1],
                              "steps": len(out["losses"])}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     _zero(*kernels)
     emit({"phase": "examples", "ok": True, "gpu": gpu, "wall_s": walls,
           "launches": launches, "results": summary})
+    sw = next(m for m in kernels if m.__name__.endswith("fused_swiglu.kernel"))
+    row = _swiglu_fp32_row(
+        torch, sw, gpu, PRETRAIN_SWIGLU,
+        "examples/torch_distributed_pretrain.py MLP, train step (fp32)")
+    row["launches"] = launches["torch_distributed_pretrain"]["fused_swiglu"]
+    _zero(*kernels)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5053,6 +5138,9 @@ DIST_SHAPES = {"xlstm-1.3b": (1024, 4, 2)}
 # kernel path's branches: 134 normwise, 0.52 unpinned; PERF.md section 6)
 DIST_PINNED_RUNS = ("xlstm-1.3b",)
 DIST_MESH = (2, 2)
+# (l)'s multi-pod step: the reference's (pod, data, model) mesh at four
+# ranks, llama3.2-3b at one layer in fp32 (the extras' model)
+DIST_POD_MESH = (2, 1, 2)
 DIST_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DIST_FLASH = {   # each rank's shapes on the (2, 2) mesh, one sequence
     "llama3.2-3b": (1, 12, 4, 4096, 4096, 128, True, 512, 1024),
@@ -5340,7 +5428,9 @@ def _dist_one_rank(torch, fa, sw):
     without a mesh from the same parameters, 2 sequences of 4096 in 2
     micro-batches (train (a)'s); fp32 at depth 2 within 1e-6, bf16 at
     depth 4 normwise within 2e-2, the flash and SwiGLU launches by shape
-    equal (bf16: train (a)'s shapes, all wgmma)."""
+    equal (bf16: train (a)'s shapes, all wgmma).  Then the same step on
+    the multi-pod mesh (pod, data, model) = (1, 1, 1): its loss, every
+    gradient and its launches bit for bit the (1, 1) step's."""
     from collections import Counter
 
     import torch.distributed as dist
@@ -5360,13 +5450,14 @@ def _dist_one_rank(torch, fa, sw):
     out = {"backend": dist.get_backend()}
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
+        pod_mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
         shape = ShapeConfig("train_4k", DIST_SEQ, TRAIN_BATCH, "train")
         for dtype, depth in DIST_K_DEPTH.items():
             cfg = _dist_cfg("llama3.2-3b", n_layers=depth, dtype=dtype)
             model = build_model(cfg)
             batch = _dist_batch(torch, cfg, TRAIN_BATCH)
             runs = []
-            for where in (None, mesh):
+            for where in (None, mesh, pod_mesh):
                 grads = {}
                 bundle = make_train_step(
                     model, _capture(grads, make_optimizer("adamw")), shape,
@@ -5381,7 +5472,12 @@ def _dist_one_rank(torch, fa, sw):
                 runs.append((loss, grads, Counter(fc), Counter(sc)))
                 del params, state, bundle, metrics
                 torch.cuda.empty_cache()
-            (l1, g1, f1, s1), (l2, g2, f2, s2) = runs
+            (l1, g1, f1, s1), (l2, g2, f2, s2), (l3, g3, f3, s3) = runs
+            pod_equal = l3 == l2 and f3 == f2 and s3 == s2 \
+                and all(torch.equal(g3[n], g2[n]) for n in g2)
+            check(pod_equal, "dist", f"(k) {dtype}: the (1, 1, 1) pod mesh "
+                  f"step differs from the (1, 1) step (loss {l3} vs {l2})")
+            del g3
             tol = 1e-6 if dtype == "float32" else 2e-2
             loss_rel = abs(l2 - l1) / abs(l1)
             if dtype == "float32":
@@ -5403,6 +5499,7 @@ def _dist_one_rank(torch, fa, sw):
                                          runs_per}), "dist",
                       f"(k) launches {dict(f2)} {dict(s2)}")
             out[dtype] = {"depth": depth, "loss": l2, "loss_one_device": l1,
+                          "pod_mesh_bit_for_bit": pod_equal,
                           "loss_rel": loss_rel, "grad_rel": err,
                           "flash_launches": sum(f2.values()),
                           "swiglu_launches": sum(s2.values())}
@@ -6012,8 +6109,9 @@ def _int8_moments(torch, mu):
 
 def _dist_extra_refs(torch, out_dir):
     """The one-rank runs of (l)'s llama3.2-3b extras: the prefill logits
-    and then one train step's loss and grads at a batch of 1; two int8
-    AdamW steps' losses and moments.  Written under ``out_dir``."""
+    and then one train step's loss and grads at a batch of 1; one train
+    step's loss and grads at DIST_BATCH (the pod mesh's); the int8 AdamW
+    steps' losses and moments.  Written under ``out_dir``."""
     import gc
 
     from repro_torch.configs.base import ShapeConfig
@@ -6031,6 +6129,18 @@ def _dist_extra_refs(torch, out_dir):
                 "grads": {n: g.cpu() for n, g in grads.items()}},
                out_dir / "ref_b1.pt")
     del model, params, logits, grads, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, DIST_BATCH)
+    grads = {}
+    step = make_train_step(model, _capture(grads), ShapeConfig(
+        "train_4k", DIST_SEQ, DIST_BATCH, "train"))
+    _, _, metrics = step(params, {}, batch)
+    torch.save({"loss": float(metrics["loss"]),
+                "grads": {n: g.cpu() for n, g in grads.items()}},
+               out_dir / "ref_pod.pt")
+    del model, params, grads, step, metrics
     gc.collect()
     torch.cuda.empty_cache()
     model, params = _extra_model(torch)
@@ -6120,6 +6230,7 @@ def _dist_rank_extras(torch, mesh, out_dir):
                  "counted": _counted(fc, bc)}
     del model, params, state, bundle, prefill, grads, ref, metrics
     torch.cuda.empty_cache()
+    out["pod"] = _dist_rank_pod(torch, out_dir)
     # ---- int8 AdamW, DIST_INT8_STEPS steps ------------------------------
     model, params = _extra_model(torch)
     batch = _dist_batch(torch, model.cfg, DIST_BATCH)
@@ -6213,6 +6324,70 @@ def _dist_rank_extras(torch, mesh, out_dir):
     return out
 
 
+def _dist_rank_pod(torch, out_dir):
+    """One of (l)'s ranks on the multi-pod mesh (pod, data, model) =
+    DIST_POD_MESH: llama3.2-3b's fp32 train step at DIST_BATCH sequences
+    (one a (pod, data) rank), each gradient leaf and the loss against the
+    one-rank step's, the kernels' launches and the bytes all-reduced over
+    ``pod``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_train_step
+
+    mesh = make_mesh(DIST_POD_MESH, ("pod", "data", "model"), device="cpu")
+    model, params = _extra_model(torch)
+    batch = _dist_batch(torch, model.cfg, DIST_BATCH)
+    grads = {}
+    bundle = make_train_step(
+        model, _capture(grads, make_optimizer("adamw")),
+        ShapeConfig("train_4k", DIST_SEQ, DIST_BATCH, "train"), mesh=mesh)
+    params = bundle.shard_params(params)
+    state = bundle.init_state(params)
+    ref = torch.load(Path(out_dir) / "ref_pod.pt", mmap=True,
+                     weights_only=True)
+    _zero(fa, sw)
+    C.reset_tally()
+    with _launch_calls(fa, _flash_key) as fcalls, \
+            _launch_calls(sw, _swiglu_key) as scalls, \
+            C.record_calls() as calls:
+        t0 = time.perf_counter()
+        _, _, metrics = bundle(params, state, batch)
+        loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+    coll = analyze_collectives(calls=calls)
+    o_shard = bundle.in_shardings[1]
+    names = sorted(grads)
+    stats = torch.zeros(2, len(names), dtype=torch.float64)
+    for i, n in enumerate(names):
+        want = o_shard["mu"][n]["m"].shard(ref["grads"][n]).to("cuda")
+        stats[0, i] = (grads[n] - want).abs().max().item()
+        stats[1, i] = want.abs().max().item()
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    rel = (stats[0] / stats[1].clamp_min(1e-30)).tolist()
+    pod_bytes = sum(d["operand_bytes"]
+                    for axis, kinds in coll["per_axis"].items()
+                    if "pod" in axis.split("+") for d in kinds.values())
+    loss_ref = ref["loss"]
+    del model, params, state, bundle, grads, ref, metrics
+    torch.cuda.empty_cache()
+    return {"mesh": list(DIST_POD_MESH), "loss": loss,
+            "loss_ref": loss_ref,
+            "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "leaf_rel": dict(zip(names, rel)),
+            "flash_calls": [list(c) for c in fcalls],
+            "swiglu_calls": [list(c) for c in scalls],
+            "step_s": step_s, "collectives_by_axis": coll["per_axis"],
+            "collective_bytes": coll["collective_bytes"],
+            "pod_axis_bytes": pod_bytes}
+
+
 def _dist_decode_checks(ranks, swiglu, spread):
     """(l)'s decode results: every family's logits and state within its
     dtype's gate of the one-rank run's (bf16: twice ``spread``, the
@@ -6296,13 +6471,27 @@ def _dist_long_checks(ranks, swiglu, spread):
 
 
 def _dist_extra_checks(ranks):
-    """llama3.2-3b at a batch of 1: loss and each gradient leaf within
-    1e-4 of one rank's, the prefill logits within 1e-4 normwise, the
-    flash and SwiGLU kernels launched; int8 AdamW: the losses within
-    1e-4, every moment within one quantisation step of one rank's own
-    (q entries differing by at most 1, counted), the parameters within
-    1e-5 of one rank's update of the mesh's gradients."""
+    """llama3.2-3b on the pod mesh: loss and each gradient leaf within
+    1e-4 of one rank's, the flash and SwiGLU kernels launched on every
+    rank, bytes all-reduced over ``pod``; at a batch of 1: loss and each
+    gradient leaf within 1e-4 of one rank's, the prefill logits within
+    1e-4 normwise, the flash and SwiGLU kernels launched; int8 AdamW: the
+    losses within 1e-4, every moment within one quantisation step of one
+    rank's own (q entries differing by at most 1, counted), the
+    parameters within 1e-5 of one rank's update of the mesh's
+    gradients."""
     b1, i8 = ranks[0]["extras"]["b1"], ranks[0]["extras"]["int8"]
+    pod = ranks[0]["extras"]["pod"]
+    pod_worst = max(pod["leaf_rel"].values())
+    check(pod["loss_rel"] <= 1e-4 and pod_worst <= 1e-4, "dist",
+          f"(l) pod mesh {pod['mesh']}: loss {pod['loss_rel']}, grads "
+          f"{pod_worst}")
+    check(all(rk["extras"]["pod"]["flash_calls"]
+              and rk["extras"]["pod"]["swiglu_calls"]
+              and rk["extras"]["pod"]["pod_axis_bytes"] > 0
+              for rk in ranks), "dist",
+          "(l) pod mesh: a rank launched no flash or SwiGLU kernel or "
+          "all-reduced nothing over pod")
     worst = max(b1["leaf_rel"].values())
     check(b1["loss_rel"] <= 1e-4 and worst <= 1e-4
           and b1["prefill_rel"] <= 1e-4, "dist",
@@ -6325,6 +6514,12 @@ def _dist_extra_checks(ranks):
                    "grad_rel": worst,
                    "flash_launches": len(b1["flash_calls"]),
                    "swiglu_launches": len(b1["swiglu_calls"])},
+            "pod": {**{k: v for k, v in pod.items()
+                       if k not in ("leaf_rel", "flash_calls",
+                                    "swiglu_calls")},
+                    "grad_rel": pod_worst,
+                    "flash_launches": len(pod["flash_calls"]),
+                    "swiglu_launches": len(pod["swiglu_calls"])},
             "int8": {**i8, "loss_rel": loss_rel}}
 
 

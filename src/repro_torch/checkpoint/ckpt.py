@@ -12,9 +12,12 @@ Port of ``repro/checkpoint/ckpt.py``.  One directory per step:
 * async: ``save`` copies every leaf to host memory (the blocking part,
   device -> host) and a background thread writes the files;
 * per-rank shards: on a mesh (``n_hosts`` ranks, ``host_id`` this one)
-  each rank writes only its own blocks; host 0 waits for every rank's
-  file, then writes the manifest (each leaf's placement and the mesh, so
-  a block's place in the global leaf is known) and publishes;
+  each rank writes only its own blocks, and a block that several ranks
+  hold (replicated over ``pod``, or over ``model`` for a weight every
+  model rank holds whole) only once, by the rank at index 0 of every
+  axis its placement does not use; host 0 waits for every rank's file,
+  then writes the manifest (each leaf's placement and the mesh, so a
+  block's place in the global leaf is known) and publishes;
 * atomic publish: files go to ``step_<n>.tmp``, renamed once the manifest
   is written, so a crash mid-save never leaves a half checkpoint that
   ``all_steps`` would list;
@@ -26,7 +29,7 @@ the manifests read alike.  bfloat16 leaves, which npz cannot hold, are
 stored as their uint16 bits and the manifest records ``bfloat16``.
 
 Restore is elastic: one leaf at a time is assembled whole from the shard
-files (each block at its place, replicas written over each other) and,
+files (each block at its place, from the rank that wrote it) and,
 given ``shardings``, each rank keeps its block under the current
 placement, so a run saved on N ranks resumes on M; without them the whole
 leaf.  Either way it is copied into the target tree's tensor, in place,
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import threading
@@ -68,7 +72,11 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     t = t.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).cpu().numpy(), "bfloat16"
-    return t.cpu().numpy(), str(t.dtype).removeprefix("torch.")
+    return t.cpu().numpy(), _dtype_name(t)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
@@ -115,24 +123,29 @@ class CheckpointManager:
         bundle's ``in_shardings``) says which block of each global leaf
         this rank's tensor is; every rank saves with the same tree."""
         self.wait()
-        snap = [(name, *_to_numpy(leaf))
-                for name, leaf in flatten_with_paths(tree)]
         specs = {n: sh for n, sh in flatten_with_paths(shardings)} \
             if shardings is not None else {}
+        leaves = flatten_with_paths(tree)
+        # every leaf's shape and dtype, this rank's block of the leaves it
+        # writes (a replica is written by its first holder only)
+        meta = [(name, list(leaf.shape), _dtype_name(leaf))
+                for name, leaf in leaves]
+        snap = {name: _to_numpy(leaf)[0] for name, leaf in leaves
+                if name not in specs or specs[name].first_replica()}
         mesh = _mesh_info(shardings) if shardings is not None else None
 
-        def global_shape(name, a):
+        def global_shape(name, shape):
             sh = specs.get(name)
             if sh is None:
-                return list(a.shape)
-            return [n * sh.parts(d) for d, n in enumerate(a.shape)]
+                return shape
+            return [n * sh.parts(d) for d, n in enumerate(shape)]
 
         def write():
             tmp = self.dir / f"step_{step}.tmp"
             final = self.dir / f"step_{step}"
             tmp.mkdir(parents=True, exist_ok=True)
             part = tmp / f"shard_{self.host_id}.part.npz"
-            np.savez(part, **{n: a for n, a, _ in snap})
+            np.savez(part, **snap)
             part.rename(tmp / f"shard_{self.host_id}.npz")
             if self.host_id != 0:
                 return
@@ -142,13 +155,13 @@ class CheckpointManager:
                 "time": time.time(),
                 "n_hosts": self.n_hosts,
                 "mesh": mesh,
-                "treedef": f"{len(snap)} leaves",
+                "treedef": f"{len(meta)} leaves",
                 "leaves": [
-                    {"name": n, "global_shape": global_shape(n, a),
-                     "dtype": dt, "shard_shape": list(a.shape),
+                    {"name": n, "global_shape": global_shape(n, shape),
+                     "dtype": dt, "shard_shape": shape,
                      "spec": _spec_json(specs[n].spec) if n in specs
                      else None}
-                    for n, a, dt in snap
+                    for n, shape, dt in meta
                 ],
             }
             (tmp / "manifest.json").write_text(json.dumps(manifest))
@@ -271,7 +284,9 @@ def _spec_json(spec) -> List:
 
 def _assemble(leaf: Dict, files, mesh: Optional[Dict]) -> np.ndarray:
     """The global leaf from every rank's block of it (one file's whole
-    leaf when the checkpoint records no placement)."""
+    leaf when the checkpoint records no placement).  A block several
+    ranks held is in the file of the one that wrote it; every block must
+    be in one."""
     name = leaf["name"]
     if leaf.get("spec") is None or mesh is None:
         return files[0][name]
@@ -282,8 +297,15 @@ def _assemble(leaf: Dict, files, mesh: Optional[Dict]) -> np.ndarray:
     sh = NamedSharding(Mesh(mesh["shape"], mesh["axes"]), spec)
     first = files[0][name]
     out = np.empty(leaf["global_shape"], dtype=first.dtype)
+    blocks = set()
     for host, f in enumerate(files):
-        out[sh.index(out.shape, _coords(host, mesh))] = f[name]
+        if name in f.files:
+            at = sh.index(out.shape, _coords(host, mesh))
+            out[at] = f[name]
+            blocks.add(tuple((s.start, s.stop) for s in at))
+    if len(blocks) != math.prod(sh.parts(d) for d in range(out.ndim)):
+        raise ValueError(f"{name}: the shard files hold {len(blocks)} of "
+                         "its blocks, not all")
     return out
 
 

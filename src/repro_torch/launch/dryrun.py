@@ -32,12 +32,14 @@ needs the card's memory, so the CPU takes reduced configs
 world runs one sharded step of the cell (``train/step.py:build_step``:
 train with the reference's optimizer-state dtype, prefill, or decode,
 ``long_500k`` included) and rank 0 writes
-``<arch>__<shape>__<data>x<model>.json`` with the rank's counted FLOPs
+``<arch>__<shape>__<data>x<model>.json`` (a pod mesh's
+``<pod>x<data>x<model>``, its ``"mesh"`` marked ``"multipod"`` as the
+reference marks its (2, 16, 16) records) with the rank's counted FLOPs
 and bytes, the step's collectives per kind (``launch/comm_analysis.py``:
 the reference's ``per_op``, ``collective_operand_bytes``,
-``collective_result_bytes``, ``collective_bytes``), its seconds, its loss
-and its roofline row with the collective term
-(``launch.train --distributed --dry-run``).
+``collective_result_bytes``, ``collective_bytes``, and ``per_axis``), its
+seconds, its loss and its roofline row with the collective term
+(``launch.train --distributed [--multi-pod] --dry-run``).
 """
 
 from __future__ import annotations
@@ -172,6 +174,12 @@ def mesh_name(mesh) -> str:
     return "x".join(str(n) for n in mesh.shape.values())
 
 
+def mesh_kind(mesh) -> str:
+    """A record's ``"mesh"``: ``multipod`` for a mesh with a ``pod``
+    axis (the reference's name), else its shape."""
+    return "multipod" if "pod" in mesh.shape else mesh_name(mesh)
+
+
 # the reference's optimizer-state dtype a cell trains with (int8 blocks for
 # the two largest models, fp32 elsewhere): repro/launch/dryrun.py
 OPT_STATE_DTYPE = {
@@ -249,11 +257,12 @@ def run_mesh_cell(arch: str, shape_name: str, mesh, out_dir: Path = RESULTS,
         torch.cuda.reset_peak_memory_stats(dev)
     C.reset_tally()
     t0 = time.perf_counter()
-    with counting() as (fc, bc):
+    with counting() as (fc, bc), C.record_calls() as calls:
         out = bundle(*args)
         loss = float(out[2]["loss"]) if train else None
     seconds = time.perf_counter() - t0
-    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh),
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind(mesh),
+           "mesh_shape": mesh_name(mesh), "axes": list(mesh.axis_names),
            "chips": math.prod(mesh.shape.values()), "kind": shape.kind,
            "seq_len": shape.seq_len,
            "global_batch": shape.global_batch,
@@ -262,7 +271,8 @@ def run_mesh_cell(arch: str, shape_name: str, mesh, out_dir: Path = RESULTS,
            "state_dtype": state_dtype if train else None,
            "matmul_param_count": matmul_params(cfg),
            "probe": mesh_probe(cfg, shape, mesh, fc, bc, on_card),
-           "collectives": analyze_collectives(), "step_s": seconds,
+           "collectives": analyze_collectives(calls=calls),
+           "step_s": seconds,
            "measured_peak_bytes": (torch.cuda.max_memory_allocated(dev)
                                    if on_card else None),
            "loss": loss}

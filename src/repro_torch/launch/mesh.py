@@ -7,14 +7,18 @@ holds the ``torch.distributed`` ``DeviceMesh`` whose per-axis groups carry
 the collectives (``repro_torch.sharding.collectives``).  The axes keep the
 reference's meaning:
 
-    pod    -- across pods: pure data parallelism (a second host; out of
-              scope here)
+    pod    -- across pods: pure data parallelism (the batch splits over
+              (pod, data), the parameters are replicated over it)
     data   -- data parallelism / FSDP / sequence parallelism
     model  -- tensor parallelism: heads, mlp columns, vocabulary
 
 Ranks are laid out row-major over the axes, as ``init_device_mesh`` lays
 them: on a (data, model) = (2, 2) mesh rank ``r`` sits at data ``r // 2``,
-model ``r % 2``, so the model groups are {0, 1} and {2, 3}.
+model ``r % 2``, so the model groups are {0, 1} and {2, 3}; on a (pod,
+data, model) = (2, 1, 2) mesh the pod groups are {0, 2} and {1, 3}.
+``torch.distributed`` does not ask whether two ranks share a host, so a
+pod mesh over four cards of one host runs the code two hosts would run;
+only the rendezvous differs.
 
 Nothing here touches a device at import.  The card's constants are in
 ``launch/hw.py``; the reference's TPU constants are not carried over.
@@ -49,15 +53,29 @@ class Mesh:
         return {a: self.device_mesh.get_local_rank(a)
                 for a in self.axis_names}
 
+    def wide(self, axes) -> Tuple[str, ...]:
+        """The axes of ``axes`` (one name or a tuple) with more than one
+        rank, in the mesh's order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+
     def group(self, axis):
-        """The process group of this rank's line along ``axis``; for a
-        tuple of axes that holds every axis of more than one rank, the
-        world's (the mesh covers it: :func:`make_mesh`)."""
+        """The process group of this rank's line along ``axis``: one axis,
+        or a tuple of axes whose axes of more than one rank are one axis
+        (that axis's group) or every such axis of the mesh (the world's).
+        Any other tuple raises: :func:`collectives.all_reduce` runs one
+        collective an axis there."""
         if self.device_mesh is None:
             raise RuntimeError("an abstract mesh has no process groups")
         if isinstance(axis, tuple):
-            wide = {a for a, n in self.shape.items() if n > 1}
-            if not wide <= set(axis):
+            wide = self.wide(axis)
+            if not wide:
+                raise ValueError(f"{axis} of {self} has no axis of more "
+                                 "than one rank: no collective is needed")
+            if len(wide) == 1:
+                return self.device_mesh.get_group(wide[0])
+            if wide != self.wide(self.axis_names):
                 raise ValueError(f"no process group over {axis} of {self}:"
                                  " a group of several axes spans the mesh")
             import torch.distributed as dist
@@ -102,13 +120,28 @@ def make_test_mesh(n_devices: Optional[int] = None, *, model: int = 2,
     return make_mesh((data, model), ("data", "model"), device=device)
 
 
+def make_pod_mesh(n_devices: Optional[int] = None, *, model: int = 2,
+                  device: Optional[str] = None) -> Mesh:
+    """(pod, data, model) = (2, data, model) over ``n_devices`` ranks (the
+    world's by default): the reference's multi-pod (2, 16, 16) shape at
+    the world's size, data = n // (2 model).  Four ranks make (2, 1, 2),
+    or (2, 2, 1) with ``model=1``."""
+    import torch.distributed as dist
+    n = n_devices or dist.get_world_size()
+    if n % (2 * model):
+        raise ValueError(f"a pod mesh (2, data, {model}) does not divide "
+                         f"{n} ranks")
+    return make_mesh((2, n // (2 * model), model), ("pod", "data", "model"),
+                     device=device)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's 256-chip (16, 16) and 512-chip (2, 16, 16) meshes
-    need as many cards on one pod's interconnect (and a second host for the
-    pod axis): out of scope here."""
+    need as many cards (at most four share a host here): out of scope.
+    :func:`make_pod_mesh` is the multi-pod shape at the world's size."""
     shape = "(2, 16, 16) pod x data x model" if multi_pod \
         else "(16, 16) data x model"
     raise NotImplementedError(
         f"the production mesh {shape} spans {512 if multi_pod else 256} "
         "chips; the port runs on one host of at most four cards: use "
-        "make_mesh or make_test_mesh")
+        "make_mesh, make_test_mesh or make_pod_mesh")

@@ -29,8 +29,10 @@ add), and ``roofline_fraction`` the model FLOPs per second the slower
 term allows, over the peak.  Given a measured step time, ``mfu`` is the
 model FLOPs per second it achieved, over the peak.
 
-The ``roofline`` table is this module's; the ``dryrun`` table lists every
-record's status, micro-batch and bytes.
+The ``roofline`` table is this module's; the ``dryrun`` tables list
+every record's status, micro-batch and bytes, the single-pod records
+(one card, or a (data, model) mesh) apart from the multi-pod ones (a
+(pod, data, model) mesh), as ``results/gen_tables.py`` prints them.
 """
 
 from __future__ import annotations
@@ -134,15 +136,18 @@ def analyze_cell(rec: Dict, step_s: Optional[float] = None
     row["device"] = rec.get("device")
     row["peak_bytes"] = rec.get("measured_peak_bytes")
     if mesh:
-        row["mesh"] = rec["mesh"]
+        row["mesh"] = rec.get("mesh_shape", rec["mesh"])
     else:
         row["reckoned_bytes"] = rec["reckoned"]["total_bytes"]
     return row
 
 
 def load_records(results_dir: Path = RESULTS) -> List[Dict]:
+    """Every dry-run record (``<arch>__<shape>__<mesh>.json``) in
+    ``results_dir``; other JSON files there (the multi-pod probe's) are
+    not records."""
     return [json.loads(p.read_text())
-            for p in sorted(Path(results_dir).glob("*.json"))]
+            for p in sorted(Path(results_dir).glob("*__*__*.json"))]
 
 
 def format_table(rows: List[Dict]) -> str:
@@ -173,7 +178,8 @@ def dryrun_table(records: List[Dict]) -> str:
         if r["status"] == "ok" and "chips" in r:        # a mesh record
             peak = r["measured_peak_bytes"]
             lines.append(
-                f"{r['arch']:24s} {r['shape']:12s} {'ok ' + r['mesh']:>12s} "
+                f"{r['arch']:24s} {r['shape']:12s} "
+                f"{'ok ' + r.get('mesh_shape', r['mesh']):>12s} "
                 f"{r['microbatches']:>10d} {'-':>12s} "
                 + (f"{peak / 1e9:9.2f} " if peak is not None
                    else f"{'-':>9s} ") + f"{r['step_s']:8.1f}")
@@ -216,7 +222,11 @@ def main(argv=None) -> None:
         rec, steps.get(f"{rec['arch']}:{rec['shape']}")) for rec in records)
         if r is not None]
     if args.table in ("dryrun", "all"):
-        print(dryrun_table(records))
+        multi = [r for r in records if r.get("mesh") == "multipod"]
+        print("### single-pod (one card, or a (data, model) mesh)\n")
+        print(dryrun_table([r for r in records if r not in multi]))
+        print("\n### multi-pod (a (pod, data, model) mesh)\n")
+        print(dryrun_table(multi))
     if args.table in ("roofline", "all"):
         print(format_table(rows))
     if args.json_out:

@@ -5,7 +5,7 @@
         [--heartbeat-dir H] [--device cpu] [--test-mesh] [--dry-run] \
         [--stub-frontend]
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch llama3.2-3b --distributed --test-mesh
+        --arch llama3.2-3b --distributed --test-mesh [--multi-pod]
 
 Port of ``repro/launch/train.py``: ``Trainer`` -> ``make_train_step`` ->
 ``model.loss_fn`` with AdamW (the reference's defaults, fp32 state, or
@@ -46,8 +46,17 @@ that does not split over the mesh (``--batch 1``: every rank takes every
 row) and int8 moments (``--optimizer adamw_int8``) included; with
 ``--dry-run`` it writes the mesh cell's record of one sharded step, its
 counted FLOPs and bytes, its collectives and its roofline row
-(``dryrun.run_mesh_cell``).  ``--multi-pod`` raises: a
-second pod is a second host.
+(``dryrun.run_mesh_cell``).
+
+``--multi-pod`` (with ``--distributed``) trains on the reference's
+multi-pod mesh at the world's size instead, ``make_pod_mesh``: (pod,
+data, model) = (2, world / 4, 2), or (2, 1, 1) on a world of two: the
+batch over (pod, data),
+the parameters replicated over ``pod`` (the reference's step makes no
+other use of the axis).  With ``--dry-run`` it writes the pod mesh's
+record, ``<arch>__<shape>__<pod>x<data>x<model>.json`` marked ``"mesh":
+"multipod"``.  Without ``--distributed`` it raises: a pod mesh needs a
+world of ranks.
 """
 
 from __future__ import annotations
@@ -88,7 +97,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--test-mesh", action="store_true",
                     help="reduced config at sequence 64, batch 8")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a second pod is a second host: out of scope")
+                    help="with --distributed: train on the (pod, data, "
+                         "model) mesh, (2, world / (2 model), model)")
     ap.add_argument("--dry-run", action="store_true",
                     help="run the cell's cost probe instead of training")
     ap.add_argument("--dryrun-dir", default=None,
@@ -155,10 +165,10 @@ def _join_world(args):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parser().parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod needs a second pod, that is a second host: out of "
-            "scope (ROADMAP item 11)")
+    if args.multi_pod and not args.distributed:
+        raise ValueError(
+            "--multi-pod trains on a (pod, data, model) mesh, which needs a "
+            "world of ranks: pass --distributed (under torchrun)")
     if args.distributed:
         import torch.distributed as dist
         rank, world, device = _join_world(args)
@@ -171,7 +181,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
 def _run(args, *, rank: int = 0, world: int = 1, device=None) -> Dict:
     mesh = None
-    if args.distributed:
+    if args.multi_pod:
+        from repro_torch.launch.mesh import make_pod_mesh
+        mesh = make_pod_mesh(model=min(2, max(world // 2, 1)),
+                             device=device.type)
+    elif args.distributed:
         from repro_torch.launch.mesh import make_test_mesh
         mesh = make_test_mesh(model=min(2, world), device=device.type)
     device = device if device is not None else args.device

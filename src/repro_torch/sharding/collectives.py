@@ -111,15 +111,14 @@ def _sum_dtype(t: torch.Tensor) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, axis, *, op: str = "sum",
                mesh=None) -> torch.Tensor:
     """The sum (or ``op="max"``) of ``t`` over ``axis``, a new tensor in
-    t's dtype.  ``axis`` may be a tuple of axes: one collective over all
-    of them where they span the mesh (every axis of more than one rank),
-    else one over each."""
+    t's dtype.  ``axis`` may be a tuple of axes: one collective where its
+    axes of more than one rank are one axis or span the mesh (recorded
+    under that axis, or the tuple of them), else one over each."""
     import torch.distributed as dist
     mesh = _mesh(mesh)
     if isinstance(axis, tuple):
-        axes = tuple(a for a in axis if mesh.shape[a] > 1)
-        if len(axes) > 1 and not {a for a, n in mesh.shape.items()
-                                  if n > 1} <= set(axes):
+        axes = mesh.wide(axis)
+        if len(axes) > 1 and axes != mesh.wide(mesh.axis_names):
             for a in axes:
                 t = all_reduce(t, a, op=op, mesh=mesh)
             return t

@@ -162,6 +162,16 @@ class NamedSharding:
         return math.prod(n for a, n in self.mesh.shape.items()
                          if a not in used)
 
+    def first_replica(self, coords: Optional[Dict[str, int]] = None
+                      ) -> bool:
+        """Whether this rank (or ``coords``) is the first of the ranks
+        that hold its block: index 0 on every axis the spec does not
+        use."""
+        coords = self.mesh.coords() if coords is None else coords
+        used = set(self.used_axes())
+        return all(coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in used)
+
     def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
         out = []
         for dim, n in enumerate(global_shape):

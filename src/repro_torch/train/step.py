@@ -5,7 +5,8 @@ and ``make_decode_step``, and ``build_step``, which picks one by the shape's
 kind.  Without a mesh the steps are the model calls themselves (the serve
 steps without autograd).  With a mesh (``repro_torch.launch.mesh``) every
 family's train, prefill and decode steps run sharded over ``(data,
-model)``, every placement from the reference's rule tables
+model)`` or ``(pod, data, model)``, every placement from the reference's
+rule tables
 (``repro_torch.sharding``):
 
 * each parameter is stored as this rank's block of it
@@ -25,7 +26,8 @@ model)``, every placement from the reference's rule tables
   every ``model`` rank;
 * after the backward each gradient is summed over the batch axes (an
   FSDP gather's backward has reduce-scattered it over ``data`` already; a
-  ZeRO-1 parameter's is reduce-scattered to its moment's block) and, for
+  ZeRO-1 parameter's is reduce-scattered to its moment's block; then the
+  block is all-reduced over ``pod``, where the mesh has one) and, for
   a replicated parameter each ``model`` rank computes only part of (the
   attention weights where the ranks split the heads, the router where
   they split the experts, a mamba layer's ``A_log``, ``D`` and
@@ -192,8 +194,12 @@ def make_train_step(model: Model, optimizer: Optimizer, shape: ShapeConfig,
             # each model rank computed its own part through this
             # replicated parameter: the parts of its gradient add up
             g = C.all_reduce(g, "model")
-        for axis in batch_axes:
-            if axis in p_shard[n].used_axes():
+        # the axes that cut the gradient first (data's reduce-scatter),
+        # so that the others (pod's all-reduce) sum the block only
+        used = p_shard[n].used_axes() if batch_axes else ()
+        cuts = {a for _, a in zero[n]} | set(used)
+        for axis in sorted(batch_axes, key=lambda a: a not in cuts):
+            if axis in used:
                 continue            # the FSDP gather's reduce-scatter
             dims = [d for d, a in zero[n] if a == axis]
             g = C.reduce_scatter(g, axis, dims[0]) if dims \

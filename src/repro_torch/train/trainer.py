@@ -5,11 +5,14 @@ Port of ``repro/train/trainer.py``, on one device or on a mesh:
     restore-or-init -> [train_step -> heartbeat -> watchdog -> ckpt]* -> final
 
 On a mesh (``Trainer(..., mesh=...)``, every rank of the world running
-the same trainer with ``TrainerConfig(host_id=rank, n_hosts=world)``)
+the same trainer with ``TrainerConfig(host_id=rank, n_hosts=world)``, the
+rank and the world also naming its heartbeats and its watchdog's host)
 each rank holds its blocks of the parameters and the AdamW state
-(``train/step.py``), draws the same global batch and takes its rows, and
-saves and restores its own blocks (``checkpoint/ckpt.py``: a run saved on
-one mesh resumes on another).
+(``train/step.py``), draws the same global batch and takes its rows (over
+(pod, data) on a multi-pod mesh), and saves and restores its own blocks
+(``checkpoint/ckpt.py``: a block the pods replicate is written once, and
+a run saved on one mesh resumes on another: a (2, 1, 2) run on (2, 2) or
+on one device).
 
 One difference: a checkpoint is labelled with the number of steps it has
 completed.  The reference labels it with the index of the step that has

@@ -381,14 +381,16 @@ def test_launch_train_test_mesh_on_the_cpu(capsys):
 
 
 # --dry-run runs the cost probe on one card (tests/test_torch_probe.py);
-# a dry run of the pod mesh still raises, as --multi-pod does (a second
-# pod is a second host).  --distributed trains on the world's mesh
+# --multi-pod, with or without --dry-run, trains on (or dry-runs) a pod
+# mesh, which needs a world of ranks: without --distributed it raises
+# (with it: tests/test_torch_dist_multipod.py, and the two cases below).
+# --distributed trains on the world's mesh
 # (test_launch_train_distributed_on_four_cpu_ranks); without a card it
 # runs only when asked for the CPU (gloo), and refuses otherwise
 POD_FLAGS = {"--dry-run": (["--dry-run", "--multi-pod"], "cpu",
-                           NotImplementedError, "item 11"),
-             "--multi-pod": (["--multi-pod"], "cpu", NotImplementedError,
-                             "item 11"),
+                           ValueError, "needs a world of ranks"),
+             "--multi-pod": (["--multi-pod"], "cpu", ValueError,
+                             "needs a world of ranks"),
              "--distributed": (["--distributed"], None, RuntimeError,
                                "no CUDA device")}
 
@@ -402,6 +404,35 @@ def test_launch_train_pod_flags_raise(flag):
         launch_train.main(["--arch", "llama3.2-3b", "--test-mesh",
                            "--steps", "1", *argv]
                           + (["--device", device] if device else []))
+
+
+# --multi-pod --distributed on a world of one rank: the pod axis of 2
+# does not divide it, so the mesh refuses; on a world of two it trains on
+# (2, 1, 1), and --dry-run writes the multipod record
+POD_RUNS = {"one rank": (1, [], "does not divide 1"),
+            "two ranks": (2, [], None),
+            "two ranks, --dry-run": (2, ["--dry-run"], None)}
+
+
+@pytest.mark.parametrize("case", list(POD_RUNS))
+def test_launch_train_multi_pod_with_a_world(tmp_path, case):
+    world, extra, refusal = POD_RUNS[case]
+    run_ranks("launch_multi_pod", tmp_path, world=world, join=False,
+              timeout=180, extra=extra, refusal=refusal)
+    out = torch.load(tmp_path / "launch_multi_pod_out.pt",
+                     weights_only=False)
+    if refusal is not None:
+        assert refusal in out["refused"]
+        return
+    if extra:
+        rec = json.loads((tmp_path / "dryrun" /
+                          "llama3.2-3b__train_4k__2x1x1.json").read_text())
+        assert (rec["mesh"], rec["chips"], rec["status"]) == \
+            ("multipod", 2, "ok")
+        assert set(rec["collectives"]["per_axis"]) == {"pod"}
+        return
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_launch_train_distributed_on_four_cpu_ranks(tmp_path):

@@ -21,8 +21,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] \
     + sorted((ROOT / "tools").glob("torch_*.py")) \
-    + [ROOT / "tools" / "lint_invariants_torch.py",
-       ROOT / "tools" / "chip_dist.py"] \
+    + [ROOT / "tools" / name for name in (
+        "lint_invariants_torch.py", "chip_dist.py", "kernel_ablation.py",
+        "probe_sac_route.py", "time_personalize.py",
+        "time_train_offload.py", "profile_torch_serve.py")] \
     + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

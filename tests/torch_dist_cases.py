@@ -24,6 +24,15 @@ from repro_torch.sharding import collectives as C
 from repro_torch.train.step import make_prefill_step, make_train_step
 
 
+# a mesh's axes by its rank: (data, model), or the multi-pod (pod, data,
+# model)
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def _mesh(shape):
+    return make_mesh(shape, AXES[len(shape)], device="cpu")
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
@@ -70,7 +79,7 @@ def train(rank: int, world: int, outdir: Path, stem: str = "train"
     inp = torch.load(outdir / f"{stem}_in.pt", weights_only=False)
     out = {}
     for mesh_shape in inp["meshes"]:
-        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mesh = _mesh(mesh_shape)
         mkey = "x".join(map(str, mesh_shape))
         for case in inp["cases"]:
             if case.get("mesh") not in (None, mkey):
@@ -364,6 +373,34 @@ def launch_train(rank: int, world: int, outdir: Path, *,
                    outdir / "launch_out.pt")
 
 
+def launch_multi_pod(rank: int, world: int, outdir: Path, *,
+                     rendezvous: str, extra: list, refusal) -> None:
+    """``launch.train --distributed --multi-pod --test-mesh --device cpu``
+    (two steps, or ``extra``'s run) as torchrun would start it on this
+    rank; where ``refusal`` names the error it expects, the message."""
+    import os
+
+    from repro_torch.launch import train as launch
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    argv = ["--arch", "llama3.2-3b", "--test-mesh", "--device", "cpu",
+            "--steps", "2", "--distributed", "--multi-pod",
+            "--dist-init", f"file://{rendezvous}",
+            "--dryrun-dir", str(outdir / "dryrun")] + extra
+    if refusal is not None:
+        try:
+            launch.main(argv)
+        except ValueError as e:
+            out = {"refused": str(e)}
+        else:
+            out = {"refused": ""}
+    else:
+        out = launch.main(argv)
+        out = {"history": out.get("history")}
+    if rank == 0:
+        torch.save(out, outdir / "launch_multi_pod_out.pt")
+
+
 def xlstm(rank: int, world: int, outdir: Path, *, rendezvous: str) -> None:
     """``tests/test_torch_dist_xlstm.py``: the sharded steps of
     :func:`train` on the xLSTM family, then ``launch.train --distributed
@@ -391,18 +428,19 @@ def xlstm(rank: int, world: int, outdir: Path, *, rendezvous: str) -> None:
         torch.save(out["history"], outdir / "launch_xlstm_out.pt")
 
 
-def decode(rank: int, world: int, outdir: Path) -> None:
+def decode(rank: int, world: int, outdir: Path, stem: str = "decode"
+           ) -> None:
     """``tests/test_torch_dist_decode.py``: every (mesh, config) case's
-    sharded decode steps over ``decode_in.pt``'s tokens and lengths from
+    sharded decode steps over ``<stem>_in.pt``'s tokens and lengths from
     a zero state (the cross caches written from the input first): each
     step's logits and the final state, gathered."""
     from repro_torch.train.step import make_decode_step
-    inp = torch.load(outdir / "decode_in.pt", weights_only=False)
+    inp = torch.load(outdir / f"{stem}_in.pt", weights_only=False)
     out = {}
     b, length = inp["batch"], inp["max_seq"]
     shape = ShapeConfig("decode", length, b, "decode")
     for mesh_shape in inp["meshes"]:
-        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mesh = _mesh(mesh_shape)
         mkey = "x".join(map(str, mesh_shape))
         for name, (arch, over) in inp["configs"].items():
             cfg = reduce_config(ARCHS[arch], **over)
@@ -425,7 +463,7 @@ def decode(rank: int, world: int, outdir: Path) -> None:
                 "logits": np.stack(logits),
                 "state": _gather_state(state, bundle.in_shardings[1])}
     if rank == 0:
-        torch.save(out, outdir / "decode_out.pt")
+        torch.save(out, outdir / f"{stem}_out.pt")
 
 
 def _gather_state(state, shardings):
@@ -530,7 +568,7 @@ def seqpar(rank: int, world: int, outdir: Path) -> None:
     inp = torch.load(outdir / "seqpar_in.pt", weights_only=False)
     out = {}
     for mesh_shape in inp["meshes"]:
-        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mesh = _mesh(mesh_shape)
         mkey = "x".join(map(str, mesh_shape))
         out.update({(mkey,) + k: v
                     for k, v in seqpar_runs(inp, mesh).items()})
@@ -609,17 +647,17 @@ def int8_runs(inp: dict, mesh=None, fsdp=None, grads=None) -> dict:
         api.clear_overrides()
 
 
-def int8(rank: int, world: int, outdir: Path) -> None:
+def int8(rank: int, world: int, outdir: Path, stem: str = "int8") -> None:
     """``tests/test_torch_dist_int8.py``: :func:`int8_runs` on every
-    (mesh, FSDP) case of ``int8_in.pt``."""
-    inp = torch.load(outdir / "int8_in.pt", weights_only=False)
+    (mesh, FSDP) case of ``<stem>_in.pt``."""
+    inp = torch.load(outdir / f"{stem}_in.pt", weights_only=False)
     out = {}
     for mesh_shape, fsdp in inp["cases"]:
-        mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+        mesh = _mesh(mesh_shape)
         out[("x".join(map(str, mesh_shape)), fsdp)] = int8_runs(inp, mesh,
                                                                 fsdp)
     if rank == 0:
-        torch.save(out, outdir / "int8_out.pt")
+        torch.save(out, outdir / f"{stem}_out.pt")
 
 
 def mesh_cells(rank: int, world: int, outdir: Path) -> None:
@@ -641,3 +679,140 @@ def mesh_cells(rank: int, world: int, outdir: Path) -> None:
             device="cpu")
     if rank == 0:
         torch.save(recs, outdir / "mesh_cells_out.pt")
+
+
+def multipod(rank: int, world: int, outdir: Path, *,
+             rendezvous: str) -> None:
+    """``tests/test_torch_dist_multipod.py`` on the (pod, data, model)
+    meshes: :func:`train`'s cases, :func:`decode`'s, :func:`int8`'s, a
+    checkpoint saved on (2, 1, 2) and restored onto (2, 2) and onto one
+    device, the process groups of the pod mesh; then ``launch.train
+    --distributed --multi-pod`` (two steps, then ``--dry-run``) and a
+    resume of its checkpoint on the (2, 2) mesh, each a world of its own
+    as torchrun would start it."""
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        train(rank, world, outdir, stem="multipod")
+        decode(rank, world, outdir, stem="multipod_decode")
+        int8(rank, world, outdir, stem="multipod_int8")
+        res = _pod_checkpoint(rank, world, outdir)
+        res["groups"] = _pod_groups(rank, world)
+        if rank == 0:
+            torch.save(res, outdir / "multipod_misc_out.pt")
+    finally:
+        dist.destroy_process_group()
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    common = ["--arch", "llama3.2-3b", "--test-mesh", "--device", "cpu",
+              "--distributed"]
+    out = launch.main(common + ["--multi-pod", "--steps", "2",
+                                "--dist-init", f"file://{rendezvous}_pod",
+                                "--ckpt-dir", str(outdir / "launch_pod")])
+    rec = launch.main(common + ["--multi-pod", "--dry-run",
+                                "--dist-init", f"file://{rendezvous}_dry",
+                                "--dryrun-dir", str(outdir / "dryrun")])
+    # the pod mesh's checkpoint resumed on (2, 2): the run a lost pod's
+    # ranks would continue on a mesh of other cards
+    resumed = launch.main(common + ["--steps", "3", "--dist-init",
+                                    f"file://{rendezvous}_resume",
+                                    "--ckpt-dir", str(outdir / "launch_pod")])
+    if rank == 0:
+        torch.save({"history": out["history"], "dry_run": rec,
+                    "resumed": resumed["history"]},
+                   outdir / "multipod_launch_out.pt")
+
+
+def _pod_checkpoint(rank: int, world: int, outdir: Path) -> dict:
+    """One AdamW step of ``multipod_ckpt_in.pt``'s config on (2, 1, 2),
+    its parameters and moments saved by every rank, then restored onto
+    (2, 2) (every rank) and onto one device (rank 0, whole): each side
+    gathered whole, and the arrays each rank's shard file holds."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    inp = torch.load(outdir / "multipod_ckpt_in.pt", weights_only=False)
+    arch, over = inp["config"]
+    cfg = reduce_config(ARCHS[arch], **over)
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+    shape = ShapeConfig("t", batch["tokens"].shape[1],
+                        batch["tokens"].shape[0], "train")
+
+    def gathered(bundle, named, state):
+        p_shard, o_shard, _ = bundle.in_shardings
+        return {"params": _gather_tree(named, p_shard),
+                "m": _gather_tree({n: state["mu"][n]["m"] for n in named},
+                                  {n: o_shard["mu"][n]["m"] for n in named}),
+                "v": _gather_tree({n: state["mu"][n]["v"] for n in named},
+                                  {n: o_shard["mu"][n]["v"] for n in named}),
+                "count": int(state["count"])}
+
+    bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                             mesh=_mesh((2, 1, 2)))
+    params = bundle.shard_params(model.init(0, device="cpu",
+                                            trainable=True))
+    state = bundle.init_state(params)
+    bundle(params, state, batch)
+    named = dict(params.named_parameters())
+    ckpt = CheckpointManager(str(outdir / "pod_ckpt"), host_id=rank,
+                             n_hosts=world)
+    ckpt.save(1, (named, state), {"epoch": 0, "index": 8}, blocking=True,
+              shardings=bundle.in_shardings[:2])
+    res = {"saved": gathered(bundle, named, state)}
+    torch.distributed.barrier()
+
+    bundle = make_train_step(model, make_optimizer("adamw"), shape,
+                             mesh=_mesh((2, 2)))
+    fresh = bundle.shard_params(model.init(7, device="cpu", trainable=True))
+    state = bundle.init_state(fresh)
+    named = dict(fresh.named_parameters())
+    _, ds = CheckpointManager(str(outdir / "pod_ckpt")).restore(
+        1, (named, state), shardings=bundle.in_shardings[:2])
+    res["restored_2x2"] = gathered(bundle, named, state)
+    res["data_state"] = ds
+    if rank == 0:
+        one = make_train_step(model, make_optimizer("adamw"), shape)
+        whole = model.init(7, device="cpu", trainable=True)
+        state = one.init_state(whole)
+        named = dict(whole.named_parameters())
+        CheckpointManager(str(outdir / "pod_ckpt")).restore(
+            1, (named, state))
+        res["restored_one"] = {
+            "params": {n: _np(p) for n, p in named.items()},
+            "m": {n: _np(state["mu"][n]["m"]) for n in named},
+            "v": {n: _np(state["mu"][n]["v"]) for n in named},
+            "count": int(state["count"])}
+        step = outdir / "pod_ckpt" / "step_1"
+        res["files"] = {h: {k: tuple(a.shape) for k, a in np.load(
+            step / f"shard_{h}.npz").items()} for h in range(world)}
+    return res
+
+
+def _pod_groups(rank: int, world: int) -> dict:
+    """On (2, 1, 2) and (2, 2, 1): each rank's value summed over ``pod``,
+    over the tuple (pod, data) and over (pod, data, model), with the
+    group ranks and the axis each collective was recorded under."""
+    import torch.distributed as dist
+    out = {}
+    for shape in ((2, 1, 2), (2, 2, 1)):
+        mesh = _mesh(shape)
+        x = torch.tensor([float(rank)])
+        with C.record_calls() as calls:
+            sums = {str(a): float(C.all_reduce(x, a, mesh=mesh))
+                    for a in ("pod", ("pod", "data"),
+                              ("pod", "data", "model"))}
+        group = mesh.group(("pod", "data"))
+        found = [None] * world
+        dist.all_gather_object(found, {
+            "sums": sums, "axes": [c["axis"] for c in calls],
+            "group": dist.get_process_group_ranks(group),
+            "coords": mesh.coords()})
+        out["x".join(map(str, shape))] = found
+    return out

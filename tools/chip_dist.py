@@ -12,8 +12,10 @@ llama3.2-3b's sharded decode over a long cache.
         --arch zamba2-7b --shape long_500k
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --allreduce
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --suite
+    torchrun --standalone --nproc-per-node 4 tools/chip_dist.py --multi-pod
     torchrun --standalone --nproc-per-node 4 tools/chip_dist.py \
-        --device cpu --test-mesh [--arch ... | --decode ... | --suite]
+        --device cpu --test-mesh [--arch ... | --decode ... | --suite |
+        --multi-pod]
 
 The port's sharded train step (``repro_torch.train.step`` with a mesh) on
 the reference's (data, model) = (2, 2) mesh over NCCL, one card per
@@ -62,6 +64,25 @@ its bus bandwidth (bytes x 2 (n - 1) / n over the time) beside the data
 sheet's NVLink rate of one direction (``launch/hw.py``, 450 GB/s).
 ``--suite`` runs the all-reduce, the zamba2-7b ``long_500k`` decode and
 the vision LM's int8 train step in turn, in one process group.
+
+``--multi-pod``: llama3.2-3b's train step (``train_4k`` rows: 4
+sequences of 4096, fp32 parameters and AdamW moments, FSDP by the size
+rule) on the reference's multi-pod mesh at four ranks, (pod, data,
+model) = (2, 1, 2) and (2, 2, 1), each held against the (data, model) =
+(2, 2) step of the same batch from the same parameters in the same
+world: at ``POD_FP32_DEPTH`` layers in fp32 (each gradient leaf
+normwise within 1e-4, the loss within 1e-4) and at full depth in bf16.
+First one fp32 step at full depth on (2, 2); each bf16 row prints its
+whole gradient's normwise distance from that one (``fp32_rel``), and a
+pod mesh's must stay within 1.25 times (2, 2)'s own (the loss within
+2e-2 of (2, 2)'s): two correct bf16 roundings of the step part by about
+that distance, so the bf16 rows' distance from each other (``grad_rel``,
+printed) is not gated.
+Each micro-batch gives every batch rank one sequence.  Per mesh rank 0
+prints the step seconds, every card's peak, the collectives by kind and
+by axis (one step's records), the flash and SwiGLU launches by variant,
+and the ``pod`` axis's bytes a rank beside their reckoning (every
+gradient block the pod all-reduce sums, and the loss and norm scalars).
 
 Every run's last step is counted by the cost probe's counters
 (``probe.counting``, the kernels' terms added: ``dryrun.mesh_probe``),
@@ -122,6 +143,23 @@ ALLREDUCE_BYTES, ALLREDUCE_REPS = 1 << 30, 10
 SUITE = (("allreduce", None, None),
          ("decode", "zamba2-7b", "long_500k"),
          ("train", "llama-3.2-vision-11b", "adamw_int8"))
+# --multi-pod: the reference (data, model) mesh first, then the pod meshes
+POD_ARCH = "llama3.2-3b"
+POD_MESHES = (((2, 2), ("data", "model")),
+              ((2, 1, 2), ("pod", "data", "model")),
+              ((2, 2, 1), ("pod", "data", "model")))
+POD_FP32_DEPTH = 4
+# (dtype, layers (None: all), gate, meshes).  fp32: the loss and each
+# gradient leaf normwise from (2, 2)'s within the gate.  bf16: the loss
+# from (2, 2)'s within POD_BF16_LOSS_TOL, and the whole gradient's
+# normwise distance from the fp32 gradient at full depth within the gate
+# times (2, 2)'s own distance from it (two correct bf16 roundings of the
+# step part by about that distance: (2, 2, 1) sums its batch in one
+# micro-batch, (2, 2) in two).  Gate None: that fp32 gradient.
+POD_BF16_LOSS_TOL = 2e-2
+POD_RUNS = (("float32", None, None, POD_MESHES[:1]),
+            ("bfloat16", None, 1.25, POD_MESHES),
+            ("float32", POD_FP32_DEPTH, 1e-4, POD_MESHES))
 
 
 def init_sharded(cfg, shardings, device, seed: int = 0):
@@ -587,6 +625,190 @@ def run_train(args, rank, world, device, on_card, gpu) -> int:
     return 0 if out["ok"] else 1
 
 
+def _pod_grads(into: dict, base):
+    """``base`` whose update first hands ``into["fn"]`` each gradient
+    block it is given (after every reduction), gathered whole on every
+    rank by ``into["shardings"]``, one leaf at a time, while
+    ``into["on"]`` is set."""
+    from repro_torch.sharding import collectives as C
+
+    def update_(grads, state, params, *rest):
+        if into.get("on"):
+            for n, g in grads.items():
+                into["fn"](n, C.gather_global(g, into["shardings"][n]))
+        base.update_(grads, state, params, *rest)
+
+    return dataclasses.replace(base, update_=update_)
+
+
+def run_multipod(args, rank, world, device, on_card, gpu) -> int:
+    """``--multi-pod``: llama3.2-3b's train step on (2, 1, 2) and (2, 2,
+    1) against (2, 2), in each of ``POD_RUNS``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fused_swiglu import kernel as sw
+    from repro_torch.launch.comm_analysis import analyze_collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model, reduce_config
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train.step import make_train_step
+
+    ok = True
+    fp32_full = {}          # the full-depth fp32 gradient, on rank 0's host
+    for dtype, depth, gate, meshes in POD_RUNS:
+        cfg = dataclasses.replace(ARCHS[POD_ARCH], attention_impl="pallas",
+                                  dtype=dtype)
+        seq = SEQ
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if args.test_mesh:
+            cfg = reduce_config(cfg, block_q=32, block_kv=32,
+                                attention_impl="pallas")
+            seq = 48
+        shape = ShapeConfig("train_4k", seq, BATCH, "train")
+        # (2, 2)'s gradients, on rank 0's host (the fp32 reference's into
+        # fp32_full)
+        ref = fp32_full if gate is None else {}
+        for mesh_shape, axes in meshes:
+            mesh = make_mesh(mesh_shape, axes,
+                             device="cuda" if on_card else "cpu")
+            key = "x".join(map(str, mesh_shape))
+            batch_ranks = math.prod(mesh.shape[a] for a in ("pod", "data")
+                                    if a in mesh.shape)
+            micro = BATCH // batch_ranks
+            model = build_model(cfg)
+            hook = {}
+            bundle = make_train_step(
+                model, _pod_grads(hook, make_optimizer("adamw")), shape,
+                mesh=mesh, microbatches=micro)
+            # the gradient blocks the update is given are the moments'
+            m_shard = {n: v["m"] for n, v in
+                       bundle.in_shardings[1]["mu"].items()}
+            hook["shardings"] = m_shard
+            params = init_whole(model, bundle.in_shardings[0], device)
+            state = bundle.init_state(params)
+            reckoned = 4 * sum(math.prod(sh.shard_shape(s)) for sh, s in
+                               ((m_shard[n], model.param_shapes()[n])
+                                for n in m_shard)) + 8
+            errs = {"leaf_max": 0.0, "leaf": None, "diff": 0.0, "ref": 0.0,
+                    "fp32_diff": 0.0, "fp32_ref": 0.0}
+
+            def keep(n, g):
+                if rank != 0:
+                    return
+                if fp32_full.get("done") and depth is None:
+                    want = fp32_full[n].to(g.device)
+                    errs["fp32_diff"] = max(errs["fp32_diff"], (
+                        g.float() - want).abs().max().item())
+                    errs["fp32_ref"] = max(errs["fp32_ref"],
+                                           want.abs().max().item())
+                if not ref.get("done"):
+                    ref[n] = g.float().cpu()
+                    return
+                want = ref[n].to(g.device)
+                d = (g.float() - want).abs().max().item()
+                m = want.abs().max().item()
+                rel = d / max(m, 1e-30)
+                if rel > errs["leaf_max"]:
+                    errs["leaf_max"], errs["leaf"] = rel, n
+                errs["diff"] = max(errs["diff"], d)
+                errs["ref"] = max(errs["ref"], m)
+
+            hook["fn"] = keep
+            losses, times, calls = [], [], []
+            fa.reset_launches()
+            sw.reset_launches()
+            for step in range(args.steps if gate is not None else 1):
+                batch = batch_for(cfg, seq, step, device)
+                hook["on"] = step == 0
+                last = step == args.steps - 1
+                C.reset_tally()
+                if on_card:
+                    torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                with C.record_calls() if last else \
+                        contextlib.nullcontext([]) as found:
+                    _, _, metrics = bundle(params, state, batch)
+                    losses.append(float(metrics["loss"]))
+                dist.barrier()
+                step_s = time.perf_counter() - t0
+                if step > 0:
+                    times.append(step_s)
+                if last:
+                    calls = found
+            coll = analyze_collectives(calls=calls)
+            pod_bytes = [None] * world
+            dist.all_gather_object(pod_bytes, sum(
+                d["operand_bytes"] for axis, kinds in coll["per_axis"].items()
+                if "pod" in axis.split("+") for d in kinds.values()))
+            peaks = [None] * world
+            dist.all_gather_object(
+                peaks, torch.cuda.max_memory_allocated(device) / 1e9
+                if on_card else None)
+            row = {"phase": "multipod", "dtype": dtype,
+                   "layers": cfg.n_layers, "mesh": list(mesh_shape),
+                   "axes": list(axes), "microbatches": micro,
+                   "batch": BATCH, "seq": seq, "losses": losses,
+                   "step_s": times,
+                   "median_step_s": sorted(times)[len(times) // 2]
+                   if times else None,
+                   "collectives_by_kind": coll["per_op"],
+                   "collectives_by_axis": coll["per_axis"],
+                   "collective_bytes": coll["collective_bytes"],
+                   "pod_axis_bytes_by_rank": pod_bytes,
+                   "pod_axis_bytes_reckoned": reckoned
+                   if "pod" in mesh.shape else 0,
+                   "flash_launches": dict(fa.LAUNCHES_BY_VARIANT),
+                   "swiglu_launches": dict(sw.LAUNCHES_BY_VARIANT),
+                   "peak_gb": peaks, "gpu": gpu}
+            if rank == 0:
+                if errs["fp32_ref"]:
+                    row["fp32_rel"] = errs["fp32_diff"] / errs["fp32_ref"]
+                if not ref.get("done"):
+                    ref["done"], ref["loss"] = True, losses[0]
+                    ref["fp32_rel"] = row.get("fp32_rel")
+                    row["reference"] = "fp32 gradient at full depth" \
+                        if gate is None else "the (2, 2) step"
+                else:
+                    loss_rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+                    if dtype == "bfloat16":
+                        grad_rel = errs["diff"] / max(errs["ref"], 1e-30)
+                        passed = loss_rel <= POD_BF16_LOSS_TOL and \
+                            row["fp32_rel"] <= gate * ref["fp32_rel"]
+                        row.update(
+                            grad_gate="whole gradient normwise from the "
+                                      "fp32 one, within gate x (2, 2)'s",
+                            fp32_rel_2x2=ref["fp32_rel"],
+                            loss_gate=POD_BF16_LOSS_TOL)
+                    else:
+                        grad_rel = errs["leaf_max"]
+                        passed = loss_rel <= gate and grad_rel <= gate
+                        row.update(grad_gate="each leaf normwise")
+                    row.update(against="2x2", loss_rel=loss_rel,
+                               grad_rel=grad_rel, worst_leaf=errs["leaf"],
+                               grad_leaf_max_rel=errs["leaf_max"],
+                               gate=gate, passed=passed)
+                    ok &= passed
+                ok &= all(map(math.isfinite, losses))
+                if on_card:
+                    ok &= fa.LAUNCHES > 0 and sw.LAUNCHES > 0
+                print(json.dumps(row), flush=True)
+            del params, state, bundle, model
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+    flags = [None] * world
+    dist.all_gather_object(flags, ok)
+    if rank == 0:
+        print(json.dumps({"phase": "done", "ok": bool(flags[0]),
+                          "arch": POD_ARCH, "gpu": gpu}), flush=True)
+    return 0 if flags[0] else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
@@ -611,6 +833,10 @@ def main(argv=None) -> int:
     ap.add_argument("--suite", action="store_true",
                     help="the all-reduce, zamba2-7b's long_500k decode and "
                          "the vision LM's int8 train step, in turn")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="llama3.2-3b's train step on the (pod, data, "
+                         "model) meshes (2, 1, 2) and (2, 2, 1) against "
+                         "(2, 2)")
     args = ap.parse_args(argv)
 
     rank = int(os.environ["RANK"])
@@ -632,6 +858,8 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip().splitlines()[:1] if on_card else []
+        if args.multi_pod:
+            return run_multipod(args, rank, world, device, on_card, gpu)
         if args.suite:
             plan = SUITE
         elif args.allreduce:
